@@ -1,0 +1,184 @@
+"""MOT association + track lifecycle on top of the filter bank.
+
+One frame step with static shapes: predict every slot (yielding the
+innovation quantities S, S^{-1}, P·Hᵀ once), gate with the squared
+Mahalanobis distance against that S^{-1}, greedy globally-ordered
+assignment, update the associated slots, spawn tentative tracks for the
+unassigned measurements, prune coasted tracks.
+
+Under ``TrackerConfig.fused_frame`` (the default) the measurement cycle
+is one call of the ``katana_frame`` / ``katana_imm_frame`` kernels;
+plain torch keeps the lifecycle counters, spawn and prune. The einsum
+route (``fused_frame=False``) is the port's own equivalence oracle and
+the route for models the kernels do not serve.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import bank as bank_lib
+from repro_torch.core.bank import BankState, IMMBankState
+from repro_torch.core.filters import FilterModel, IMMModel
+from repro_torch.core.rewrites import imm_combine
+from repro_torch.kernels.katana_bank.ops import (frame_kernel_supported,
+                                                 katana_frame,
+                                                 katana_imm_frame)
+from repro_torch.kernels.katana_bank.ref import F32_MAX, first_argmin
+
+# 99% chi-square quantiles by dof
+CHI2_99 = {1: 6.63, 2: 9.21, 3: 11.34, 4: 13.28, 5: 15.09, 6: 16.81}
+
+
+@dataclass(frozen=True)
+class TrackerConfig:
+    capacity: int = 256
+    max_meas: int = 64
+    gate: float = 0.0         # 0 => chi2_99[m]
+    max_misses: int = 5
+    min_hits: int = 3         # confirmations before a track is "real"
+    dtype: str = "float32"
+    # route the measurement cycle through the fused frame kernels; the
+    # einsum route stays the oracle and serves models outside
+    # ``frame_kernel_supported``
+    fused_frame: bool = True
+    # multiplies the chi-square gate (1.0 = nominal)
+    gate_scale: float = 1.0
+    # a z row with NaN/inf is treated as "no detection": its valid bit is
+    # cleared and the row zeroed before either route sees it
+    nan_guard: bool = True
+
+
+class FrameResult(NamedTuple):
+    bank: BankState           # BankState or IMMBankState
+    assoc: torch.Tensor       # (C,) measurement index per slot or -1
+    unassigned: torch.Tensor  # (M,) bool — measurements that spawned
+    confirmed: torch.Tensor   # (C,) bool — active & hits >= min_hits
+    mode_probs: Optional[torch.Tensor] = None  # (C, K) IMM mode probs
+    x_est: Optional[torch.Tensor] = None       # (C, n) IMM combined means
+
+
+def mahalanobis_cost(z_pred: torch.Tensor, Sinv: torch.Tensor,
+                     z: torch.Tensor) -> torch.Tensor:
+    """(C, m), (C, m, m) precomputed S^{-1}, (M, m) -> (C, M) squared
+    Mahalanobis."""
+    y = z[None, :, :] - z_pred[:, None, :]        # (C, M, m)
+    return torch.einsum("cMm,cmn,cMn->cM", y, Sinv, y)
+
+
+def greedy_assign(cost: torch.Tensor, valid: torch.Tensor, gate,
+                  rounds: int) -> torch.Tensor:
+    """Globally-ordered greedy assignment: each of ``rounds`` rounds
+    commits the global minimum of the masked (C, M) cost (first
+    occurrence, slot-major) and masks its row and column. Returns assoc
+    (C,) int32, measurement index or -1."""
+    C, M = cost.shape
+    dev = cost.device
+    big = torch.tensor(F32_MAX, dtype=cost.dtype, device=dev)
+    gate = torch.as_tensor(gate, dtype=cost.dtype, device=dev)
+    masked = torch.where(valid & (cost <= gate), cost, big)
+    assoc = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    iC = torch.arange(C, device=dev)
+    iM = torch.arange(M, device=dev)
+    for _ in range(rounds):
+        flat = masked.reshape(-1)
+        mn, idx = first_argmin(flat, 0)
+        c, mm = idx // M, idx % M
+        ok = mn < big
+        assoc = torch.where(ok & (iC == c), mm.to(torch.int32), assoc)
+        kill = (iC == c)[:, None] | (iM == mm)[None, :]
+        masked = torch.where(ok & kill, big, masked)
+    return assoc
+
+
+def _use_fused_frame(model, cfg: TrackerConfig) -> bool:
+    return cfg.fused_frame and frame_kernel_supported(model)
+
+
+def _frame_inputs(model, cfg: TrackerConfig, z: torch.Tensor,
+                  z_valid: torch.Tensor):
+    """The scaled gate, the assignment round bound, the cast
+    measurements and the (NaN-guarded) validity mask — applied before
+    the route split, so both routes see identical inputs."""
+    dtype = getattr(torch, cfg.dtype)
+    gate = (cfg.gate or CHI2_99.get(model.m, 16.0)) * cfg.gate_scale
+    rounds = min(cfg.capacity, cfg.max_meas)
+    zt = z.to(dtype)
+    if cfg.nan_guard:
+        finite = torch.isfinite(zt).all(dim=-1)
+        z_valid = z_valid & finite
+        zt = torch.where(finite[:, None], zt,
+                         torch.zeros((), dtype=dtype, device=zt.device))
+    return dtype, float(gate), rounds, zt, z_valid
+
+
+def _unassigned(assoc, z_valid, max_meas: int):
+    taken = torch.zeros((max_meas,), dtype=torch.int32, device=assoc.device)
+    taken = taken.scatter_reduce(0, assoc.clamp(0, max_meas - 1).long(),
+                                 (assoc >= 0).to(torch.int32), reduce="amax")
+    return z_valid & ~taken.bool()
+
+
+def frame_step(model: FilterModel, cfg: TrackerConfig, bank: BankState,
+               z: torch.Tensor, z_valid: torch.Tensor) -> FrameResult:
+    """One tracking frame. z: (max_meas, m); z_valid: (max_meas,) bool."""
+    dtype, gate, rounds, zt, z_valid = _frame_inputs(model, cfg, z, z_valid)
+    if _use_fused_frame(model, cfg):
+        x2, P2, assoc = katana_frame(model, bank.x, bank.P, zt, z_valid,
+                                     bank.active, gate=gate, rounds=rounds)
+        hits, misses, age = bank_lib.lifecycle_counters(bank, assoc)
+        bank_u = bank._replace(x=x2, P=P2, hits=hits, misses=misses,
+                               age=age)
+    else:
+        bank_p, z_pred, _S, Sinv, PHt = bank_lib.predict_bank(model, bank,
+                                                              dtype)
+        cost = mahalanobis_cost(z_pred, Sinv, zt)
+        valid = bank_p.active[:, None] & z_valid[None, :]
+        assoc = greedy_assign(cost, valid, gate, rounds)
+        bank_u = bank_lib.update_bank(model, bank_p, zt, assoc, PHt, Sinv,
+                                      dtype)
+    unassigned = _unassigned(assoc, z_valid, cfg.max_meas)
+    bank_s = bank_lib.spawn_tracks(model, bank_u, zt, unassigned, dtype)
+    bank_f = bank_lib.prune_bank(bank_s, cfg.max_misses)
+    confirmed = bank_f.active & (bank_f.hits >= cfg.min_hits)
+    return FrameResult(bank_f, assoc, unassigned, confirmed)
+
+
+def imm_frame_step(imm: IMMModel, cfg: TrackerConfig, bank: IMMBankState,
+                   z: torch.Tensor, z_valid: torch.Tensor) -> FrameResult:
+    """One IMM tracking frame: mixing, K predicts, the cbar-weighted gate
+    sum_k cbar_k d_k, assignment, K updates and the mode posterior.
+    ``x_est`` is the moment-matched combined state; a slot spawned this
+    frame takes its seed state (all modes seeded identically)."""
+    dtype, gate, rounds, zt, z_valid = _frame_inputs(imm, cfg, z, z_valid)
+    fused = _use_fused_frame(imm, cfg)
+    if fused:
+        x2, P2, mu2, x_c, assoc = katana_imm_frame(
+            imm, bank.x, bank.P, bank.mu, zt, z_valid, bank.active,
+            gate=gate, rounds=rounds)
+        hits, misses, age = bank_lib.lifecycle_counters(bank, assoc)
+        bank_u = bank._replace(x=x2, P=P2, mu=mu2, hits=hits,
+                               misses=misses, age=age)
+    else:
+        bank_p, z_pred, S, Sinv, PHt, cbar = bank_lib.predict_imm_bank(
+            imm, bank, dtype)
+        cost = sum(cbar[:, k, None] * mahalanobis_cost(z_pred[k], Sinv[k],
+                                                       zt)
+                   for k in range(imm.K))
+        valid = bank_p.active[:, None] & z_valid[None, :]
+        assoc = greedy_assign(cost, valid, gate, rounds)
+        bank_u = bank_lib.update_imm_bank(imm, bank_p, zt, assoc, z_pred,
+                                          PHt, Sinv, S, cbar, dtype)
+    unassigned = _unassigned(assoc, z_valid, cfg.max_meas)
+    bank_s = bank_lib.spawn_imm_tracks(imm, bank_u, zt, unassigned, dtype)
+    bank_f = bank_lib.prune_bank(bank_s, cfg.max_misses)
+    confirmed = bank_f.active & (bank_f.hits >= cfg.min_hits)
+    if fused:
+        spawned = bank_s.active & ~bank_u.active
+        x_est = torch.where(spawned[:, None], bank_f.x[0], x_c)
+    else:
+        x_est, _ = imm_combine(bank_f.x, bank_f.P, bank_f.mu)
+    return FrameResult(bank_f, assoc, unassigned, confirmed,
+                       mode_probs=bank_f.mu, x_est=x_est)

@@ -1,0 +1,142 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` -> ``.so`` -> ``ctypes``.
+
+Each source under ``kernels/katana_bank/csrc/`` compiles on first use
+into its own shared library with a plain C interface, in
+``<repo>/build/kernels/``, named by a digest of the sources and flags
+(an edited source builds anew). Sources compile in parallel, one
+``nvcc`` process each. No PyTorch headers are involved, so a build
+takes seconds. The flags keep IEEE rounding: ``--fmad=false`` (no
+multiply-add contraction) and no ``--use_fast_math``.
+
+Every exported function returns ``cudaGetLastError()`` after its
+launches; ``check`` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build" / "kernels"
+CSRC = Path(__file__).resolve().parent / "katana_bank" / "csrc"
+SOURCES = ("frame.cu", "imm_frame.cu", "greedy.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "frame.cu": {
+        "katana_frame_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
+                             _F, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "imm_frame.cu": {
+        "katana_imm_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _P, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+                                 _P],
+    },
+    "greedy.cu": {
+        "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P],
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# source -> {"path", "seconds", "ptxas": [lines]} for every source built
+# or found in this process
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc"]:
+        if os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest(source: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(source: str) -> Path:
+    return BUILD_DIR / f"{Path(source).stem}-{_digest(source)}.so"
+
+
+def build(sources: Iterable[str] = SOURCES) -> Dict[str, dict]:
+    """Compile every listed source whose library is missing, all at once
+    (one ``nvcc`` each). Raises with the compiler's output if any fails.
+    Returns ``BUILD_LOG`` entries for the listed sources."""
+    sources = list(sources)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for src in sources:
+        out = lib_path(src)
+        if out.exists():
+            BUILD_LOG.setdefault(src, {"path": str(out), "seconds": 0.0,
+                                       "ptxas": []})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    failed = []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_LOG[src] = {
+            "path": str(out), "seconds": time.perf_counter() - t0,
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {src: BUILD_LOG[src] for src in sources}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(lib_path(source)))
+            for name, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.katana_error_string.argtypes = [ctypes.c_int]
+            lib.katana_error_string.restype = ctypes.c_char_p
+            _LIBS[source] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if code != 0:
+        msg = lib.katana_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,27 @@
+// greedy_assign: the frames' in-kernel greedy assignment as its own
+// launch, over a canonical (C, M) cost and (C, M) pair-validity mask.
+//
+// Replaces repro/kernels/katana_bank/kernel.py:greedy_assign_step, the
+// test surface that holds the wave greedy against the sequential
+// reference. Same device code as the frames (greedy.cuh); only the tile
+// accessor differs (invalid pairs read as the FLT_MAX sentinel).
+// Bound: one read of the surviving cost tile per wave (see greedy.cuh).
+
+#include "greedy.cuh"
+
+extern "C" {
+
+int greedy_assign_run(int C, int Mz, const void* cost, const void* valid,
+                      float gate, int rounds, void* assoc, void* waves,
+                      void* stream) {
+  using namespace katana;
+  return (int)launch_greedy(
+      PairTile{(const float*)cost, (const uint8_t*)valid, Mz, gate}, C, Mz,
+      rounds, (int*)assoc, (int*)waves, static_cast<cudaStream_t>(stream));
+}
+
+const char* katana_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
