@@ -22,6 +22,7 @@ from repro_torch.core.rewrites import (gaussian_loglik, imm_mix,
                                        imm_mode_posterior, small_det,
                                        small_inv, stage_constants,
                                        sym_unpack, triu_pack)
+from repro_torch.kernels.katana_bank.ops import katana_imm_sequence
 
 
 class BankState(NamedTuple):
@@ -322,3 +323,16 @@ def update_imm_bank(imm: IMMModel, bank: IMMBankState, z: torch.Tensor,
     hits, misses, age = lifecycle_counters(bank, assoc)
     return bank._replace(x=x_out, P=P_out, mu=mu_out, hits=hits,
                          misses=misses, age=age)
+
+
+def replay_imm_bank(imm: IMMModel, bank: IMMBankState, zs: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None, **kw):
+    """Re-filter a pre-associated (T, C, m) stream seeded from the bank's
+    mode-conditioned state (x, P, mu): the IMM replay scan
+    (``ops.katana_imm_sequence``). ``valid`` (T, C) bool: a False frame
+    coasts the slot (time update only, mu <- cbar), as ``update_imm_bank``
+    treats an unassociated slot. Returns the (T, C, n) combined
+    estimates; ``return_final=True`` in ``kw`` also returns the final
+    (x, P, mu). The bank is not modified."""
+    return katana_imm_sequence(imm, zs, bank.x, bank.P, mu0=bank.mu,
+                               valid=valid, **kw)

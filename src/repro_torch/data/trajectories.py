@@ -2,9 +2,9 @@
 
 Seeded numpy generators (the same draws as the JAX package's, so both
 see identical arrays for the same seed): single-target sequences per
-filter model, multi-target MOT scenes with birth/death and clutter, and
-maneuvering targets switching between straight / coordinated-turn /
-accelerating segments (the IMM workload).
+filter model and batches of them, multi-target MOT scenes with
+birth/death and clutter, and maneuvering targets switching between
+straight / coordinated-turn / accelerating segments (the IMM workload).
 """
 from __future__ import annotations
 
@@ -37,6 +37,17 @@ def single_target(model: FilterModel, T: int, seed: int = 0,
         truth[t] = x
         zs[t] = H @ x + r * rng.normal(size=m)
     return truth, zs
+
+
+def batched_targets(model: FilterModel, T: int, N: int, seed: int = 0):
+    """(truth (T, N, n), z (T, N, m)): N independent targets, target k
+    drawn by ``single_target`` with seed ``seed * 100003 + k``."""
+    truths, zs = [], []
+    for k in range(N):
+        t, z = single_target(model, T, seed=seed * 100003 + k)
+        truths.append(t)
+        zs.append(z)
+    return np.stack(truths, 1), np.stack(zs, 1)
 
 
 def maneuvering_target(T: int, dt: float = 1.0 / 30.0, seed: int = 0,
@@ -77,6 +88,18 @@ def maneuvering_target(T: int, dt: float = 1.0 / 30.0, seed: int = 0,
             if t >= T:
                 break
     return truth, zs
+
+
+def maneuvering_batch(T: int, N: int, seed: int = 0,
+                      **kw) -> Tuple[np.ndarray, np.ndarray]:
+    """(truth (T, N, 9), z (T, N, 3)): N independent maneuvering
+    targets, target k drawn with seed ``seed * 100003 + k``."""
+    truths, zs = [], []
+    for k in range(N):
+        tr, z = maneuvering_target(T, seed=seed * 100003 + k, **kw)
+        truths.append(tr)
+        zs.append(z)
+    return np.stack(truths, 1), np.stack(zs, 1)
 
 
 @dataclass(frozen=True)

@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
 CSRC = Path(__file__).resolve().parent / "katana_bank" / "csrc"
-SOURCES = ("frame.cu", "imm_frame.cu", "greedy.cu")
+SOURCES = ("frame.cu", "imm_frame.cu", "greedy.cu", "scan.cu", "imm_scan.cu",
+           "imm_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -46,6 +47,20 @@ SIGNATURES = {
     },
     "greedy.cu": {
         "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P],
+    },
+    "scan.cu": {
+        "katana_bank_scan_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
+                                 _P, _P, _P, _P],
+        "katana_bank_step_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
+                                 _P, _P],
+    },
+    "imm_scan.cu": {
+        "katana_imm_scan_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                _F, _P, _P, _P, _P, _P],
+    },
+    "imm_step.cu": {
+        "katana_imm_step_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F,
+                                _P, _P, _P, _P],
     },
 }
 

@@ -20,32 +20,15 @@
 // spills of the K*n^2 working set bound it. Later work: keep the mixing in
 // shared memory and fuse the launches.
 //
-// Mixing follows the reference kernel, not rewrites.imm_mix: the spread
-// is the centred moment with model 0 as the per-track reference,
-//   P_mix_j = sum_i w_ij (P_i + xt_i xt_i^T) - mt_j mt_j^T,
-// with xt_i = x_i - x_0, mt_j = sum_i w_ij xt_i, x_mix_j = mt_j + x_0 and
-// w_ij = (Pi_ij mu_i) / max(cbar_j, FLT_MIN).
+// The mixing, the Markov prediction, the log-likelihood and the mode
+// posterior are imm.cuh's, shared with the IMM replay scan and step.
 
 #include "greedy.cuh"
-#include "kalman.cuh"
+#include "imm.cuh"
 
 namespace katana {
 
 constexpr int kThreads = 128;
-
-// cbar_j = sum_i Pi_ij mu_i, in index order.
-template <int K>
-__device__ __forceinline__ void markov_predict(const float* __restrict__ Pi,
-                                               const float (&mu)[K],
-                                               float (&cbar)[K]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    float acc = __ldg(Pi + j) * mu[0];
-#pragma unroll
-    for (int i = 1; i < K; ++i) acc = acc + __ldg(Pi + i * K + j) * mu[i];
-    cbar[j] = acc;
-  }
-}
 
 template <int N, int M, int K>
 __global__ void imm_predict_cost(int C, int Mz, const float* __restrict__ x,
@@ -80,35 +63,12 @@ __global__ void imm_predict_cost(int C, int Mz, const float* __restrict__ x,
       xt[d][i] = x[((size_t)i * C + c) * N + d] - x0v[d];
 
   float Si_all[K][M][M], zp_all[K][M];
+  auto Pat = [&](int i, int r, int q) {
+    return P[((size_t)i * C + c) * N * N + r * N + q];
+  };
   for (int j = 0; j < K; ++j) {
-    const float rden = 1.0f / fmaxf(cbar[j], FLT_MIN);
-    float w[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) w[i] = (__ldg(Pi + i * K + j) * mu_i[i]) * rden;
-    float mt[N], xm[N], Pm[N][N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      float acc = w[0] * xt[d][0];
-#pragma unroll
-      for (int i = 1; i < K; ++i) acc = acc + w[i] * xt[d][i];
-      mt[d] = acc;
-      xm[d] = mt[d] + x0v[d];
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-#pragma unroll
-      for (int q = r; q < N; ++q) {
-        float acc = w[0] * P[(size_t)c * N * N + r * N + q];
-#pragma unroll
-        for (int i = 1; i < K; ++i) {
-          const float A = P[((size_t)i * C + c) * N * N + r * N + q]
-                          + xt[r][i] * xt[q][i];
-          acc = acc + w[i] * A;
-        }
-        acc = acc - mt[r] * mt[q];
-        Pm[r][q] = acc;
-        Pm[q][r] = acc;
-      }
+    float xm[N], Pm[N][N];
+    imm_mix_model<N, K>(Pi, mu_i, cbar[j], j, x0v, xt, Pat, xm, Pm);
     const float* Fc = consts + j * stride;
     const float* Qc = Fc + N * N;
     const float* Rc = Fc + 2 * N * N;
@@ -175,30 +135,9 @@ __global__ void imm_update(int C, const float* __restrict__ z,
       innovation<N, M>(Pp, Rc, S, Si);
       kalman_update<N, M>(xp, Pp, Si, zk, y, xs[k], Pn);
       store_lane<N>(xo, Po, xs[k], Pn);
-      float d = 0.0f;
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        float Sy = Si[r][0] * y[0];
-#pragma unroll
-        for (int q = 1; q < M; ++q) Sy = Sy + Si[r][q] * y[q];
-        const float t = y[r] * Sy;
-        d = (r == 0) ? t : d + t;
-      }
-      ll[k] = -0.5f * ((d + logf(small_det<M>(S))) + log2pi_m);
+      ll[k] = gaussian_loglik<M>(S, Si, y, log2pi_m);
     }
-    float mx = ll[0];
-#pragma unroll
-    for (int k = 1; k < K; ++k) mx = fmaxf(mx, ll[k]);
-    float ws[K];
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ws[k] = cbar[k] * expf(ll[k] - mx);
-      s = (k == 0) ? ws[k] : s + ws[k];
-    }
-    const float rs = 1.0f / s;
-#pragma unroll
-    for (int k = 0; k < K; ++k) mu_sel[k] = ws[k] * rs;
+    mode_posterior<K>(cbar, ll, mu_sel);
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) mu_out[(size_t)c * K + k] = mu_sel[k];

@@ -1,4 +1,4 @@
-"""Wrappers of the live-frame kernels, canonical layouts in and out.
+"""Wrappers of the katana_bank kernels, canonical layouts in and out.
 
   ``katana_frame``          the single-model live frame: predict, gated
         Mahalanobis cost, greedy assignment, update (csrc/frame.cu).
@@ -8,14 +8,28 @@
   ``katana_greedy_assign``  the frames' greedy assignment on its own
         (csrc/greedy.cu), the test surface against
         ``tracker.greedy_assign``.
+  ``katana_bank_sequence``  offline replay of a pre-associated (T, N, m)
+        stream, one launch per time chunk with x/P resident
+        (csrc/scan.cu).
+  ``katana_imm_sequence``   the IMM replay: mixing, K predict+updates,
+        mode posterior and combined estimate inside the time loop, with
+        an optional validity mask (csrc/imm_scan.cu; K=1 runs scan.cu).
+  ``katana_bank`` / ``katana_bank_soa``  one predict+update per track,
+        canonical or struct-of-arrays layout (csrc/scan.cu's step).
+  ``katana_bank_imm``       one predict+update + loglik per (model,
+        track) lane (csrc/imm_step.cu).
+  ``imm_bank_sequence``     the per-frame IMM driver: ``rewrites.imm_mix``
+        -> ``katana_bank_imm`` -> mode posterior -> combination, the
+        independently built oracle of ``katana_imm_sequence``.
 
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a
 tensor on a CUDA device launches the kernel on the current stream or
 raises — nothing falls back. ``LAUNCHES`` counts the kernel launches of
 each wrapper (the frames also count their greedy launch under
-``greedy_assign``). The kernels take the canonical layouts directly
-(x (C, n), P (C, n, n), z (M, m)) and mask by C, so nothing is padded
-or transposed here.
+``greedy_assign``; ``imm_bank_sequence`` launches through
+``katana_bank_imm``). The kernels take the canonical layouts directly
+(x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
+the track count, so nothing is padded or transposed here.
 """
 from __future__ import annotations
 
@@ -24,16 +38,25 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import rewrites
 from repro_torch.core.filters import FilterModel, IMMModel
 from repro_torch.kernels import build
 from repro_torch.kernels.katana_bank import ref
 
-LAUNCHES: Dict[str, int] = {"katana_frame": 0, "katana_imm_frame": 0,
-                            "greedy_assign": 0}
+LAUNCHES: Dict[str, int] = {
+    "katana_frame": 0, "katana_imm_frame": 0, "greedy_assign": 0,
+    "katana_bank_sequence": 0, "katana_imm_sequence": 0, "katana_bank": 0,
+    "katana_bank_soa": 0, "katana_bank_imm": 0}
 
-# (n, m) of the single-model frame instantiations, (K, n, m) of the IMM
+# (n, m) of the single-model instantiations (frame, scan, steps), (K, n, m)
+# of the IMM frame and scan
 FRAME_SHAPES = ((6, 3), (8, 4), (9, 3))
 IMM_FRAME_SHAPES = ((4, 9, 3),)
+IMM_SCAN_SHAPES = ((4, 9, 3),)
+# frames per launch when the caller passes time_chunk=0 (the reference's
+# static fallbacks)
+SCAN_TIME_CHUNK = 4096
+IMM_SCAN_TIME_CHUNK = 64
 
 
 def reset_launches() -> None:
@@ -57,19 +80,19 @@ def _expected_obs(n: int, m: int):
 
 
 def _check_model(model: FilterModel):
-    """The kernels are instantiated for the repo's models: raise for any
-    shape or selector they were not built for."""
+    """The single-model kernels are instantiated for the repo's models:
+    raise for any shape or selector they were not built for."""
     n, m = model.n, model.m
     if (n, m) not in FRAME_SHAPES:
         raise NotImplementedError(
-            f"no frame kernel for (n, m)={(n, m)}; built for {FRAME_SHAPES}")
+            f"no kernel for (n, m)={(n, m)}; built for {FRAME_SHAPES}")
     if ref.selector_rows(model.H) != _expected_obs(n, m):
         raise NotImplementedError(
-            f"frame kernel (n, m)={(n, m)} observes state rows "
+            f"kernel (n, m)={(n, m)} observes state rows "
             f"{_expected_obs(n, m)}; H selects {ref.selector_rows(model.H)}")
     if not model.is_linear and (n, m) != (8, 4):
         raise NotImplementedError(
-            "the nonlinear frame path is the CTRA-8 model (n=8, m=4)")
+            "the nonlinear kernel path is the CTRA-8 model (n=8, m=4)")
 
 
 _CONSTS: Dict[Tuple[object, str], torch.Tensor] = {}
@@ -240,3 +263,283 @@ def katana_greedy_assign(cost, valid, gate: float, rounds: int,
     build.check(lib, code, "greedy_assign")
     LAUNCHES["greedy_assign"] += 1
     return (assoc, waves) if return_waves else assoc
+
+
+# ---------------------------------------------------------------------------
+# Per-frame bank steps and replay scans.
+# ---------------------------------------------------------------------------
+
+def _chunks(T: int, time_chunk: int):
+    return [(t0, min(T, t0 + time_chunk)) for t0 in range(0, T, time_chunk)]
+
+
+def _check_imm_scan_members(imm: IMMModel):
+    """K>1 kernels take linear members of one instantiated shape."""
+    for mdl in imm.models:
+        if not mdl.is_linear:
+            raise NotImplementedError(
+                "the multi-model IMM kernels require linear member models")
+        _check_model(mdl)
+
+
+def _check_imm_scan(imm: IMMModel):
+    K, n, m = imm.K, imm.n, imm.m
+    if (K, n, m) not in IMM_SCAN_SHAPES:
+        raise NotImplementedError(
+            f"no IMM scan kernel for (K, n, m)={(K, n, m)}; built for "
+            f"{IMM_SCAN_SHAPES}")
+    _check_imm_scan_members(imm)
+
+
+def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
+    """One chunk of the single-model scan (csrc/scan.cu): xs (T, N, n) is
+    written in place; returns (x_T, P_T)."""
+    _check_model(model)
+    dev = x.device
+    N, n = x.shape
+    T, _, m = zs.shape
+    f32 = torch.float32
+    _require(x, "x", f32, (N, n), dev)
+    _require(P, "P", f32, (N, n, n), dev)
+    _require(zs, "zs", f32, (T, N, m), dev)
+    _require(xs, "xs", f32, (T, N, n), dev)
+    if valid is not None:
+        _require(valid, "valid", torch.bool, (T, N), dev)
+    x_fin, P_fin = torch.empty_like(x), torch.empty_like(P)
+    if N == 0:
+        return x_fin, P_fin
+    consts = _consts((model,), np.ones((1, 1)), dev)
+    lib = build.load("scan.cu")
+    code = lib.katana_bank_scan_run(
+        n, m, N, T, x.data_ptr(), P.data_ptr(), zs.data_ptr(),
+        None if valid is None else valid.data_ptr(), consts.data_ptr(),
+        int(not model.is_linear), float(model.dt), xs.data_ptr(),
+        x_fin.data_ptr(), P_fin.data_ptr(), _stream(dev))
+    build.check(lib, code, "katana_bank_sequence")
+    return x_fin, P_fin
+
+
+def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
+    """One chunk of the K>1 IMM scan (csrc/imm_scan.cu): xs (T, N, n) is
+    written in place; returns (x_T, P_T, mu_T)."""
+    _check_imm_scan(imm)
+    dev = x.device
+    K, N, n = x.shape
+    T, _, m = zs.shape
+    f32 = torch.float32
+    _require(x, "x", f32, (K, N, n), dev)
+    _require(P, "P", f32, (K, N, n, n), dev)
+    _require(mu, "mu", f32, (N, K), dev)
+    _require(zs, "zs", f32, (T, N, m), dev)
+    _require(xs, "xs", f32, (T, N, n), dev)
+    if valid is not None:
+        _require(valid, "valid", torch.bool, (T, N), dev)
+    x_fin, P_fin, mu_fin = (torch.empty_like(x), torch.empty_like(P),
+                            torch.empty_like(mu))
+    if N == 0:
+        return x_fin, P_fin, mu_fin
+    consts = _consts(imm.models, imm.trans, dev)
+    lib = build.load("imm_scan.cu")
+    code = lib.katana_imm_scan_run(
+        K, n, m, N, T, x.data_ptr(), P.data_ptr(), mu.data_ptr(),
+        zs.data_ptr(), None if valid is None else valid.data_ptr(),
+        consts.data_ptr(), float(np.float32(m * ref.LOG_2PI)),
+        xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), mu_fin.data_ptr(),
+        _stream(dev))
+    build.check(lib, code, "katana_imm_sequence")
+    return x_fin, P_fin, mu_fin
+
+
+def katana_bank_sequence(model: FilterModel, zs, x0, P0,
+                         return_final: bool = False, time_chunk: int = 0):
+    """Filter a pre-associated measurement stream: zs (T, N, m), the bank
+    seeded by x0 (N, n), P0 (N, n, n). Returns xs (T, N, n), the filtered
+    state after every frame; with ``return_final`` also (x_T (N, n),
+    P_T (N, n, n)) to carry the bank into the next stream. The stream
+    runs as ceil(T / time_chunk) launches with (x, P) carried between
+    them, which gives the same bits as one launch; ``time_chunk=0``
+    takes 4096."""
+    T, N, m = zs.shape
+    chunks = _chunks(T, time_chunk or SCAN_TIME_CHUNK)
+    x, P = x0, P0
+    if _on_cuda(zs):
+        out = torch.empty((T, N, model.n), dtype=zs.dtype, device=zs.device)
+        for t0, t1 in chunks:
+            x, P = _launch_scan(model, x, P, zs[t0:t1], None, out[t0:t1])
+            LAUNCHES["katana_bank_sequence"] += 1
+    else:
+        parts = []
+        for t0, t1 in chunks:
+            xs, x, P = ref.katana_bank_scan_plain(model, x, P, zs[t0:t1])
+            parts.append(xs)
+        out = (torch.cat(parts) if parts
+               else zs.new_empty((0, N, model.n)))
+    return (out, (x, P)) if return_final else out
+
+
+def imm_sequence_inputs(imm: IMMModel, zs, x0, P0, mu0=None, valid=None):
+    """The IMM replay's seeds and stream in the scan's layouts: x0/P0 of
+    (N, n)/(N, n, n) seed every mode alike, (K, N, n)/(K, N, n, n) resume
+    a mode-conditioned bank; mu0 (N, K) defaults to ``imm.mu0``; where
+    ``valid`` (T, N) is False the measurement is zeroed, so a NaN "no
+    detection" cannot reach the carry through 0·NaN. Returns contiguous
+    (x (K, N, n), P (K, N, n, n), mu (N, K), zs, valid bool or None)."""
+    K, n = imm.K, imm.n
+    T, N, m = zs.shape
+    if x0.dim() == 2:
+        x0 = x0[None].expand(K, N, n)
+    if P0.dim() == 3:
+        P0 = P0[None].expand(K, N, n, n)
+    mu = (torch.as_tensor(np.asarray(imm.mu0), dtype=zs.dtype,
+                          device=zs.device).expand(N, K)
+          if mu0 is None else mu0)
+    if valid is not None:
+        valid = valid.to(device=zs.device, dtype=torch.bool).contiguous()
+        zs = torch.where(valid[:, :, None], zs, torch.zeros((), dtype=zs.dtype,
+                                                            device=zs.device))
+    return (x0.contiguous(), P0.contiguous(), mu.contiguous(),
+            zs.contiguous(), valid)
+
+
+def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
+                        return_final: bool = False, time_chunk: int = 0):
+    """IMM-filter a pre-associated stream zs (T, N, m). x0/P0 seed the
+    bank, (N, n)/(N, n, n) for fresh tracks or (K, N, n)/(K, N, n, n) to
+    resume a mode-conditioned bank; mu0 (N, K) defaults to ``imm.mu0``;
+    ``valid`` (T, N) bool: a False frame coasts the track (time update
+    only, mu <- the Markov-predicted cbar). Returns xs (T, N, n), the
+    combined estimates; with ``return_final`` also (x (K, N, n),
+    P (K, N, n, n), mu (N, K)). One launch per ``time_chunk`` frames
+    (0: 64), (x, P, mu) carried between them with the same bits as one
+    launch. K=1 is the single-model scan with mu passed through."""
+    x, P, mu, zs, valid = imm_sequence_inputs(imm, zs, x0, P0, mu0, valid)
+    T, N, _ = zs.shape
+    K = imm.K
+    chunks = _chunks(T, time_chunk or IMM_SCAN_TIME_CHUNK)
+    if _on_cuda(zs):
+        out = torch.empty((T, N, imm.n), dtype=zs.dtype, device=zs.device)
+        for t0, t1 in chunks:
+            vt = None if valid is None else valid[t0:t1]
+            if K == 1:
+                x1, P1 = _launch_scan(imm.models[0], x[0], P[0], zs[t0:t1],
+                                      vt, out[t0:t1])
+                x, P = x1[None], P1[None]
+            else:
+                x, P, mu = _launch_imm_scan(imm, x, P, mu, zs[t0:t1], vt,
+                                            out[t0:t1])
+            LAUNCHES["katana_imm_sequence"] += 1
+        if K == 1:
+            mu = mu.clone()
+    else:
+        parts = []
+        for t0, t1 in chunks:
+            vt = None if valid is None else valid[t0:t1]
+            xs, x, P, mu = ref.katana_bank_imm_scan_plain(imm, x, P, mu,
+                                                          zs[t0:t1], vt)
+            parts.append(xs)
+        out = (torch.cat(parts) if parts
+               else zs.new_empty((0, N, imm.n)))
+    return (out, (x, P, mu)) if return_final else out
+
+
+def _launch_step(model: FilterModel, x, P, z, soa: bool):
+    _check_model(model)
+    dev = x.device
+    n, m = model.n, model.m
+    N = x.shape[-1] if soa else x.shape[0]
+    f32 = torch.float32
+    shapes = (((n, N), (n, n, N), (m, N)) if soa
+              else ((N, n), (N, n, n), (N, m)))
+    for t, name, shape in zip((x, P, z), ("x", "P", "z"), shapes):
+        _require(t, name, f32, shape, dev)
+    x_out, P_out = torch.empty_like(x), torch.empty_like(P)
+    if N == 0:
+        return x_out, P_out
+    consts = _consts((model,), np.ones((1, 1)), dev)
+    lib = build.load("scan.cu")
+    code = lib.katana_bank_step_run(
+        n, m, N, int(soa), x.data_ptr(), P.data_ptr(), z.data_ptr(),
+        consts.data_ptr(), int(not model.is_linear), float(model.dt),
+        x_out.data_ptr(), P_out.data_ptr(), _stream(dev))
+    build.check(lib, code, "katana_bank_soa" if soa else "katana_bank")
+    return x_out, P_out
+
+
+def katana_bank(model: FilterModel, x, P, z):
+    """One predict+update per track: x (N, n), P (N, n, n), z (N, m)
+    -> (x', P')."""
+    if not _on_cuda(x):
+        return ref.katana_bank_step_plain(model, x, P, z)
+    out = _launch_step(model, x, P, z, soa=False)
+    LAUNCHES["katana_bank"] += 1
+    return out
+
+
+def katana_bank_soa(model: FilterModel, x, P, z):
+    """``katana_bank`` for callers that keep the struct-of-arrays layout:
+    x (n, N), P (n, n, N), z (m, N) -> (x', P') in the same layout. The
+    kernel reads this layout directly."""
+    if not _on_cuda(x):
+        x2, P2 = ref.katana_bank_step_plain(model, x.T, P.permute(2, 0, 1),
+                                            z.T)
+        return x2.T.contiguous(), P2.permute(1, 2, 0).contiguous()
+    out = _launch_step(model, x, P, z, soa=True)
+    LAUNCHES["katana_bank_soa"] += 1
+    return out
+
+
+def katana_bank_imm(imm: IMMModel, x, P, z):
+    """One IMM bank step: every (model, track) lane takes a predict+update
+    of its model with the track's measurement. x (K, N, n) (typically the
+    mixed states), P (K, N, n, n), z (N, m). Returns (x' (K, N, n),
+    P' (K, N, n, n), loglik (K, N)). K>1 needs linear member models."""
+    if not _on_cuda(x):
+        return ref.katana_bank_imm_step_plain(imm, x, P, z)
+    K, N, n = x.shape
+    m = imm.m
+    if K > 1:
+        _check_imm_scan_members(imm)
+    else:
+        _check_model(imm.models[0])
+    dev = x.device
+    f32 = torch.float32
+    _require(x, "x", f32, (K, N, n), dev)
+    _require(P, "P", f32, (K, N, n, n), dev)
+    _require(z, "z", f32, (N, m), dev)
+    x_out, P_out = torch.empty_like(x), torch.empty_like(P)
+    ll = torch.empty((K, N), dtype=f32, device=dev)
+    if N == 0:
+        return x_out, P_out, ll
+    consts = _consts(imm.models, imm.trans, dev)
+    mdl0 = imm.models[0]
+    lib = build.load("imm_step.cu")
+    code = lib.katana_imm_step_run(
+        K, n, m, N, x.data_ptr(), P.data_ptr(), z.data_ptr(),
+        consts.data_ptr(), int(not mdl0.is_linear), float(mdl0.dt),
+        float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
+        P_out.data_ptr(), ll.data_ptr(), _stream(dev))
+    build.check(lib, code, "katana_bank_imm")
+    LAUNCHES["katana_bank_imm"] += 1
+    return x_out, P_out, ll
+
+
+def imm_bank_sequence(imm: IMMModel, zs, x0, P0, mu0=None,
+                      return_final: bool = False):
+    """IMM-filter a stream zs (T, N, m) frame by frame: ``rewrites.imm_mix``
+    -> ``katana_bank_imm`` -> mode posterior -> combined estimate, x/P
+    through device memory every frame. Seeds as ``katana_imm_sequence``.
+    Returns xs (T, N, n); with ``return_final`` also (x, P, mu). Built
+    independently of the fused scan, it is that scan's oracle."""
+    x, P, mu, zs, _ = imm_sequence_inputs(imm, zs, x0, P0, mu0)
+    Pi = torch.as_tensor(np.asarray(imm.trans), dtype=zs.dtype,
+                         device=zs.device)
+    out = []
+    for t in range(zs.shape[0]):
+        x_mix, P_mix, cbar = rewrites.imm_mix(x, P, mu, Pi)
+        x, P, ll = katana_bank_imm(imm, x_mix.contiguous(),
+                                   P_mix.contiguous(), zs[t])
+        mu = rewrites.imm_mode_posterior(cbar, ll)
+        out.append(rewrites.imm_combine(x, P, mu)[0])
+    xs = (torch.stack(out) if out
+          else zs.new_empty((0, zs.shape[1], imm.n)))
+    return (xs, (x, P, mu)) if return_final else xs

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the live-frame kernels.
+"""Plain PyTorch versions of the katana_bank kernels: the live frames,
+the greedy assignment, the per-frame bank steps and the replay scans.
 
 Each function here computes exactly what its CUDA kernel in ``csrc/``
 computes, written as the same entry-wise op stream as the reference
@@ -16,7 +17,8 @@ The ops wrappers (``ops.py``) take these only for tensors on the CPU;
 hold each kernel against its plain version.
 
 Layouts are the port's canonical ones: x (C, n), P (C, n, n),
-z (M, m); IMM x (K, C, n), P (K, C, n, n), mu (C, K).
+z (M, m); IMM x (K, C, n), P (K, C, n, n), mu (C, K); a replay stream
+zs (T, N, m) with xs (T, N, n) out.
 """
 from __future__ import annotations
 
@@ -450,6 +452,36 @@ def _mode_posterior(cbar_parts, ll, K, tt):
     return [wk * r for wk in ws]
 
 
+def _imm_tables(imm, tt, like):
+    """The K members' F, Q, R on model-major (K·tt,) lanes: entries all
+    members share stay Python floats (pruned when zero), entries that
+    differ become a lane tensor holding each model's value on its slab."""
+    entries, V = plan_imm_tables(imm.models)
+    tabv = [torch.cat([torch.full((tt,), float(v), dtype=like.dtype,
+                                  device=like.device) for v in row])
+            for row in V]
+    return ([[cell if isinstance(cell, float) else tabv[cell[1]]
+              for cell in row] for row in entries[nm]]
+            for nm in ("F", "Q", "R"))
+
+
+def _markov(imm):
+    return [[float(v) for v in row] for row in np.asarray(imm.trans,
+                                                          np.float64)]
+
+
+def _check_imm_linear(imm, what):
+    obs = check_selector(imm.models[0])
+    for mdl in imm.models:
+        if not mdl.is_linear:
+            raise NotImplementedError(
+                f"multi-model {what} requires linear member models")
+        if check_selector(mdl) != obs:
+            raise NotImplementedError(
+                f"multi-model {what} requires one shared selector H")
+    return obs
+
+
 def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
                            rounds: int, return_waves: bool = False):
     """Plain version of the IMM frame kernel. x (K, C, n),
@@ -463,20 +495,9 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
             return_waves=True)
         out = (x2[None], P2[None], mu.clone(), x2.clone(), assoc)
         return out + (waves,) if return_waves else out
-    obs = check_selector(imm.models[0])
-    for mdl in imm.models:
-        if not mdl.is_linear:
-            raise NotImplementedError(
-                "multi-model katana_imm_frame requires linear member models")
-    entries, V = plan_imm_tables(imm.models)
-    tabv = [torch.cat([torch.full((C,), float(v), dtype=x.dtype,
-                                  device=x.device) for v in row])
-            for row in V]
-    Ftab, Qtab, Rtab = ([[cell if isinstance(cell, float) else tabv[cell[1]]
-                          for cell in row] for row in entries[nm]]
-                        for nm in ("F", "Q", "R"))
-    Pi = [[float(v) for v in row] for row in np.asarray(imm.trans,
-                                                        np.float64)]
+    obs = _check_imm_linear(imm, "katana_imm_frame")
+    Ftab, Qtab, Rtab = _imm_tables(imm, C, x)
+    Pi = _markov(imm)
     L = K * C
     xv = [x[:, :, i].reshape(L) for i in range(n)]
     Pl = [[P[:, :, i, j].reshape(L) for j in range(n)] for i in range(n)]
@@ -519,3 +540,142 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
     xc2 = torch.stack([_bc(v, lane1) for v in xc], dim=-1)
     out = (x2, P2, mu2, xc2, assoc)
     return out + (waves,) if return_waves else out
+
+
+# ---------------------------------------------------------------------------
+# Per-frame bank steps and replay scans (no association: lane t of a
+# stream is measured by z[t, lane]).
+# ---------------------------------------------------------------------------
+
+def _step_lanes(model, xv, P, z, with_loglik=False):
+    """One predict+update of one model on lane lists. Returns (x̂, P̂,
+    update) with update = (x', P'[, loglik])."""
+    n, m = model.n, model.m
+    obs = check_selector(model)
+    R = [[float(v) for v in row] for row in np.asarray(model.R, np.float64)]
+    xp, Pp = _predict_single(model, xv, P)
+    inno = _innovation(Pp, R, obs, n, m)
+    return xp, Pp, _update(xp, Pp, z, obs, n, m, inno, with_loglik)
+
+
+def _coast_select(v, xn, Pn, xp, Pp):
+    """The replay scans' validity select, as the reference's mul/add
+    (no branch): v·updated + (1 − v)·predicted, v a 0/1 lane tensor;
+    the covariance's upper triangle, mirrors aliased."""
+    nv = 1.0 - v
+    n = len(xn)
+    xs = [v * a + nv * b for a, b in zip(xn, xp)]
+    Ps = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i, n):
+            Ps[i][j] = Ps[j][i] = v * Pn[i][j] + nv * Pp[i][j]
+    return xs, Ps
+
+
+def _full(xs, Ps, lane):
+    return ([_bc(u, lane) for u in xs],
+            [[_bc(u, lane) for u in row] for row in Ps])
+
+
+def katana_bank_step_plain(model, x, P, z):
+    """Plain version of the per-frame bank kernel: one predict+update
+    per lane. x (N, n), P (N, n, n), z (N, m). Returns (x', P')."""
+    xv, Pl = _to_lanes(x, P)
+    _, _, (xn, Pn) = _step_lanes(model, xv, Pl,
+                                 [z[:, r] for r in range(model.m)])
+    return _from_lanes(*_full(xn, Pn, x[:, 0]))
+
+
+def katana_bank_imm_step_plain(imm, x, P, z):
+    """Plain version of the per-frame IMM bank kernel: each of the K·N
+    (model, track) lanes, model-major, takes one predict+update of its
+    model with the track's measurement, plus the measurement
+    log-likelihood. x (K, N, n), P (K, N, n, n), z (N, m). Returns
+    (x' (K, N, n), P' (K, N, n, n), loglik (K, N)). K=1 is the
+    single-model step (nonlinear members included) with its loglik."""
+    K, N, n = x.shape
+    m = imm.m
+    L = K * N
+    xv = [x[:, :, i].reshape(L) for i in range(n)]
+    Pl = [[P[:, :, i, j].reshape(L) for j in range(n)] for i in range(n)]
+    z = [torch.cat([z[:, r]] * K) for r in range(m)]
+    if K == 1:
+        _, _, (xn, Pn, ll) = _step_lanes(imm.models[0], xv, Pl, z, True)
+    else:
+        obs = _check_imm_linear(imm, "katana_bank_imm")
+        Ftab, Qtab, Rtab = _imm_tables(imm, N, x)
+        xp = _matvec(Ftab, xv, n)
+        Pp = _predict_cov(Ftab, Pl, Qtab, n)
+        inno = _innovation(Pp, Rtab, obs, n, m)
+        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True)
+    x2, P2 = _from_lanes(*_full(xn, Pn, xv[0]))
+    return (x2.reshape(K, N, n), P2.reshape(K, N, n, n),
+            _bc(ll, xv[0]).reshape(K, N))
+
+
+def katana_bank_scan_plain(model, x, P, zs, valid=None):
+    """Plain version of the single-model replay scan: T predict+updates
+    per lane with the state carried. x (N, n), P (N, n, n),
+    zs (T, N, m); ``valid`` (T, N) bool, optional: a False frame keeps
+    the lane's prediction (the K=1 IMM replay). Returns (xs (T, N, n),
+    x_T (N, n), P_T (N, n, n))."""
+    T, N, m = zs.shape
+    n = model.n
+    xv, Pl = _to_lanes(x, P)
+    lane = x[:, 0]
+    out = []
+    for t in range(T):
+        xp, Pp, (xn, Pn) = _step_lanes(model, xv, Pl,
+                                       [zs[t, :, r] for r in range(m)])
+        if valid is not None:
+            xn, Pn = _coast_select(valid[t].to(x.dtype), xn, Pn, xp, Pp)
+        xv, Pl = _full(xn, Pn, lane)
+        out.append(torch.stack(xv, dim=-1))
+    xs = torch.stack(out) if out else x.new_empty((0, N, n))
+    return (xs,) + _from_lanes(xv, Pl)
+
+
+def katana_bank_imm_scan_plain(imm, x, P, mu, zs, valid=None):
+    """Plain version of the IMM replay scan: per frame the mixing, the
+    K predict+updates with their log-likelihoods, the mode posterior
+    and the combined estimate, on model-major (K·N,) lanes. x (K, N, n),
+    P (K, N, n, n), mu (N, K), zs (T, N, m), ``valid`` (T, N) bool or
+    None: a False frame coasts (x̂/P̂ kept, mu <- cbar). Returns
+    (xs (T, N, n) combined estimates, x_T, P_T, mu_T (N, K)). K=1 is
+    the single-model scan with mu passed through."""
+    K, N, n = x.shape
+    T, _, m = zs.shape
+    if K == 1:
+        xs, xf, Pf = katana_bank_scan_plain(imm.models[0], x[0], P[0], zs,
+                                            valid)
+        return xs, xf[None], Pf[None], mu.clone()
+    obs = _check_imm_linear(imm, "katana_imm_sequence")
+    Ftab, Qtab, Rtab = _imm_tables(imm, N, x)
+    Pi = _markov(imm)
+    L = K * N
+    xv = [x[:, :, i].reshape(L) for i in range(n)]
+    Pl = [[P[:, :, i, j].reshape(L) for j in range(n)] for i in range(n)]
+    mu_f = mu.T.reshape(L)
+    out = []
+    for t in range(T):
+        z = [torch.cat([zs[t, :, r]] * K) for r in range(m)]
+        x_mix, P_mix, cbar = _imm_mix(xv, Pl, mu_f, Pi, n, K, N)
+        xp = _matvec(Ftab, x_mix, n)
+        Pp = _predict_cov(Ftab, P_mix, Qtab, n)
+        inno = _innovation(Pp, Rtab, obs, n, m)
+        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True)
+        mu_parts = _mode_posterior(cbar, ll, K, N)
+        if valid is not None:
+            v = valid[t].to(x.dtype)
+            xn, Pn = _coast_select(torch.cat([v] * K), xn, Pn, xp, Pp)
+            nv = 1.0 - v
+            mu_parts = [v * a + nv * b for a, b in zip(mu_parts, cbar)]
+        xv, Pl = _full(xn, Pn, mu_f)
+        mu_f = torch.cat(mu_parts)
+        xc = [_dot(mu_parts, [u[k * N:(k + 1) * N] for k in range(K)], K)
+              for u in xv]
+        out.append(torch.stack(xc, dim=-1))
+    xs = torch.stack(out) if out else x.new_empty((0, N, n))
+    x2, P2 = _from_lanes(xv, Pl)
+    return (xs, x2.reshape(K, N, n), P2.reshape(K, N, n, n),
+            mu_f.reshape(K, N).T.contiguous())

@@ -6,7 +6,10 @@ prune) serves every measurement of a frame with a fixed-capacity bank.
 Under ``TrackerConfig.fused_frame`` (the default) the measurement cycle
 is the ``katana_frame`` / ``katana_imm_frame`` kernels, so the
 closed-loop FPS the engine reports is the fused-kernel number. Requests
-are padded into the static measurement slots.
+are padded into the static measurement slots. ``replay`` filters a
+pre-associated stream offline through the replay scans
+(``katana_bank_sequence`` / ``katana_imm_sequence``), accounted apart
+from the live frames.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.core.bank import init_bank, init_imm_bank
 from repro_torch.core.filters import IMMModel
 from repro_torch.core.tracker import (TrackerConfig, frame_step,
                                       imm_frame_step)
+from repro_torch.kernels.katana_bank.ops import (katana_bank_sequence,
+                                                 katana_imm_sequence)
 
 
 @dataclass
@@ -40,10 +45,18 @@ class EngineStats:
     frames: int = 0
     total_latency_s: float = 0.0
     measurements: int = 0
+    # offline replay, counted apart so that it never dilutes the live fps
+    replay_frames: int = 0
+    replay_latency_s: float = 0.0
 
     @property
     def fps(self) -> float:
         return self.frames / self.total_latency_s if self.total_latency_s else 0.0
+
+    @property
+    def replay_fps(self) -> float:
+        return (self.replay_frames / self.replay_latency_s
+                if self.replay_latency_s else 0.0)
 
 
 class TrackingEngine:
@@ -109,3 +122,30 @@ class TrackingEngine:
                               int(age[i]),
                               mus[i].copy() if mus is not None else None)
                 for i in np.nonzero(conf)[0]]
+
+    def replay(self, zs: np.ndarray, x0: Optional[np.ndarray] = None,
+               P0: Optional[np.ndarray] = None) -> np.ndarray:
+        """Filter a pre-associated (T, N, m) measurement stream offline
+        (log replay, re-scoring): the whole stream goes through the
+        replay scan (``katana_bank_sequence``; IMM engines
+        ``katana_imm_sequence``, combined estimates out) with no gating or
+        assignment. x0 (N, n) / P0 (N, n, n) default to the model's prior.
+        Returns the (T, N, n) filtered states. The live bank is not
+        touched; the time (host clock from the copy of ``zs`` to the card
+        up to the returned array) counts under the ``replay_*`` stats."""
+        zs = np.asarray(zs, np.float32)
+        T, N, _ = zs.shape
+        if x0 is None:
+            x0 = np.tile(self.model.x0, (N, 1))
+        if P0 is None:
+            P0 = np.tile(self.model.P0, (N, 1, 1))
+        seq = katana_imm_sequence if self.is_imm else katana_bank_sequence
+        dev = self.device
+        x0 = torch.as_tensor(np.asarray(x0, np.float32), device=dev)
+        P0 = torch.as_tensor(np.asarray(P0, np.float32), device=dev)
+        t0 = time.perf_counter()
+        out = seq(self.model, torch.from_numpy(zs).to(dev), x0, P0)
+        out = out.cpu().numpy()  # waits for the stream
+        self.stats.replay_latency_s += time.perf_counter() - t0
+        self.stats.replay_frames += T
+        return out

@@ -37,3 +37,22 @@ def random_frame_inputs(rng, n, m, C, M, obs, K=None, spread=4.0):
         return x, P, z, z_valid, active
     mu = rng.dirichlet(np.ones(K), size=C).astype(np.float32)
     return x, P, mu, z, z_valid, active
+
+
+def replay_inputs(rng, model, N, T, drop=0.0, extent=20.0):
+    """A pre-associated stream for N tracks over T frames: each track
+    moves at a constant velocity from a random start within ±``extent``
+    and is measured with noise at 30 FPS. Returns numpy (x0 (N, n),
+    P0 (N, n, n), zs (T, N, m), valid (T, N)); a ``drop`` share of the
+    (frame, track) entries is invalid and holds NaN."""
+    n, m = model.n, model.m
+    start = rng.uniform(-extent, extent, (N, m))
+    vel = rng.normal(size=(N, m))
+    t = np.arange(1, T + 1)[:, None, None] / 30.0
+    zs = start[None] + vel[None] * t + 0.3 * rng.normal(size=(T, N, m))
+    x0 = np.tile(np.asarray(model.x0), (N, 1)) + 0.1 * rng.normal(size=(N, n))
+    P0 = np.tile(np.asarray(model.P0), (N, 1, 1))
+    valid = rng.random((T, N)) >= drop
+    zs[~valid] = np.nan
+    return (x0.astype(np.float32), P0.astype(np.float32),
+            zs.astype(np.float32), valid)

@@ -2,7 +2,11 @@
 the same CUDA tensors: identical assoc (and greedy wave count), states
 within 1e-4 (IMM 5e-4), at small shapes and at the serving size
 C=1024, M=256; the engine's fused route on the card against its einsum
-route. Needs an NVIDIA GPU; run with
+route. The replay scans and the per-frame bank steps against their plain
+versions at (N, T) = (5, 17) and (1024, 300), the properties that hold
+bit for bit (K=1 IMM = single-model scan, time chunks = one launch, T
+steps = the scan), and ``TrackingEngine.replay`` on the card against the
+CPU. Needs an NVIDIA GPU; run with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
 """
@@ -23,7 +27,7 @@ from repro_torch.data.trajectories import SceneConfig, mot_scene  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
 
-from _torch_inputs import random_frame_inputs  # noqa: E402
+from _torch_inputs import random_frame_inputs, replay_inputs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -131,3 +135,142 @@ def test_engine_fused_route_on_card(cuda, kind):
         torch.testing.assert_close(eng.bank.x, bank_e.x, rtol=0,
                                    atol=5e-4 if kind == "imm" else 1e-4)
     assert ops.LAUNCHES[name] == 40 and ops.LAUNCHES["greedy_assign"] == 40
+
+
+SCAN_SHAPES = [(5, 17), (1024, 300)]
+
+
+def _close(a, b, tol):
+    """max |a - b| / max(1, |b|) <= tol."""
+    d = ((a.double() - b.double()).abs() / b.double().abs().clamp_min(1.0))
+    assert float(d.max()) <= tol, float(d.max())
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
+@pytest.mark.parametrize("N,T", SCAN_SHAPES)
+def test_scan_kernel_matches_plain(cuda, kind, N, T):
+    model = get_filter(kind)
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(N + T), model,
+                                       N, T), cuda)
+    ops.reset_launches()
+    xs, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,
+                                            return_final=True)
+    want = ref.katana_bank_scan_plain(model, x0, P0, zs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["katana_bank_sequence"] == 1
+    for a, b in zip((xs, xf, Pf), want):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("N,T", SCAN_SHAPES)
+def test_imm_scan_kernel_matches_plain(cuda, N, T):
+    imm = make_imm()
+    rng = np.random.default_rng(N + T + 1)
+    x0, P0, zs, valid = _dev(replay_inputs(rng, imm, N, T, drop=0.1), cuda)
+    mu0 = torch.as_tensor(rng.dirichlet(np.ones(4), size=N),
+                          dtype=torch.float32, device=cuda)
+    ops.reset_launches()
+    xs, fin = ops.katana_imm_sequence(imm, zs, x0, P0, mu0, valid,
+                                      return_final=True)
+    want = ref.katana_bank_imm_scan_plain(
+        imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, valid))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["katana_imm_sequence"] == -(-T // 64)
+    assert bool(torch.isfinite(xs).all())
+    for a, b in zip((xs,) + fin, want):
+        _close(a, b, 5e-4)
+
+
+@pytest.mark.parametrize("kind", ["cv9", "ekf"])
+def test_imm_scan_k1_is_the_scan_kernel(cuda, kind):
+    model = get_filter(kind)
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(3), model, 200,
+                                       40), cuda)
+    a = ops.katana_imm_sequence(as_imm(model), zs, x0, P0)
+    b = ops.katana_bank_sequence(model, zs, x0, P0)
+    assert torch.equal(a, b)
+
+
+def test_chunked_scans_equal_one_launch(cuda):
+    imm, ekf = make_imm(), get_filter("ekf")
+    rng = np.random.default_rng(4)
+    x0, P0, zs, valid = _dev(replay_inputs(rng, imm, 300, 50, drop=0.1),
+                             cuda)
+    one = ops.katana_imm_sequence(imm, zs, x0, P0, valid=valid,
+                                  return_final=True, time_chunk=64)
+    many = ops.katana_imm_sequence(imm, zs, x0, P0, valid=valid,
+                                   return_final=True, time_chunk=7)
+    assert torch.equal(one[0], many[0])
+    assert all(torch.equal(a, b) for a, b in zip(one[1], many[1]))
+    x0, P0, zs, _ = _dev(replay_inputs(rng, ekf, 300, 50), cuda)
+    one = ops.katana_bank_sequence(ekf, zs, x0, P0, return_final=True)
+    many = ops.katana_bank_sequence(ekf, zs, x0, P0, return_final=True,
+                                    time_chunk=7)
+    assert torch.equal(one[0], many[0])
+    assert all(torch.equal(a, b) for a, b in zip(one[1], many[1]))
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf"])
+@pytest.mark.parametrize("N,T", SCAN_SHAPES)
+def test_step_kernel_matches_plain_and_scan(cuda, kind, N, T):
+    model = get_filter(kind)
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(N), model, N,
+                                       T), cuda)
+    a = ops.katana_bank(model, x0, P0, zs[0])
+    _close(a[0], ref.katana_bank_step_plain(model, x0, P0, zs[0])[0], 1e-4)
+    soa = ops.katana_bank_soa(model, x0.T.contiguous(),
+                              P0.permute(1, 2, 0).contiguous(),
+                              zs[0].T.contiguous())
+    assert torch.equal(soa[0].T, a[0])
+    assert torch.equal(soa[1].permute(2, 0, 1), a[1])
+    _, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,
+                                           return_final=True)
+    x, P = x0, P0
+    for t in range(T):
+        x, P = ops.katana_bank(model, x, P, zs[t])
+    assert torch.equal(x, xf) and torch.equal(P, Pf)
+
+
+@pytest.mark.parametrize("kind", ["imm", "ekf"])
+@pytest.mark.parametrize("N", [5, 1024])
+def test_imm_step_kernel_matches_plain(cuda, kind, N):
+    imm = make_imm() if kind == "imm" else as_imm(get_filter(kind))
+    rng = np.random.default_rng(N + 7)
+    x0, P0, zs, _ = replay_inputs(rng, imm, N, 1)
+    K = imm.K
+    x = torch.as_tensor(np.tile(x0, (K, 1, 1)) + 0.05 * rng.normal(
+        size=(K, N, imm.n)), dtype=torch.float32, device=cuda)
+    P = torch.as_tensor(np.tile(P0, (K, 1, 1, 1)), device=cuda)
+    z = torch.as_tensor(zs[0], device=cuda)
+    got = ops.katana_bank_imm(imm, x, P, z)
+    want = ref.katana_bank_imm_step_plain(imm, x, P, z)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+def test_imm_bank_sequence_tracks_the_imm_scan(cuda):
+    imm = make_imm()
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(9), imm, 1024,
+                                       300), cuda)
+    ops.reset_launches()
+    drv = ops.imm_bank_sequence(imm, zs, x0, P0)
+    fused = ops.katana_imm_sequence(imm, zs, x0, P0)
+    assert ops.LAUNCHES["katana_bank_imm"] == 300
+    torch.testing.assert_close(drv, fused, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm"])
+def test_engine_replay_on_card_matches_cpu(cuda, kind):
+    model = make_imm() if kind == "imm" else get_filter(kind)
+    _, _, zs, _ = replay_inputs(np.random.default_rng(11), model, 64, 60)
+    cfg = ttr.TrackerConfig(capacity=16, max_meas=8)
+    gpu = TrackingEngine(model, cfg, device="cuda")
+    cpu = TrackingEngine(model, cfg, device="cpu")
+    ops.reset_launches()
+    a = gpu.replay(zs)
+    name = "katana_imm_sequence" if kind == "imm" else "katana_bank_sequence"
+    assert ops.LAUNCHES[name] == 1
+    b = cpu.replay(zs)
+    assert gpu.stats.replay_frames == 60 and gpu.stats.frames == 0
+    _close(torch.as_tensor(a), torch.as_tensor(b), 1e-4)
