@@ -33,13 +33,28 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      ``katana_imm_sequence``; the step kernels' times and bounds;
   6. ``replay_imm_bank`` from the live IMM bank of phase 3 resumes a
      stream bit for bit and leaves the bank unchanged;
-  7. one JSON line with the kernel table, then the status line.
+  7. LM serving: h2o-danube-1.8b at full width, random bf16 weights, B=4
+     prompts of S=8192 tokens from ``LMDataPipeline`` prefilled through
+     ``make_prefill_step`` (attn_impl "flash": 24 flash_attention
+     launches), 32 greedy steps through ``make_decode_step`` (the same
+     context: 24 flash_decode launches a step); prefill ms, decode
+     ms/token and tokens/s (host clock around synchronised steps). Held:
+     the LM kernels against their plain versions (float32 at small shapes;
+     bf16 at one layer of the serving shape, within one bf16 ulp); the
+     last-position logits and every layer's cache against the banded
+     ``swa`` route, both measured from that route run in float32 (see
+     phase_lm); flash_decode against ``decode_attention`` on decode step
+     0's inputs of every layer (float32, 1e-5/1e-4); the share of greedy
+     tokens equal to the reference route's is printed. Then each kernel's
+     time (CUDA events), bound, plain and library times;
+  8. one JSON line with the kernel table, then the status line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,13 +67,24 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bank as bank_lib  # noqa: E402
 from repro_torch.core import filters, tracker  # noqa: E402
 from repro_torch.core import ref as oracle  # noqa: E402
 from repro_torch.data import trajectories as traj  # noqa: E402
+from repro_torch.data.lm import LMDataPipeline  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
+from repro_torch.launch.steps import make_decode_step  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
+from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 
 C_SERVE, M_SERVE, T_SERVE = 1024, 256, 300
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
@@ -92,6 +118,10 @@ REPLACES = {
                    "(katana_bank_step -> pallas_call :1110)",
     "katana_bank_imm": "src/repro/kernels/katana_bank/kernel.py:1132 "
                        "(katana_bank_imm_step -> pallas_call :1146)",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85 "
+                       "(flash_attention_bhsd -> pallas_call :97)",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:60 "
+                    "(flash_decode_partial -> pallas_call :71)",
 }
 _CSRC = "src/repro_torch/kernels/katana_bank/csrc/"
 SOURCES = {
@@ -102,6 +132,10 @@ SOURCES = {
     "katana_imm_sequence": _CSRC + "imm_scan.cu",
     "katana_bank": _CSRC + "scan.cu",
     "katana_bank_imm": _CSRC + "imm_step.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+    "flash_decode": "src/repro_torch/kernels/flash_decode/csrc/"
+                    "flash_decode.cu",
 }
 
 
@@ -970,6 +1004,358 @@ def phase_resumed_bank(eng):
           "stream's second half bitwise; live bank unchanged")
 
 
+# ---------------------------------------------------------------------------
+# LM serving: h2o-danube-1.8b at full width (src/repro_torch/configs/
+# h2o_danube_1_8b.py, arXiv:2401.16818: 24 layers, d 2560, 32 heads over 8
+# kv heads of 80, SwiGLU 6912, vocab 32000, window 4096), random bf16
+# weights from a seeded generator, B = 4 prompts of S = 8192 tokens (S > W:
+# the window mask and the prefill cache cut both run), 32 greedy decode
+# steps over the 4096-long cache.
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_B, LM_S, LM_STEPS = "h2o-danube-1.8b", 4, 8192, 32
+# published H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
+BF16_OPS = 989e12
+SMALL_ATTN = [  # (B, S, H, KH, d, causal, window): kernels vs plain, float32
+    (2, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 80, True, 64),
+    (1, 77, 4, 1, 128, False, None), (1, 300, 2, 2, 8, False, 40)]
+SMALL_DECODE = [(2, 4, 2, 128, 32), (2, 32, 8, 256, 80), (1, 48, 1, 128, 128)]
+
+
+def bf16_ulp_excess(a, b) -> float:
+    """max of |a - b| / (one bf16 ulp of max(|a|, |b|, 2^-6)): <= 1 means
+    the two agree to one ulp of the output (near zero the float32 sums of
+    two orders differ by ~1e-8, more than a bf16 ulp of the value)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(2 ** -6))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a),
+                                              e - 8)).max())
+
+
+def attention_work(B, S, H, KH, d, window, itemsize):
+    """(bytes, operations) of one causal flash_attention call: q, k, v read
+    once, o written once; 4 d operations (QK^T and PV) per visible
+    (query, key) pair."""
+    pairs = sum(min(q + 1, window or S) for q in range(S))
+    return (2 * B * S * (H + KH) * d * itemsize, 4 * d * pairs * B * H)
+
+
+def lm_kernels_vs_plain():
+    """Each LM kernel against its plain version at small shapes in float32
+    (flash_attention 2e-5, as tests/test_kernels.py; flash_decode's
+    normalised output and m 1e-5/1e-4, l rtol 1e-4)."""
+    rng = np.random.default_rng(13)
+    err_a = err_d = 0.0
+    for B, S, H, KH, d, causal, window in SMALL_ATTN:
+        q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                                   dtype=torch.float32, device=DEV)
+                   for h in (H, KH, KH))
+        got = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, window)
+        want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, causal,
+                                            window)
+        e = max_diff(got, want)
+        assert e <= 2e-5, ("flash_attention", B, S, H, KH, d, e)
+        err_a = max(err_a, e)
+    for B, H, KH, T, d in SMALL_DECODE:
+        q = torch.as_tensor(rng.normal(size=(B, H, d)), dtype=torch.float32,
+                            device=DEV)
+        k, v = (torch.as_tensor(rng.normal(size=(B, T, KH, d)),
+                                dtype=torch.float32, device=DEV)
+                for _ in range(2))
+        acc, m, l = fd_ops.flash_decode_partial(q, k, v, scale=d ** -0.5,
+                                                block_k=T)
+        acc_p, m_p, l_p = fd_ref.flash_decode_partial_plain(q, k, v,
+                                                            d ** -0.5)
+        torch.testing.assert_close(acc / l, acc_p / l_p, atol=1e-5,
+                                   rtol=1e-4)
+        torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(l, l_p, atol=0, rtol=1e-4)
+        err_d = max(err_d, max_diff(acc / l, acc_p / l_p))
+    print(f"LM kernels vs plain, float32: flash_attention max|d| "
+          f"{err_a:.3g} over {len(SMALL_ATTN)} shapes (<= 2e-5); "
+          f"flash_decode out max|d| {err_d:.3g} over {len(SMALL_DECODE)} "
+          "shapes (<= 1e-5 + 1e-4|x|)")
+    return err_a, err_d
+
+
+def sdpa_ms(q, k, v, mask, iters):
+    """The library call's time (for the record; the port never calls it):
+    ``scaled_dot_product_attention`` on the memory-efficient backend with
+    the kv heads repeated, (B, S, H, d) in. None if it refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters)
+    except RuntimeError as exc:
+        print(f"  library call refused: {str(exc).splitlines()[0][:160]}")
+        return None
+
+
+def busy_profile(fn):
+    """(host ms, device-busy share, {kernel name: device ms}) of one
+    synchronised call of ``fn`` under torch.profiler: the CUDA kernels'
+    durations summed (one stream: they do not overlap) against the host
+    clock around the call."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall, sum(by.values()) / wall, by
+
+
+def print_profile(what, wall, share, by, card, top=6):
+    total = sum(by.values())
+    print(f"[lm] {what}: {wall:.2f} ms host, device busy {share:.4f} "
+          f"({total:.2f} ms in {len(by)} kernel names); top: " + "; ".join(
+              f"{k[:48]} {v:.2f} ms" for k, v in sorted(
+                  by.items(), key=lambda kv: -kv[1])[:top]) + f" | {card}")
+
+
+def phase_lm(cfg, B, S, steps, card):
+    """LM serving through the port's entry points: prefill on
+    flash_attention, greedy decode on flash_decode; then the checks
+    against the torch-op routes and the kernels' numbers."""
+    acfg = cfg.attention
+    H, KH, d, W = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim, \
+        acfg.sliding_window
+    err_a, err_d = lm_kernels_vs_plain()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    prompts = torch.as_tensor(LMDataPipeline(cfg.vocab, S, B, seed=0)
+                              .next_batch()["tokens"], device=DEV).long()
+    serve = ShardingContext(attn_impl="flash")
+    prefill = make_prefill_step(cfg, serve)
+    decode = make_decode_step(cfg, serve)
+    prefill(params, {"tokens": prompts[:, :128]})  # load, warm up
+    torch.cuda.synchronize()
+
+    # -- the main path, counters reset just before and read just after --
+    fa_ops.reset_launches()
+    fd_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache0 = {n: type(c)(c.k.clone(), c.v.clone()) for n, c in caches.items()}
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    toks, step_ms = [tok], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = decode(params, {"token": tok, "cache_pos": S + i},
+                             caches)
+        tok = out[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    launches = {**fa_ops.LAUNCHES, **fd_ops.LAUNCHES}
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["flash_decode"] == cfg.n_layers * steps, launches
+    assert logits.shape == (B, 1, cfg.vocab) and out.shape == logits.shape
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(out).all())
+    assert caches["layer0"].k.shape[2] == min(S, W or S)
+    decode_ms = float(np.mean(step_ms))
+    print(f"[lm] {cfg.name} B={B} S={S}: prefill {prefill_ms:.1f} ms "
+          f"({B * S / prefill_ms * 1e3:.4g} tokens/s); decode {steps} steps "
+          f"{decode_ms:.3f} ms/token ({B * 1e3 / decode_ms:.1f} tokens/s, "
+          f"steps {min(step_ms):.3f}-{max(step_ms):.3f} ms); launches "
+          f"{launches} | {card}")
+
+    # -- prefill against the banded swa route (bf16) and float32 truth --
+    logits_swa, caches_swa = make_prefill_step(
+        cfg, ShardingContext(attn_impl="swa"))(params, {"tokens": prompts})
+    p32 = _tree_map(lambda t: t.float(), params)
+    logits_32, caches_32 = make_prefill_step(
+        cfg, ShardingContext(attn_impl="swa"))(p32, {"tokens": prompts})
+    del p32
+    torch.cuda.empty_cache()
+
+    def rel(a, ref):
+        return max_diff(a, ref) / float(ref.abs().max())
+
+    e_flash, e_swa = rel(logits, logits_32), rel(logits_swa, logits_32)
+    gap = rel(logits, logits_swa)
+    print(f"[lm] last-position logits, max|d| / max|float32 swa|: flash "
+          f"route {e_flash:.4g}, bf16 swa route {e_swa:.4g}; flash vs swa "
+          f"{gap:.4g}")
+    # Held: the flash route within ROUTE_SLACK x the bf16 swa route's own
+    # error from the float32 run, or within one bf16 ulp of the scale
+    # (2^-8): the same rule for every layer's cache.
+    assert e_flash <= max(2 ** -8, ROUTE_SLACK * e_swa), (e_flash, e_swa)
+    cache_rows = []
+    for name in caches_swa:
+        for f in ("k", "v"):
+            a = getattr(cache0[name], f)
+            b = getattr(caches_swa[name], f)
+            c = getattr(caches_32[name], f)
+            for g in range(a.shape[0]):
+                ef, es = rel(a[g], c[g]), rel(b[g], c[g])
+                assert ef <= max(2 ** -8, ROUTE_SLACK * es), (f, g, ef, es)
+                cache_rows.append((f, g, ef, es))
+    worst = max(cache_rows, key=lambda r: r[2])
+    print(f"[lm] caches ({len(cache_rows)} layer tensors of "
+          f"{tuple(cache0['layer0'].k.shape[1:])}): layer 0 k flash == swa "
+          f"{torch.equal(cache0['layer0'].k[0], caches_swa['layer0'].k[0])}; "
+          f"worst flash-route error {worst[2]:.4g} ({worst[0]} layer "
+          f"{worst[1]}; swa route there {worst[3]:.4g}); every layer within "
+          f"max(2^-8, {ROUTE_SLACK} x swa)")
+    del caches_32, logits_32
+    torch.cuda.empty_cache()
+
+    # -- greedy tokens of the reference route (swa prefill, dense decode) --
+    dense = make_decode_step(cfg, ShardingContext(attn_impl="swa"))
+    tok_r = logits_swa[:, -1].argmax(-1, keepdim=True)
+    toks_r = [tok_r]
+    for i in range(steps):
+        out_r, caches_swa = dense(params, {"token": tok_r,
+                                           "cache_pos": S + i}, caches_swa)
+        tok_r = out_r[:, -1].argmax(-1, keepdim=True)
+        toks_r.append(tok_r)
+    same = float((torch.cat(toks, 1) == torch.cat(toks_r, 1)).float().mean())
+    first = int((torch.cat(toks, 1) != torch.cat(toks_r, 1)).any(0)
+                .nonzero()[0]) if same < 1 else None
+    print(f"[lm] greedy tokens identical to the reference route: "
+          f"{same:.4f} of {B} x {steps + 1} (first differing step: "
+          f"{first})")
+    del caches_swa
+    torch.cuda.empty_cache()
+
+    # -- flash_decode on decode step 0's real inputs, every layer --
+    captured = []
+    real = attn_lib.flash_decode
+
+    def spy(q, kc, vc, kn, vn, **kw):
+        captured.append(tuple(t.clone() for t in (q, kc, vc, kn, vn)))
+        return real(q, kc, vc, kn, vn, **kw)
+
+    attn_lib.flash_decode = spy
+    try:
+        decode(params, {"token": toks[0], "cache_pos": S}, cache0)
+    finally:
+        attn_lib.flash_decode = real
+    assert len(captured) == cfg.n_layers
+    scale = d ** -0.5
+    bk = math.gcd(captured[0][1].shape[1], 1024)
+    d32 = dbf = 0.0
+    for q, kc, vc, kn, vn in captured:
+        f32 = [t.float() for t in (q, kc, vc, kn, vn)]
+        got = fd_ops.flash_decode(*f32, scale=scale, block_k=bk)
+        want = fd_ref.flash_decode_ref(*f32, scale=scale)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        d32 = max(d32, max_diff(got, want))
+        dbf = max(dbf, max_diff(fd_ops.flash_decode(q, kc, vc, kn, vn,
+                                                    scale=scale, block_k=bk),
+                                fd_ref.flash_decode_ref(q, kc, vc, kn, vn,
+                                                        scale=scale)))
+    print(f"[lm] flash_decode vs decode_attention on decode step 0's inputs "
+          f"of all {len(captured)} layers: float32 max|d| {d32:.3g} "
+          f"(1e-5/1e-4); bf16 max|d| {dbf:.3g} (printed: the dense route "
+          "rounds p to bf16 before PV)")
+
+    # -- where the time goes: one prefill, one decode step (profiled) --
+    prof_prefill = busy_profile(lambda: prefill(params, {"tokens": prompts}))
+    print_profile("prefill profile", *prof_prefill, card)
+    prof_decode = busy_profile(lambda: decode(
+        params, {"token": toks[1], "cache_pos": S + 1}, cache0))
+    print_profile("decode step profile", *prof_decode, card)
+
+    # -- the kernels at one layer of the serving shape, bf16 --
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                               dtype=torch.float32, device=DEV).bfloat16()
+               for h in (H, KH, KH))
+    got = fa_ops.flash_attention(q, k, v, scale, True, W)
+    want, a_plain = timed_once(lambda: fa_ref.flash_attention_plain(
+        q, k, v, scale, True, W))
+    ulps = bf16_ulp_excess(got, want)
+    assert ulps <= 1.0, ("flash_attention bf16", ulps)
+    a_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, scale, True, W),
+                   5, warmup=1)
+    band = fa_ref.mask(S, S, True, W, DEV)
+    a_lib = sdpa_ms(q, k, v, band, 5)
+    nb, nops = attention_work(B, S, H, KH, d, W, 2)
+    a_bound = max(nb / HBM_BPS, nops / BF16_OPS) * 1e3
+    a_by = "bytes" if nb / HBM_BPS >= nops / BF16_OPS else "operations"
+    print(f"[lm] flash_attention B={B} S={S} H={H} KH={KH} d={d} W={W} bf16: "
+          f"{a_ms:.3f} ms (plain {a_plain:.1f} ms, library "
+          f"{a_lib if a_lib is None else round(a_lib, 3)} ms), max|d| vs "
+          f"plain {max_diff(got, want):.3g} = {ulps:.3g} bf16 ulp; bound "
+          f"{a_bound:.4f} ms by {a_by} at the bf16 tensor-core peak "
+          f"({nb} B, {nops} ops; at the float32 CUDA-core peak "
+          f"{nops / F32_OPS * 1e3:.2f} ms) | {card}")
+
+    q0, kc, vc, kn, vn = captured[0]
+    acc_got = fd_ops.flash_decode_partial(q0[:, 0], kc, vc, scale=scale,
+                                          block_k=bk)
+    acc_want, d_plain = timed_once(lambda: fd_ref.flash_decode_partial_plain(
+        q0[:, 0], kc, vc, scale))
+    out_got = acc_got[0] / acc_got[2]
+    out_want = acc_want[0] / acc_want[2]
+    torch.testing.assert_close(out_got, out_want, atol=1e-5, rtol=1e-4)
+    d_ms = cuda_ms(lambda: fd_ops.flash_decode_partial(
+        q0[:, 0], kc, vc, scale=scale, block_k=bk), 50)
+    T = kc.shape[1]
+    kfull, vfull = torch.cat([kc, kn], 1), torch.cat([vc, vn], 1)
+    d_lib = sdpa_ms(q0, kfull, vfull, None, 50)
+    nb_d = (2 * B * T * KH * d + B * H * d) * 2 + (B * H * d + 2 * B * H) * 4
+    nops_d = 4 * d * T * B * H
+    d_bound = max(nb_d / HBM_BPS, nops_d / BF16_OPS) * 1e3
+    d_by = "bytes" if nb_d / HBM_BPS >= nops_d / BF16_OPS else "operations"
+    print(f"[lm] flash_decode B={B} T={T} H={H} KH={KH} d={d} bf16 (layer 0, "
+          f"decode step 0): {d_ms:.4f} ms (plain {d_plain:.3f} ms, library "
+          f"over cache + self {d_lib if d_lib is None else round(d_lib, 4)} "
+          f"ms), out max|d| vs plain {max_diff(out_got, out_want):.3g}; "
+          f"bound {d_bound:.5f} ms by {d_by} ({nb_d} B) | {card}")
+    row = dict(arch=cfg.name, B=B, S=S, decode_steps=steps,
+               prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               decode_tokens_per_s=B * 1e3 / decode_ms, step_ms=step_ms,
+               launches=launches, logits_err_flash=e_flash,
+               logits_err_swa=e_swa, logits_gap=gap, token_share=same,
+               first_token_difference=first, decode_f32_max_abs=d32,
+               decode_bf16_max_abs=dbf,
+               profile={k: dict(host_ms=v[0], device_busy=v[1],
+                                kernels_ms=v[2])
+                        for k, v in (("prefill", prof_prefill),
+                                     ("decode_step", prof_decode))})
+    kern = dict(
+        flash_attention=dict(ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
+                             bound_ms=a_bound, bound_by=a_by,
+                             launches=launches["flash_attention"],
+                             max_abs_err=max(err_a, max_diff(got, want)),
+                             bf16_ulps=ulps, bytes=nb, operations=nops,
+                             shape=f"B={B} S={S} H={H} KH={KH} d={d} "
+                                   f"window={W} bf16, causal; bound at the "
+                                   "bf16 tensor-core peak"),
+        flash_decode=dict(ms=d_ms, plain_ms=d_plain, library_ms=d_lib,
+                          bound_ms=d_bound, bound_by=d_by,
+                          launches=launches["flash_decode"],
+                          max_abs_err=max(err_d, d32),
+                          bytes=nb_d, operations=nops_d,
+                          shape=f"B={B} T={T} H={H} KH={KH} d={d} bf16 "
+                                "(layer 0's cache at decode step 0)"))
+    return row, kern
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return {k: _tree_map(fn, v) for k, v in tree.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1004,13 +1390,15 @@ def main() -> int:
               for kind in ("lkf", "ekf", "imm")}
     per_frame = phase_per_frame(plain_r)
     phase_resumed_bank(engines["imm"])
+    lm, lm_kern = phase_lm(get_config(LM_ARCH), LM_B, LM_S, LM_STEPS, card)
+    errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
-    def entry(name, ms, plain_ms, bms, by, launches, extra):
+    def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
         return dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches,
                     max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None, card=card,
-                    **extra)
+                    bound_ms=bms, bound_by=by, library_ms=library_ms,
+                    card=card, **extra)
 
     lkf, ekf, imm = rows["lkf"], rows["ekf"], rows["imm"]
     kernels = [
@@ -1058,13 +1446,16 @@ def main() -> int:
               per_frame["imm"]["bound_by"], per_frame["imm"]["launches"],
               dict(shape=f"imm K=4 N={N_REPLAY}, one frame (in "
                          "imm_bank_sequence)")),
-    ]
+    ] + [entry(name, k.pop("ms"), k.pop("plain_ms"), k.pop("bound_ms"),
+               k.pop("bound_by"), k.pop("launches"), k,
+               library_ms=k.pop("library_ms"))
+         for name, k in lm_kern.items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, rows=rows,
                  greedy=greedy, replay=replay, per_frame=per_frame,
-                 kernels=kernels,
+                 lm=lm, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

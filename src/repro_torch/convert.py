@@ -1,11 +1,12 @@
-"""Carry tracker state across to the port.
+"""Carry tracker state and LM parameters across to the port.
 
-A tracking system has no weights: what carries over is the bank (state,
+The tracking system has no weights: what carries over is the bank (state,
 covariance, mode probabilities, lifecycle counters, ids) and the model
 constants. Banks travel as numpy arrays, one per field of
 ``BankState`` / ``IMMBankState`` (``np.asarray`` of each leaf of the
 reference bank); models as their numpy constants. Dtypes are kept:
-float32 state, int32 counters and ids, bool masks.
+float32 state, int32 counters and ids, bool masks. An LM's parameter
+tree carries over leaf by leaf (``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -80,3 +81,39 @@ def imm_model_from_numpy(name: str, models: Sequence, trans,
                     models=tuple(filter_model_from_numpy(m) for m in models),
                     trans=np.asarray(trans, np.float64),
                     mu0=np.asarray(mu0, np.float64))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda"):
+    """The port's LM parameters from the reference's parameter tree as
+    numpy arrays (``jax.tree.map(np.asarray, params)``). The port keeps
+    the reference's tree and layouts (``groups`` stacked on a leading
+    layer-group axis, ``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so this
+    is a copy; every leaf is checked against the shapes
+    ``init_params(cfg)`` makes. Dtypes are kept (bfloat16 included)."""
+    from repro_torch.models.model import init_params
+
+    device = resolve_device(device)
+    want = init_params(cfg, torch.Generator(), device="meta",
+                       dtype=torch.float32)
+
+    def conv(src, shapes, path):
+        if isinstance(shapes, torch.Tensor):
+            t = _tensor(src, device)
+            if tuple(t.shape) != tuple(shapes.shape):
+                raise ValueError(f"{path}: shape {tuple(t.shape)}, expected "
+                                 f"{tuple(shapes.shape)}")
+            return t
+        if set(src) != set(shapes):
+            raise KeyError(f"{path or 'params'}: keys {sorted(src)}, "
+                           f"expected {sorted(shapes)}")
+        return {k: conv(src[k], shapes[k], f"{path}/{k}") for k in shapes}
+
+    return conv(tree, want, "")

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> ``.so`` -> ``ctypes``.
 
-Each source under ``kernels/katana_bank/csrc/`` compiles on first use
-into its own shared library with a plain C interface, in
-``<repo>/build/kernels/``, named by a digest of the sources and flags
-(an edited source builds anew). Sources compile in parallel, one
+Each source (``kernels/<family>/csrc/<name>.cu``, listed in ``SOURCES``
+with its directory) compiles on first use into its own shared library
+with a plain C interface, in ``<repo>/build/kernels/``, named by a digest
+of the flags, the source and the headers (``*.cuh``) of its own
+directory (an edited source or header builds anew). Sources compile in parallel, one
 ``nvcc`` process each. No PyTorch headers are involved, so a build
 takes seconds. The flags keep IEEE rounding: ``--fmad=false`` (no
 multiply-add contraction) and no ``--use_fast_math``.
@@ -23,11 +24,19 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
-CSRC = Path(__file__).resolve().parent / "katana_bank" / "csrc"
-SOURCES = ("frame.cu", "imm_frame.cu", "greedy.cu", "scan.cu", "imm_scan.cu",
-           "imm_step.cu")
+_KERNELS = Path(__file__).resolve().parent
+# source -> its csrc directory
+SOURCES: Dict[str, Path] = {
+    **{name: _KERNELS / "katana_bank" / "csrc"
+       for name in ("frame.cu", "imm_frame.cu", "greedy.cu", "scan.cu",
+                    "imm_scan.cu", "imm_step.cu")},
+    "flash_attention.cu": _KERNELS / "flash_attention" / "csrc",
+    "flash_decode.cu": _KERNELS / "flash_decode" / "csrc",
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -62,6 +71,14 @@ SIGNATURES = {
         "katana_imm_step_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F,
                                 _P, _P, _P, _P],
     },
+    "flash_attention.cu": {
+        "flash_attention_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                _F, _I, _I, _P],
+    },
+    "flash_decode.cu": {
+        "flash_decode_partial_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                     _P, _P, _F, _P],
+    },
 }
 
 _LOCK = threading.Lock()
@@ -86,8 +103,9 @@ def nvcc() -> str:
 
 
 def _digest(source: str) -> str:
+    csrc = SOURCES[source]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+    for p in sorted(csrc.glob("*.cuh")) + [csrc / source]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -97,7 +115,7 @@ def lib_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{_digest(source)}.so"
 
 
-def build(sources: Iterable[str] = SOURCES) -> Dict[str, dict]:
+def build(sources: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
     """Compile every listed source whose library is missing, all at once
     (one ``nvcc`` each). Raises with the compiler's output if any fails.
     Returns ``BUILD_LOG`` entries for the listed sources."""
@@ -112,7 +130,7 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, dict]:
                                        "ptxas": []})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[src] / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
@@ -148,6 +166,21 @@ def load(source: str) -> ctypes.CDLL:
             lib.katana_error_string.restype = ctypes.c_char_p
             _LIBS[source] = lib
         return lib
+
+
+def on_cuda(t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (run the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def stream_of(device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -125,18 +125,6 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
                   rounds: int):
     """The three launches of the single-model frame (csrc/frame.cu)."""
@@ -161,7 +149,7 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
         z_valid.data_ptr(), active.data_ptr(), consts.data_ptr(),
         int(not model.is_linear), float(model.dt), float(gate), int(rounds),
         x_out.data_ptr(), P_out.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), waves.data_ptr(), _stream(dev))
+        cost.data_ptr(), waves.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_frame")
     LAUNCHES["greedy_assign"] += 1
     return x_out, P_out, assoc, waves
@@ -176,7 +164,7 @@ def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     a slot got a measurement, the predicted state elsewhere. With
     ``return_waves`` also the number of greedy waves run (a device
     int32 tensor on CUDA, an int on the CPU)."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return ref.katana_frame_plain(model, x, P, z, z_valid, active, gate,
                                       rounds, return_waves=return_waves)
     x2, P2, assoc, waves = _launch_frame(model, x, P, z, z_valid, active,
@@ -192,7 +180,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
     coasting slots keep x̂/P̂ and take mu <- cbar. K=1 is the
     single-model frame with mu passed through."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
                                           return_waves=return_waves)
@@ -235,7 +223,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
         consts.data_ptr(), float(gate), int(rounds),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), waves.data_ptr(), _stream(dev))
+        cost.data_ptr(), waves.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_imm_frame")
     LAUNCHES["katana_imm_frame"] += 1
     LAUNCHES["greedy_assign"] += 1
@@ -247,7 +235,7 @@ def katana_greedy_assign(cost, valid, gate: float, rounds: int,
                          return_waves: bool = False):
     """The frames' greedy assignment standalone, canonical layout:
     cost (C, M) float32; valid (C, M) bool. Returns assoc (C,) int32."""
-    if not _on_cuda(cost):
+    if not build.on_cuda(cost):
         return ref.greedy_assign_plain(cost, valid, gate, rounds,
                                        return_waves=return_waves)
     C, M = cost.shape
@@ -259,7 +247,7 @@ def katana_greedy_assign(cost, valid, gate: float, rounds: int,
     lib = build.load("greedy.cu")
     code = lib.greedy_assign_run(C, M, cost.data_ptr(), valid.data_ptr(),
                                  float(gate), int(rounds), assoc.data_ptr(),
-                                 waves.data_ptr(), _stream(dev))
+                                 waves.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "greedy_assign")
     LAUNCHES["greedy_assign"] += 1
     return (assoc, waves) if return_waves else assoc
@@ -314,7 +302,7 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
         n, m, N, T, x.data_ptr(), P.data_ptr(), zs.data_ptr(),
         None if valid is None else valid.data_ptr(), consts.data_ptr(),
         int(not model.is_linear), float(model.dt), xs.data_ptr(),
-        x_fin.data_ptr(), P_fin.data_ptr(), _stream(dev))
+        x_fin.data_ptr(), P_fin.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_bank_sequence")
     return x_fin, P_fin
 
@@ -345,7 +333,7 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
         zs.data_ptr(), None if valid is None else valid.data_ptr(),
         consts.data_ptr(), float(np.float32(m * ref.LOG_2PI)),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), mu_fin.data_ptr(),
-        _stream(dev))
+        build.stream_of(dev))
     build.check(lib, code, "katana_imm_sequence")
     return x_fin, P_fin, mu_fin
 
@@ -362,7 +350,7 @@ def katana_bank_sequence(model: FilterModel, zs, x0, P0,
     T, N, m = zs.shape
     chunks = _chunks(T, time_chunk or SCAN_TIME_CHUNK)
     x, P = x0, P0
-    if _on_cuda(zs):
+    if build.on_cuda(zs):
         out = torch.empty((T, N, model.n), dtype=zs.dtype, device=zs.device)
         for t0, t1 in chunks:
             x, P = _launch_scan(model, x, P, zs[t0:t1], None, out[t0:t1])
@@ -416,7 +404,7 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
     T, N, _ = zs.shape
     K = imm.K
     chunks = _chunks(T, time_chunk or IMM_SCAN_TIME_CHUNK)
-    if _on_cuda(zs):
+    if build.on_cuda(zs):
         out = torch.empty((T, N, imm.n), dtype=zs.dtype, device=zs.device)
         for t0, t1 in chunks:
             vt = None if valid is None else valid[t0:t1]
@@ -460,7 +448,7 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool):
     code = lib.katana_bank_step_run(
         n, m, N, int(soa), x.data_ptr(), P.data_ptr(), z.data_ptr(),
         consts.data_ptr(), int(not model.is_linear), float(model.dt),
-        x_out.data_ptr(), P_out.data_ptr(), _stream(dev))
+        x_out.data_ptr(), P_out.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_bank_soa" if soa else "katana_bank")
     return x_out, P_out
 
@@ -468,7 +456,7 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool):
 def katana_bank(model: FilterModel, x, P, z):
     """One predict+update per track: x (N, n), P (N, n, n), z (N, m)
     -> (x', P')."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return ref.katana_bank_step_plain(model, x, P, z)
     out = _launch_step(model, x, P, z, soa=False)
     LAUNCHES["katana_bank"] += 1
@@ -479,7 +467,7 @@ def katana_bank_soa(model: FilterModel, x, P, z):
     """``katana_bank`` for callers that keep the struct-of-arrays layout:
     x (n, N), P (n, n, N), z (m, N) -> (x', P') in the same layout. The
     kernel reads this layout directly."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         x2, P2 = ref.katana_bank_step_plain(model, x.T, P.permute(2, 0, 1),
                                             z.T)
         return x2.T.contiguous(), P2.permute(1, 2, 0).contiguous()
@@ -493,7 +481,7 @@ def katana_bank_imm(imm: IMMModel, x, P, z):
     of its model with the track's measurement. x (K, N, n) (typically the
     mixed states), P (K, N, n, n), z (N, m). Returns (x' (K, N, n),
     P' (K, N, n, n), loglik (K, N)). K>1 needs linear member models."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return ref.katana_bank_imm_step_plain(imm, x, P, z)
     K, N, n = x.shape
     m = imm.m
@@ -517,7 +505,7 @@ def katana_bank_imm(imm: IMMModel, x, P, z):
         K, n, m, N, x.data_ptr(), P.data_ptr(), z.data_ptr(),
         consts.data_ptr(), int(not mdl0.is_linear), float(mdl0.dt),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
-        P_out.data_ptr(), ll.data_ptr(), _stream(dev))
+        P_out.data_ptr(), ll.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_bank_imm")
     LAUNCHES["katana_bank_imm"] += 1
     return x_out, P_out, ll

@@ -1,0 +1,160 @@
+"""Block wiring: per-layer (mixer, ffn) composition, the layer stack and
+its caches.
+
+Parameters and caches keep the reference's grouped layout: every leaf
+of ``groups`` (and of the stacked caches) carries a leading axis over
+the n_layers / period groups, so a reference tree carries over as a
+copy. The stack is a plain Python loop over the groups (PyTorch runs
+eagerly; there is no scan to trace). This slice serves attention + MLP
+layers; SSM and MoE layers raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+from repro_torch.models.attention import KVCache
+
+UNSUPPORTED = {
+    "ssm": "SSM (Mamba-2) layers come with the mamba2-130m serving slice "
+           "(ROADMAP.md §1, next slice: models/ssm.py and ssd_scan)",
+    "moe": "MoE layers are a later slice (ROADMAP.md §1, after the "
+           "mamba2-130m slice)",
+}
+
+
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """[(mixer, ffn)] per layer: mixer in {attn, ssm}; ffn in {mlp, moe,
+    none}."""
+    kinds = cfg.layer_kinds()
+    moe_mask = cfg.moe_layer_mask()
+    plan = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            ffn = "none"  # mamba2: the SSD block is the whole layer
+        elif moe_mask[i]:
+            ffn = "moe"
+        else:
+            ffn = "mlp" if cfg.d_ff else "none"
+        plan.append((kinds[i], ffn))
+    return plan
+
+
+def group_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    p = cfg.interleave_period()
+    plan = layer_plan(cfg)
+    assert cfg.n_layers % p == 0, (cfg.name, cfg.n_layers, p)
+    for g in range(cfg.n_layers // p):
+        assert plan[g * p:(g + 1) * p] == plan[:p], "stack not periodic"
+    return plan[:p]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what this slice does not serve."""
+    for mixer, ffn in group_plan(cfg):
+        for kind in (mixer, ffn):
+            if kind in UNSUPPORTED:
+                raise NotImplementedError(f"{cfg.name}: {UNSUPPORTED[kind]}")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend stub is a later slice "
+            "(ROADMAP.md §1)")
+
+
+def _layer_init(gen, cfg: ModelConfig, ffn: str, device, dtype) -> Dict:
+    p: Dict[str, Any] = {
+        "norm1": L.norm_init(cfg.d_model, cfg.norm, device, dtype),
+        "attn": attn_lib.attn_init(gen, cfg.attention, cfg.d_model, device,
+                                   dtype)}
+    if ffn == "mlp":
+        p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, device, dtype)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device,
+                              dtype)
+    return p
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack matching trees (dicts / KVCaches of tensors) on a new axis 0."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, KVCache):
+        return KVCache(*(torch.stack(ts) for ts in zip(*trees)))
+    return {k: _stack([t[k] for t in trees]) for k in first}
+
+
+def _index(tree: Any, g: int) -> Any:
+    """Group g of a stacked tree (views: writes go to the stack)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[g]
+    if isinstance(tree, KVCache):
+        return KVCache(tree.k[g], tree.v[g])
+    return {k: _index(v, g) for k, v in tree.items()}
+
+
+def stack_init(gen, cfg: ModelConfig, device, dtype) -> Dict:
+    """{layer<j>: params} with a leading (n_groups,) axis on every leaf."""
+    check_supported(cfg)
+    plan = group_plan(cfg)
+    n_groups = cfg.n_layers // len(plan)
+    groups = [{f"layer{j}": _layer_init(gen, cfg, ffn, device, dtype)
+               for j, (_, ffn) in enumerate(plan)} for _ in range(n_groups)]
+    return _stack(groups)
+
+
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device,
+               dtype) -> Dict:
+    """Stacked (n_groups, B, W, K, hd) zero caches: W is the cache length,
+    cut to the sliding window."""
+    check_supported(cfg)
+    plan = group_plan(cfg)
+    n_groups = cfg.n_layers // len(plan)
+    a = cfg.attention
+    W = min(cache_len, a.sliding_window) if a.sliding_window else cache_len
+    shape = (n_groups, B, W, a.n_kv_heads, a.head_dim)
+    return {f"layer{j}": KVCache(torch.zeros(shape, device=device,
+                                             dtype=dtype),
+                                 torch.zeros(shape, device=device,
+                                             dtype=dtype))
+            for j in range(len(plan))}
+
+
+def _layer_apply(p: Dict, x, cfg: ModelConfig, ffn: str, mode: str, ctx,
+                 cache, positions, cache_pos):
+    h = L.apply_norm(p["norm1"], x, cfg.norm)
+    out, new_cache = attn_lib.apply_attention(
+        p["attn"], h, cfg.attention, positions, mode, cache, cache_pos,
+        impl=ctx.attn_impl)
+    x = x + out
+    if ffn == "mlp":
+        h = L.apply_norm(p["norm2"], x, cfg.norm)
+        x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+    return x, new_cache
+
+
+def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
+                caches: Optional[Dict], positions, cache_pos):
+    """The layer stack. Returns (x, caches | None): prefill stacks the
+    layers' new caches; decode writes into ``caches`` in place and
+    returns them."""
+    check_supported(cfg)
+    plan = group_plan(cfg)
+    n_groups = cfg.n_layers // len(plan)
+    new = []
+    for g in range(n_groups):
+        pg = _index(groups, g)
+        cg = _index(caches, g) if mode == "decode" else None
+        out = {}
+        for j, (_, ffn) in enumerate(plan):
+            name = f"layer{j}"
+            x, out[name] = _layer_apply(
+                pg[name], x, cfg, ffn, mode, ctx,
+                cg[name] if cg is not None else None, positions, cache_pos)
+        new.append(out)
+    if mode == "prefill":
+        return x, _stack(new)
+    return x, (caches if mode == "decode" else None)

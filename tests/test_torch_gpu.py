@@ -6,7 +6,10 @@ route. The replay scans and the per-frame bank steps against their plain
 versions at (N, T) = (5, 17) and (1024, 300), the properties that hold
 bit for bit (K=1 IMM = single-model scan, time chunks = one launch, T
 steps = the scan), and ``TrackingEngine.replay`` on the card against the
-CPU. Needs an NVIDIA GPU; run with
+CPU. The LM kernels (flash_attention, flash_decode) against their plain
+versions in float32 (2e-5; 1e-5/1e-4) and bfloat16 (one bf16 ulp of the
+output), and a reduced h2o-danube-1.8b served on the card through both
+kernels against the torch-op routes. Needs an NVIDIA GPU; run with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
 """
@@ -21,10 +24,19 @@ import torch
 # the card's machine runs this file without PYTHONPATH=src
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import tracker as ttr  # noqa: E402
 from repro_torch.core.filters import as_imm, get_filter, make_imm  # noqa: E402
 from repro_torch.data.trajectories import SceneConfig, mot_scene  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
+from repro_torch.launch.steps import make_decode_step  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
 
 from _torch_inputs import random_frame_inputs, replay_inputs  # noqa: E402
@@ -274,3 +286,119 @@ def test_engine_replay_on_card_matches_cpu(cuda, kind):
     b = cpu.replay(zs)
     assert gpu.stats.replay_frames == 60 and gpu.stats.frames == 0
     _close(torch.as_tensor(a), torch.as_tensor(b), 1e-4)
+
+
+# ---------------------------------------------------------------- LM kernels
+
+def _within_bf16_ulp(a, b):
+    """|a - b| at most one bfloat16 ulp of the larger magnitude, values
+    under 2^-6 judged at 2^-6: near zero the two float32 sums differ by
+    ~1e-8, more than a bf16 ulp of the value itself."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(2 ** -6))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    bad = (a - b).abs() > ulp
+    assert not bool(bad.any()), (int(bad.sum()), a[bad][:5].tolist(),
+                                 b[bad][:5].tolist())
+
+
+def _qkv(rng, B, Sq, Sk, H, KH, d, dtype, dev):
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(dev, dtype)
+    return mk(B, Sq, H, d), mk(B, Sk, KH, d), mk(B, Sk, KH, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+@pytest.mark.parametrize("S,H,KH,d", [(128, 4, 4, 32), (200, 8, 2, 80),
+                                      (77, 4, 1, 128), (300, 2, 2, 8)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, window, S,
+                                              H, KH, d):
+    rng = np.random.default_rng(S + d)
+    q, k, v = _qkv(rng, 2, S, S, H, KH, d, dtype, cuda)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, window)
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        _within_bf16_ulp(got, want)
+
+
+def test_flash_attention_kernel_unaligned_noncausal_matches_oracle(cuda):
+    """Keys masked by the true length: Sk = 100 with no padding."""
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 1, 100, 100, 2, 2, 16, torch.float32, cuda)
+    got = fa_ops.flash_attention(q, k, v, 0.25, False, None, 32, 32)
+    bh = lambda t: t.transpose(1, 2).reshape(2, 100, 16)  # noqa: E731
+    want = fa_ref.attention_ref(bh(q), bh(k), bh(v), scale=0.25,
+                                causal=False)
+    torch.testing.assert_close(bh(got), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KH,T,d", [(4, 2, 128, 32), (32, 8, 4096, 80),
+                                      (48, 1, 256, 128), (8, 8, 200, 16)])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, H, KH, T, d):
+    rng = np.random.default_rng(H + T)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda, dtype)
+    q, k, v = mk(2, H, d), mk(2, T, KH, d), mk(2, T, KH, d)
+    fd_ops.reset_launches()
+    got = fd_ops.flash_decode_partial(q, k, v, scale=d ** -0.5, block_k=T)
+    assert fd_ops.LAUNCHES["flash_decode"] == 1
+    want = fd_ref.flash_decode_partial_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    # acc and l are sums over T: held as the normalised output acc / l
+    # and l relative
+    torch.testing.assert_close(got[0] / got[2], want[0] / want[2],
+                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+def test_flash_decode_on_card_matches_decode_attention(cuda):
+    rng = np.random.default_rng(3)
+    B, T, H, KH, d = 2, 256, 8, 2, 32
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda)
+    q, kc, vc, kn, vn = (mk(B, 1, H, d), mk(B, T, KH, d), mk(B, T, KH, d),
+                         mk(B, 1, KH, d), mk(B, 1, KH, d))
+    got = fd_ops.flash_decode(q, kc, vc, kn, vn, scale=d ** -0.5, block_k=64)
+    want = fd_ref.flash_decode_ref(q, kc, vc, kn, vn, scale=d ** -0.5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_reduced_danube_served_on_card(cuda):
+    """Prefill through flash_attention == the banded swa route; 8 decode
+    steps through flash_decode == decode_attention (float32)."""
+    cfg = reduced(get_config("h2o-danube-1.8b"), seq=128)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda,
+                         torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)), device=cuda)
+    fa_ops.reset_launches()
+    lf, cf = make_prefill_step(cfg, ShardingContext(attn_impl="flash"))(
+        params, {"tokens": toks})
+    assert fa_ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    ls, cs = make_prefill_step(cfg, ShardingContext(attn_impl="swa"))(
+        params, {"tokens": toks})
+    torch.testing.assert_close(lf, ls, atol=1e-4, rtol=1e-3)
+    for name in cf:
+        torch.testing.assert_close(cf[name].k, cs[name].k, atol=1e-5,
+                                   rtol=1e-5)
+    steps = {impl: make_decode_step(cfg, ShardingContext(attn_impl=impl))
+             for impl in ("flash", "swa")}
+    tok = lf[:, -1].argmax(-1, keepdim=True)
+    fd_ops.reset_launches()
+    for i in range(8):
+        batch = {"token": tok, "cache_pos": 128 + i}
+        a, cf = steps["flash"](params, batch, cf)
+        b, cs = steps["swa"](params, batch, cs)
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+        tok = a[:, -1].argmax(-1, keepdim=True)
+    assert fd_ops.LAUNCHES["flash_decode"] == 8 * cfg.n_layers

@@ -1,0 +1,206 @@
+"""The port's LM serving slice against the JAX package: the same
+parameters (the reference's tree carried over by
+``lm_params_from_numpy``) and prompts through ``make_prefill_step`` and
+``make_decode_step``. Reduced h2o-danube-1.8b (kv heads 2, since
+``reduced`` makes it MHA; window 32; S = 64) prefilled through
+flash_attention then greedy-decoded for 8 steps: float32 logits within
+1e-4/1e-3, identical tokens and equal caches, with the decode step on the
+dense route and on flash_decode; bfloat16 within 2e-2 of the values'
+scale. Then the other reduced dense configs, and what the slice does not
+serve."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.launch.steps import make_decode_step as j_decode_step
+from repro.launch.steps import make_prefill_step as j_prefill_step
+from repro.models import model as j_model
+from repro.sharding.rules import ShardingContext as JCtx
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.data.lm import LMDataPipeline
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import blocks
+from repro_torch.models.model import forward, init_params
+from repro_torch.sharding.rules import ShardingContext
+
+from _torch_parity import np_
+
+S, STEPS, B = 64, 8, 2
+TOL = dict(atol=1e-4, rtol=1e-3)
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _danube(get, red):
+    cfg = red(get("h2o-danube-1.8b"), seq=S)
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_kv_heads=2))
+
+
+def _serve_reference(jcfg, dtype, attn_impl, steps):
+    """The JAX package's prefill + greedy decode; returns the parameter
+    tree (numpy), the prompts, [logits], [tokens fed] and [caches]."""
+    params = j_model.init_params(jcfg, jax.random.key(0), JNP[dtype])
+    prompts = LMDataPipeline(jcfg.vocab, S, B, seed=3).next_batch()["tokens"]
+    prefill = jax.jit(j_prefill_step(jcfg, JCtx(None, attn_impl=attn_impl)))
+    decode = jax.jit(j_decode_step(jcfg, JCtx(None)))
+    logits, caches = prefill(params, {"tokens": jnp.asarray(prompts)})
+    out_logits, fed, out_caches = [logits], [], [caches]
+    for i in range(steps):
+        tok = np.asarray(jnp.argmax(logits[:, -1], -1))[:, None]
+        fed.append(tok.astype(np.int32))
+        logits, caches = decode(params, {"token": jnp.asarray(fed[-1]),
+                                         "cache_pos": jnp.asarray(S + i)},
+                                caches)
+        out_logits.append(logits)
+        out_caches.append(caches)
+    return (jax.tree.map(np.asarray, params), prompts,
+            [np.asarray(x, np.float32) for x in out_logits], fed, out_caches)
+
+
+@pytest.fixture(scope="module")
+def danube_f32():
+    return _serve_reference(_danube(j_get_config, j_reduced), "float32",
+                            "flash", STEPS)
+
+
+def _serve_port(cfg, tree, prompts, fed, attn_impl, decode_impl,
+                greedy=True):
+    """Prefill on ``attn_impl``, decode on ``decode_impl``'s route."""
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    prefill = make_prefill_step(cfg, ShardingContext(attn_impl=attn_impl))
+    decode = make_decode_step(cfg, ShardingContext(attn_impl=decode_impl))
+    logits, caches = prefill(params, {"tokens": torch.as_tensor(prompts)})
+    out_logits, toks = [logits], []
+    for i in range(len(fed)):
+        tok = (logits[:, -1].argmax(-1, keepdim=True) if greedy
+               else torch.as_tensor(fed[i]).long())
+        toks.append(np_(tok))
+        logits, caches = decode(params, {"token": tok, "cache_pos": S + i},
+                                caches)
+        out_logits.append(logits)
+    return [np_(x.float()) for x in out_logits], toks, caches
+
+
+@pytest.mark.parametrize("decode_impl", ["full", "flash"])
+def test_danube_prefill_and_greedy_decode_match(danube_f32, decode_impl):
+    tree, prompts, want_logits, want_toks, want_caches = danube_f32
+    cfg = _danube(get_config, reduced)
+    logits, toks, caches = _serve_port(cfg, tree, prompts, want_toks,
+                                       "flash", decode_impl)
+    for got, want in zip(logits, want_logits):
+        np.testing.assert_allclose(got, want, **TOL)
+    for got, want in zip(toks, want_toks):
+        np.testing.assert_array_equal(got, want)
+    for name, c in want_caches[-1].items():
+        np.testing.assert_allclose(np_(caches[name].k), np.asarray(c.k),
+                                   atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(np_(caches[name].v), np.asarray(c.v),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_danube_prefill_cache_is_cut_to_the_window(danube_f32):
+    tree, prompts, _, _, want_caches = danube_f32
+    cfg = _danube(get_config, reduced)
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    _, caches = make_prefill_step(cfg, ShardingContext(attn_impl="flash"))(
+        params, {"tokens": torch.as_tensor(prompts)})
+    W = cfg.attention.sliding_window
+    assert W == 32 and caches["layer0"].k.shape == (
+        cfg.n_layers, B, W, 2, cfg.attention.head_dim)
+    for name, c in want_caches[0].items():
+        np.testing.assert_allclose(np_(caches[name].k), np.asarray(c.k),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def _close_to_scale(got, want, tol):
+    """max |got - want| <= tol * max |want|: bf16 rounds at other places
+    in the two frameworks (a sigmoid or a product rounded apart or
+    together), and the reference's own flash and full routes part by 1%
+    of the logits' scale (0.031 at max |logit| 3.17), more than 2e-2 of
+    a small logit."""
+    want = np.asarray(want, np.float32)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def test_danube_bfloat16_matches():
+    """bf16 parameters and activations, both sides fed the reference's
+    greedy tokens: logits and caches within 2e-2 of their scale."""
+    jcfg = _danube(j_get_config, j_reduced)
+    tree, prompts, want_logits, fed, want_caches = _serve_reference(
+        jcfg, "bfloat16", "flash", 3)
+    cfg = _danube(get_config, reduced)
+    logits, _, caches = _serve_port(cfg, tree, prompts, fed, "flash",
+                                    "flash", greedy=False)
+    assert caches["layer0"].k.dtype == torch.bfloat16
+    for got, want in zip(logits, want_logits):
+        _close_to_scale(got, want, 2e-2)
+    for name, c in want_caches[-1].items():
+        _close_to_scale(np_(caches[name].k.float()), c.k, 2e-2)
+        _close_to_scale(np_(caches[name].v.float()), c.v, 2e-2)
+
+
+@pytest.mark.parametrize("arch", ["command-r-35b", "granite-20b",
+                                  "nemotron-4-15b"])
+def test_other_dense_configs_match(arch):
+    """layernorm + tied head (command-r), learned positions + qkv bias +
+    gelu + MQA (granite-20b), squared-ReLU (nemotron): prefill on the
+    auto route and two decode steps."""
+    jcfg = j_reduced(j_get_config(arch), seq=S)
+    tree, prompts, want_logits, fed, _ = _serve_reference(jcfg, "float32",
+                                                          "auto", 2)
+    logits, toks, _ = _serve_port(reduced(get_config(arch), seq=S), tree,
+                                  prompts, fed, "auto", "auto")
+    for got, want in zip(logits, want_logits):
+        np.testing.assert_allclose(got, want, **TOL)
+    for got, want in zip(toks, fed):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mamba2-130m", "mamba2-130m serving slice"),
+    ("granite-moe-1b-a400m", "MoE"), ("jamba-1.5-large-398b", "SSM"),
+    ("internvl2-2b", "frontend")])
+def test_unsupported_families_raise(arch, match):
+    cfg = reduced(get_config(arch), seq=S)
+    with pytest.raises(NotImplementedError, match=match):
+        init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        blocks.init_cache(cfg, 1, 8, "cpu", torch.float32)
+
+
+def test_what_one_card_does_not_serve():
+    cfg = _danube(get_config, reduced)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ShardingContext(mesh=object())
+    with pytest.raises(ValueError, match="attn_impl"):
+        ShardingContext(attn_impl="xla")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    with pytest.raises(NotImplementedError, match="training"):
+        forward(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                "train")
+    tree = {k: v for k, v in params.items() if k != "final_norm"}
+    with pytest.raises(KeyError, match="final_norm"):
+        lm_params_from_numpy(tree, cfg, "cpu")
+    params["head"] = params["head"][:, :5]
+    with pytest.raises(ValueError, match="head"):
+        lm_params_from_numpy(params, cfg, "cpu")
+
+
+def test_init_cache_and_params_shapes():
+    cfg = _danube(get_config, reduced)
+    caches = blocks.init_cache(cfg, 3, 100, "cpu", torch.bfloat16)
+    a = cfg.attention
+    assert caches["layer0"].k.shape == (cfg.n_layers, 3, a.sliding_window,
+                                        a.n_kv_heads, a.head_dim)
+    p = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    assert p["groups"]["layer0"]["attn"]["wq"].shape == (
+        cfg.n_layers, cfg.d_model, a.n_heads, a.head_dim)
+    assert p["head"].dtype == torch.bfloat16
