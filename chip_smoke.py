@@ -47,7 +47,25 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      0's inputs of every layer (float32, 1e-5/1e-4); the share of greedy
      tokens equal to the reference route's is printed. Then each kernel's
      time (CUDA events), bound, plain and library times;
-  8. one JSON line with the kernel table, then the status line.
+  8. Mamba-2 serving: mamba2-130m at full width and depth, random bf16
+     weights, B=8 prompts of S=32768 tokens from ``LMDataPipeline``
+     prefilled through ``make_prefill_step`` (24 ssd_scan launches), 32
+     greedy steps through ``make_decode_step`` (no launch: the decode step
+     is the reference's one-step recurrence in torch ops); prefill ms and
+     tokens/s, decode ms/token and tokens/s (host clock around
+     synchronised steps), the device-busy share and largest kernels of one
+     prefill and one decode step. Held: ssd_scan against its plain
+     version (float32 at small shapes, 1e-5 + 1e-4|x|, with S < chunk,
+     state0 and decays that would overflow above the diagonal; bf16 on
+     layer 0's real prefill inputs, y within one bf16 ulp, the state
+     within 1e-4 of its scale); the float32 prefill through the kernel
+     against the same prefill with ``models.ssm.ssd_chunked`` in its place
+     (logits and every layer's cache within 1e-4 of their scale); the bf16
+     kernel route no farther from that float32 run than max(2^-8, 2x) the
+     bf16 ``ssd_chunked`` route (see phase_mamba). Then the kernel's time
+     (CUDA events; also at 16, 32 and 64 state columns a block), bound
+     and plain time;
+  9. one JSON line with the kernel table, then the status line.
 """
 from __future__ import annotations
 
@@ -59,6 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -79,9 +98,12 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.steps import make_decode_step  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
@@ -122,6 +144,8 @@ REPLACES = {
                        "(flash_attention_bhsd -> pallas_call :97)",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:60 "
                     "(flash_decode_partial -> pallas_call :71)",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:59 "
+                "(ssd_scan_bhsp -> pallas_call :69)",
 }
 _CSRC = "src/repro_torch/kernels/katana_bank/csrc/"
 SOURCES = {
@@ -136,6 +160,7 @@ SOURCES = {
                        "flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/csrc/"
                     "flash_decode.cu",
+    "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
 
 
@@ -181,6 +206,11 @@ def device_ms(fn, iters: int = 20) -> dict:
 
 def max_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def _rel(a, ref) -> float:
+    """max |a - ref| / max |ref|: a distance on the values' scale."""
+    return max_diff(a, ref) / float(ref.double().abs().max())
 
 
 def max_rel(a, ref) -> float:
@@ -1116,9 +1146,9 @@ def busy_profile(fn):
     return wall, sum(by.values()) / wall, by
 
 
-def print_profile(what, wall, share, by, card, top=6):
+def print_profile(what, wall, share, by, card, top=6, tag="lm"):
     total = sum(by.values())
-    print(f"[lm] {what}: {wall:.2f} ms host, device busy {share:.4f} "
+    print(f"[{tag}] {what}: {wall:.2f} ms host, device busy {share:.4f} "
           f"({total:.2f} ms in {len(by)} kernel names); top: " + "; ".join(
               f"{k[:48]} {v:.2f} ms" for k, v in sorted(
                   by.items(), key=lambda kv: -kv[1])[:top]) + f" | {card}")
@@ -1184,11 +1214,8 @@ def phase_lm(cfg, B, S, steps, card):
     del p32
     torch.cuda.empty_cache()
 
-    def rel(a, ref):
-        return max_diff(a, ref) / float(ref.abs().max())
-
-    e_flash, e_swa = rel(logits, logits_32), rel(logits_swa, logits_32)
-    gap = rel(logits, logits_swa)
+    e_flash, e_swa = _rel(logits, logits_32), _rel(logits_swa, logits_32)
+    gap = _rel(logits, logits_swa)
     print(f"[lm] last-position logits, max|d| / max|float32 swa|: flash "
           f"route {e_flash:.4g}, bf16 swa route {e_swa:.4g}; flash vs swa "
           f"{gap:.4g}")
@@ -1203,7 +1230,7 @@ def phase_lm(cfg, B, S, steps, card):
             b = getattr(caches_swa[name], f)
             c = getattr(caches_32[name], f)
             for g in range(a.shape[0]):
-                ef, es = rel(a[g], c[g]), rel(b[g], c[g])
+                ef, es = _rel(a[g], c[g]), _rel(b[g], c[g])
                 assert ef <= max(2 ** -8, ROUTE_SLACK * es), (f, g, ef, es)
                 cache_rows.append((f, g, ef, es))
     worst = max(cache_rows, key=lambda r: r[2])
@@ -1350,6 +1377,244 @@ def phase_lm(cfg, B, S, steps, card):
     return row, kern
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: Mamba-2 serving (mamba2-130m) through ssd_scan
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH, MAMBA_B, MAMBA_S, MAMBA_STEPS = "mamba2-130m", 8, 32768, 32
+MAMBA_CHECK_B = 2  # prompts of the float32 and bf16 route checks
+SMALL_SSD = [  # (B, S, H, P, N, chunk, state0, dt scale): float32
+    (2, 512, 4, 64, 128, 256, False, 0.5), (1, 100, 2, 16, 16, 256, True, 0.5),
+    (2, 96, 3, 32, 64, 32, True, 0.5), (1, 384, 2, 128, 32, 128, False, 0.5),
+    (2, 128, 2, 16, 16, 64, True, 20.0)]
+
+
+def ssd_inputs(rng, B, S, H, P, N, dtype, dt_scale=0.5, state=False):
+    """x, dt (softplus of a normal, times dt_scale), Bm, Cm, A (H,)
+    negative and state0 (or None), as the model hands them to ssd_scan."""
+    def mk(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=DEV)
+
+    dt = torch.nn.functional.softplus(mk(B, S, H)) * dt_scale
+    return (mk(B, S, H, P).to(dtype), dt, mk(B, S, N).to(dtype),
+            mk(B, S, N).to(dtype), -torch.exp(mk(H)),
+            mk(B, H, P, N) if state else None)
+
+
+def ssd_kernel_vs_plain():
+    """ssd_scan against ssd_scan_plain at small shapes in float32: y and
+    the final state within 1e-5 + 1e-4|x|. The last shape's dt A reaches
+    about -40 a step, so exp(cum_i - cum_j) above the diagonal would
+    overflow to inf: the outputs must stay finite."""
+    rng = np.random.default_rng(17)
+    err = 0.0
+    for B, S, H, P, N, chunk, state, scale in SMALL_SSD:
+        args = ssd_inputs(rng, B, S, H, P, N, torch.float32, scale, state)
+        got = ssd_ops.ssd_scan(*args[:5], chunk=chunk, state0=args[5])
+        want = ssd_ref.ssd_scan_plain(*args[:5], chunk, args[5])
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all()), ("ssd_scan", B, S, N)
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+            err = max(err, max_diff(g, w))
+    print(f"ssd_scan vs plain, float32: max|d| {err:.3g} over "
+          f"{len(SMALL_SSD)} shapes (S < chunk, state0, overflowing decay; "
+          "<= 1e-5 + 1e-4|x|)")
+    return err
+
+
+def ssd_work(B, S, H, P, N, Q, itemsize):
+    """(bytes, operations) of one ssd_scan call: x, dt, B, C, A read once,
+    y and the final state written once; C B^T on the diagonal and below
+    once per (batch, chunk) (B and C are shared by the heads), then per
+    (batch, head, chunk) the weighted product W x on the diagonal and
+    below, the state's read (C state^T) and its update (x^T B), 2
+    operations a multiply-add."""
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + \
+        B * S * H * 4 + H * 4 + B * H * P * N * 4
+    ops_ = 2 * B * nc * tri * N + 2 * B * H * nc * (tri * P + 2 * Q * P * N)
+    return nbytes, ops_
+
+
+def _ssd_chunked_as_scan(x, dt, Bm, Cm, A, chunk=256, state0=None,
+                         interpret=True):
+    """ops.ssd_scan's signature on models.ssm.ssd_chunked (the reference's
+    pure function): the route the checks measure the kernel against."""
+    return ssm_lib.ssd_chunked(x, dt, Bm, Cm, A, chunk, state0)
+
+
+def phase_mamba(cfg, B, S, steps, card):
+    """Mamba-2 serving through the port's entry points: prefill on
+    ssd_scan, greedy decode on the one-step recurrence; then the checks
+    against ``ssd_chunked`` and the kernel's numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, H, P = ssm_lib.ssm_dims(cfg.ssm, cfg.d_model)
+    N = cfg.ssm.d_state
+    Q = min(cfg.ssm.chunk, S)
+    err_small = ssd_kernel_vs_plain()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = torch.as_tensor(LMDataPipeline(cfg.vocab, S, B, seed=0)
+                              .next_batch()["tokens"], device=DEV).long()
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+
+    # warm-up at the serving shape, keeping layer 0's ssd_scan inputs
+    captured = []
+    real = ssm_lib.ops.ssd_scan
+
+    def spy(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(ssm_lib.ops, "ssd_scan", spy):
+        prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+
+    # -- the main path, counters reset just before and read just after --
+    ssd_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = ssd_ops.LAUNCHES["ssd_scan"]
+    check = {n: type(c)(*(t[:, :MAMBA_CHECK_B].clone() for t in c))
+             for n, c in caches.items()}
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step_ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = decode(params, {"token": tok, "cache_pos": S + i},
+                             caches)
+        tok = out[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ssd_ops.LAUNCHES["ssd_scan"]
+    assert after_prefill == cfg.n_layers, after_prefill
+    assert launches == cfg.n_layers, ("decode launched ssd_scan", launches)
+    assert logits.shape == (B, 1, cfg.vocab) and out.shape == logits.shape
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(out).all())
+    assert caches["layer0"].state.shape == (cfg.n_layers, B, H, P, N)
+    decode_ms = float(np.mean(step_ms))
+    print(f"[mamba] {cfg.name} ({n_params / 1e6:.1f} M parameters) B={B} "
+          f"S={S}: prefill {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.4g}"
+          f" tokens/s); decode {steps} steps {decode_ms:.3f} ms/token "
+          f"({B * 1e3 / decode_ms:.1f} tokens/s, steps {min(step_ms):.3f}-"
+          f"{max(step_ms):.3f} ms); ssd_scan launches {after_prefill} in the "
+          f"prefill, {launches - after_prefill} in the decode | {card}")
+
+    # -- float32: the kernel route against ssd_chunked in its place --
+    few = {"tokens": prompts[:MAMBA_CHECK_B]}
+    p32 = _tree_map(lambda t: t.float(), params)
+    logits_k32, caches_k32 = prefill(p32, few)
+    with mock.patch.object(ssm_lib.ops, "ssd_scan", _ssd_chunked_as_scan):
+        logits_32, caches_32 = prefill(p32, few)
+        logits_c16, caches_c16 = prefill(params, few)
+    del p32
+    torch.cuda.empty_cache()
+    e32 = _rel(logits_k32, logits_32)
+    c32 = max(_rel(a[g], b[g]) for n in caches_32
+              for a, b in zip(caches_k32[n], caches_32[n])
+              for g in range(cfg.n_layers))
+    print(f"[mamba] float32 prefill of {MAMBA_CHECK_B} prompts, kernel vs "
+          f"ssd_chunked, max|d| / max|value|: logits {e32:.3g}, worst cache "
+          f"tensor of a layer {c32:.3g} (<= 1e-4)")
+    assert e32 <= 1e-4 and c32 <= 1e-4, (e32, c32)
+
+    # -- bf16: the kernel route and ssd_chunked's, both from float32 --
+    # Held: the kernel route within ROUTE_SLACK x the bf16 ssd_chunked
+    # route's own error, or within one bf16 ulp of the scale (2^-8); the
+    # same rule for every layer's cache tensors.
+    e_k = _rel(logits[:MAMBA_CHECK_B], logits_32)
+    e_c = _rel(logits_c16, logits_32)
+    assert e_k <= max(2 ** -8, ROUTE_SLACK * e_c), (e_k, e_c)
+    rows = []
+    for n in caches_32:
+        for f, a, b, c in zip(caches_32[n]._fields, check[n], caches_c16[n],
+                              caches_32[n]):
+            for g in range(cfg.n_layers):
+                ek, ec = _rel(a[g], c[g]), _rel(b[g], c[g])
+                assert ek <= max(2 ** -8, ROUTE_SLACK * ec), (f, g, ek, ec)
+                rows.append((f, g, ek, ec))
+    worst = max(rows, key=lambda r: r[2])
+    print(f"[mamba] bf16 routes from float32, max|d| / max|value|: logits "
+          f"kernel {e_k:.4g}, ssd_chunked {e_c:.4g}; worst cache tensor "
+          f"{worst[2]:.4g} ({worst[0]} layer {worst[1]}; ssd_chunked there "
+          f"{worst[3]:.4g}); all {len(rows)} within max(2^-8, "
+          f"{ROUTE_SLACK} x ssd_chunked)")
+    del caches_32, caches_c16, caches_k32, check
+    torch.cuda.empty_cache()
+
+    # -- where the time goes: one prefill, one decode step (profiled) --
+    prof_prefill = busy_profile(lambda: prefill(params, {"tokens": prompts}))
+    print_profile("prefill profile", *prof_prefill, card, tag="mamba")
+    prof_decode = busy_profile(lambda: decode(
+        params, {"token": tok, "cache_pos": S + steps}, caches))
+    print_profile("decode step profile", *prof_decode, card, tag="mamba")
+
+    # -- the kernel on layer 0's real prefill inputs, bf16 --
+    args, kw = captured[0]
+    x, dt, Bm, Cm, A = args[:5]
+    assert x.shape == (B, S, H, P) and x.dtype == torch.bfloat16
+    y, st = ssd_ops.ssd_scan(*args, **kw)
+    (y_p, st_p), s_plain = timed_once(
+        lambda: ssd_ref.ssd_scan_plain(x, dt, Bm, Cm, A, Q))
+    ulps = bf16_ulp_excess(y, y_p)
+    st_err = _rel(st, st_p)
+    assert ulps <= 1.0 and st_err <= 1e-4, ("ssd_scan bf16", ulps, st_err)
+    pb = ssd_ops.block_p(P, N, Q)
+    s_ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, **kw), 5, warmup=1)
+    by_pb = {w: cuda_ms(lambda: ssd_ops._launch(x, dt, Bm, Cm, A, Q, None,
+                                                w), 3, warmup=1)
+             for w in ssd_ops.P_BLOCKS}
+    nb, nops = ssd_work(B, S, H, P, N, Q, 2)
+    s_bound = max(nb / HBM_BPS, nops / BF16_OPS) * 1e3
+    s_by = "bytes" if nb / HBM_BPS >= nops / BF16_OPS else "operations"
+    print(f"[mamba] ssd_scan B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 (layer "
+          f"0's prefill inputs): {s_ms:.3f} ms at {pb} state columns a block "
+          f"(" + ", ".join(f"{w}: {v:.3f}" for w, v in by_pb.items()) +
+          f" ms; plain {s_plain:.1f} ms, no library call), y vs plain "
+          f"{ulps:.3g} bf16 ulp, state {st_err:.3g} of its scale; bound "
+          f"{s_bound:.4f} ms by {s_by} ({nb} B, {nops} ops; at the float32 "
+          f"CUDA-core peak {nops / F32_OPS * 1e3:.2f} ms) | {card}")
+    row = dict(arch=cfg.name, B=B, S=S, decode_steps=steps,
+               params=n_params, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=B * S / prefill_ms * 1e3,
+               decode_ms_per_token=decode_ms,
+               decode_tokens_per_s=B * 1e3 / decode_ms, step_ms=step_ms,
+               launches_prefill=after_prefill,
+               launches_decode=launches - after_prefill,
+               f32_logits_err=e32, f32_cache_err=c32,
+               bf16_logits_err_kernel=e_k, bf16_logits_err_chunked=e_c,
+               bf16_worst_cache=worst,
+               profile={k: dict(host_ms=v[0], device_busy=v[1],
+                                kernels_ms=v[2])
+                        for k, v in (("prefill", prof_prefill),
+                                     ("decode_step", prof_decode))})
+    kern = dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
+                bound_ms=s_bound, bound_by=s_by, launches=launches,
+                max_abs_err=max(err_small, max_diff(y, y_p)),
+                bf16_ulps=ulps, state_rel_err=st_err, bytes=nb,
+                operations=nops, ms_by_block_p=by_pb, block_p=pb,
+                shape=f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16 (layer "
+                      "0's prefill inputs); bound at the bf16 tensor-core "
+                      "peak; no single PyTorch call computes the SSD scan")
+    return row, kern
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree.values() for t in _leaves(v)]
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -1391,6 +1656,8 @@ def main() -> int:
     per_frame = phase_per_frame(plain_r)
     phase_resumed_bank(engines["imm"])
     lm, lm_kern = phase_lm(get_config(LM_ARCH), LM_B, LM_S, LM_STEPS, card)
+    mamba, lm_kern["ssd_scan"] = phase_mamba(
+        get_config(MAMBA_ARCH), MAMBA_B, MAMBA_S, MAMBA_STEPS, card)
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
@@ -1455,7 +1722,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, rows=rows,
                  greedy=greedy, replay=replay, per_frame=per_frame,
-                 lm=lm, kernels=kernels,
+                 lm=lm, mamba=mamba, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -36,6 +36,7 @@ SOURCES: Dict[str, Path] = {
                     "imm_scan.cu", "imm_step.cu")},
     "flash_attention.cu": _KERNELS / "flash_attention" / "csrc",
     "flash_decode.cu": _KERNELS / "flash_decode" / "csrc",
+    "ssd_scan.cu": _KERNELS / "ssd_scan" / "csrc",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -78,6 +79,10 @@ SIGNATURES = {
     "flash_decode.cu": {
         "flash_decode_partial_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                      _P, _P, _F, _P],
+    },
+    "ssd_scan.cu": {
+        "ssd_scan_run": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P],
     },
 }
 

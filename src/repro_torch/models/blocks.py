@@ -5,8 +5,8 @@ Parameters and caches keep the reference's grouped layout: every leaf
 of ``groups`` (and of the stacked caches) carries a leading axis over
 the n_layers / period groups, so a reference tree carries over as a
 copy. The stack is a plain Python loop over the groups (PyTorch runs
-eagerly; there is no scan to trace). This slice serves attention + MLP
-layers; SSM and MoE layers raise.
+eagerly; there is no scan to trace). Attention and SSM (Mamba-2)
+mixers with MLP layers are served; MoE layers and the frontends raise.
 """
 from __future__ import annotations
 
@@ -17,13 +17,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 
 UNSUPPORTED = {
-    "ssm": "SSM (Mamba-2) layers come with the mamba2-130m serving slice "
-           "(ROADMAP.md §1, next slice: models/ssm.py and ssd_scan)",
-    "moe": "MoE layers are a later slice (ROADMAP.md §1, after the "
-           "mamba2-130m slice)",
+    "moe": "MoE layers are a later slice (ROADMAP.md §1)",
 }
 
 
@@ -65,11 +64,15 @@ def check_supported(cfg: ModelConfig) -> None:
             "(ROADMAP.md §1)")
 
 
-def _layer_init(gen, cfg: ModelConfig, ffn: str, device, dtype) -> Dict:
+def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
+                dtype) -> Dict:
     p: Dict[str, Any] = {
-        "norm1": L.norm_init(cfg.d_model, cfg.norm, device, dtype),
-        "attn": attn_lib.attn_init(gen, cfg.attention, cfg.d_model, device,
-                                   dtype)}
+        "norm1": L.norm_init(cfg.d_model, cfg.norm, device, dtype)}
+    if mixer == "attn":
+        p["attn"] = attn_lib.attn_init(gen, cfg.attention, cfg.d_model,
+                                       device, dtype)
+    else:
+        p["ssm"] = ssm_lib.ssm_init(gen, cfg.ssm, cfg.d_model, device, dtype)
     if ffn == "mlp":
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, device, dtype)
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device,
@@ -77,13 +80,16 @@ def _layer_init(gen, cfg: ModelConfig, ffn: str, device, dtype) -> Dict:
     return p
 
 
+_CACHES = (KVCache, SSMCache)
+
+
 def _stack(trees: List[Any]) -> Any:
-    """Stack matching trees (dicts / KVCaches of tensors) on a new axis 0."""
+    """Stack matching trees (dicts / caches of tensors) on a new axis 0."""
     first = trees[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(trees)
-    if isinstance(first, KVCache):
-        return KVCache(*(torch.stack(ts) for ts in zip(*trees)))
+    if isinstance(first, _CACHES):
+        return type(first)(*(torch.stack(ts) for ts in zip(*trees)))
     return {k: _stack([t[k] for t in trees]) for k in first}
 
 
@@ -91,8 +97,8 @@ def _index(tree: Any, g: int) -> Any:
     """Group g of a stacked tree (views: writes go to the stack)."""
     if isinstance(tree, torch.Tensor):
         return tree[g]
-    if isinstance(tree, KVCache):
-        return KVCache(tree.k[g], tree.v[g])
+    if isinstance(tree, _CACHES):
+        return type(tree)(*(t[g] for t in tree))
     return {k: _index(v, g) for k, v in tree.items()}
 
 
@@ -101,34 +107,52 @@ def stack_init(gen, cfg: ModelConfig, device, dtype) -> Dict:
     check_supported(cfg)
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
-    groups = [{f"layer{j}": _layer_init(gen, cfg, ffn, device, dtype)
-               for j, (_, ffn) in enumerate(plan)} for _ in range(n_groups)]
+    groups = [{f"layer{j}": _layer_init(gen, cfg, mixer, ffn, device, dtype)
+               for j, (mixer, ffn) in enumerate(plan)}
+              for _ in range(n_groups)]
     return _stack(groups)
+
+
+def _empty_layer_cache(cfg: ModelConfig, mixer: str, n_groups: int, B: int,
+                       cache_len: int, device, dtype):
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((n_groups,) + shape, device=device, dtype=dtype)
+
+    if mixer == "attn":
+        a = cfg.attention
+        W = min(cache_len, a.sliding_window) if a.sliding_window else cache_len
+        return KVCache(zeros(B, W, a.n_kv_heads, a.head_dim),
+                       zeros(B, W, a.n_kv_heads, a.head_dim))
+    s = cfg.ssm
+    _, H, Pd = ssm_lib.ssm_dims(s, cfg.d_model)
+    return SSMCache(state=zeros(B, H, Pd, s.d_state, dtype=torch.float32),
+                    conv_x=zeros(B, s.conv_width - 1, H, Pd),
+                    conv_B=zeros(B, s.conv_width - 1, s.d_state),
+                    conv_C=zeros(B, s.conv_width - 1, s.d_state))
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device,
                dtype) -> Dict:
-    """Stacked (n_groups, B, W, K, hd) zero caches: W is the cache length,
-    cut to the sliding window."""
+    """Stacked (n_groups, ...) zero caches: (B, W, K, hd) KV caches with W
+    the cache length cut to the sliding window; SSM caches of the float32
+    state (B, H, P, N) and the conv tails (B, w-1, ...)."""
     check_supported(cfg)
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
-    a = cfg.attention
-    W = min(cache_len, a.sliding_window) if a.sliding_window else cache_len
-    shape = (n_groups, B, W, a.n_kv_heads, a.head_dim)
-    return {f"layer{j}": KVCache(torch.zeros(shape, device=device,
-                                             dtype=dtype),
-                                 torch.zeros(shape, device=device,
-                                             dtype=dtype))
-            for j in range(len(plan))}
+    return {f"layer{j}": _empty_layer_cache(cfg, mixer, n_groups, B,
+                                            cache_len, device, dtype)
+            for j, (mixer, _) in enumerate(plan)}
 
 
-def _layer_apply(p: Dict, x, cfg: ModelConfig, ffn: str, mode: str, ctx,
-                 cache, positions, cache_pos):
+def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
+                 mode: str, ctx, cache, positions, cache_pos):
     h = L.apply_norm(p["norm1"], x, cfg.norm)
-    out, new_cache = attn_lib.apply_attention(
-        p["attn"], h, cfg.attention, positions, mode, cache, cache_pos,
-        impl=ctx.attn_impl)
+    if mixer == "attn":
+        out, new_cache = attn_lib.apply_attention(
+            p["attn"], h, cfg.attention, positions, mode, cache, cache_pos,
+            impl=ctx.attn_impl)
+    else:
+        out, new_cache = ssm_lib.apply_ssm(p["ssm"], h, cfg.ssm, mode, cache)
     x = x + out
     if ffn == "mlp":
         h = L.apply_norm(p["norm2"], x, cfg.norm)
@@ -149,10 +173,10 @@ def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
         pg = _index(groups, g)
         cg = _index(caches, g) if mode == "decode" else None
         out = {}
-        for j, (_, ffn) in enumerate(plan):
+        for j, (mixer, ffn) in enumerate(plan):
             name = f"layer{j}"
             x, out[name] = _layer_apply(
-                pg[name], x, cfg, ffn, mode, ctx,
+                pg[name], x, cfg, mixer, ffn, mode, ctx,
                 cg[name] if cg is not None else None, positions, cache_pos)
         new.append(out)
     if mode == "prefill":

@@ -9,7 +9,11 @@ steps = the scan), and ``TrackingEngine.replay`` on the card against the
 CPU. The LM kernels (flash_attention, flash_decode) against their plain
 versions in float32 (2e-5; 1e-5/1e-4) and bfloat16 (one bf16 ulp of the
 output), and a reduced h2o-danube-1.8b served on the card through both
-kernels against the torch-op routes. Needs an NVIDIA GPU; run with
+kernels against the torch-op routes. The ssd_scan kernel against its
+plain version (float32 1e-5 + 1e-4|x|; bf16 y within one bf16 ulp, the
+float32 state within 1e-4 of its scale), and a reduced mamba2-130m
+served on the card through it against the CPU. Needs an NVIDIA GPU; run
+with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
 """
@@ -33,6 +37,8 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.steps import make_decode_step  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
@@ -402,3 +408,117 @@ def test_reduced_danube_served_on_card(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
         tok = a[:, -1].argmax(-1, keepdim=True)
     assert fd_ops.LAUNCHES["flash_decode"] == 8 * cfg.n_layers
+
+
+# ------------------------------------------------------------- ssd_scan
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, dt_scale=0.5, state=False):
+    """x, dt (softplus of a normal, times dt_scale), Bm, Cm, A (H,)
+    negative, state0 (or None) as the model hands them to ssd_scan."""
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s),  # noqa: E731
+                                    dtype=torch.float32).to(dev)
+    dt = torch.nn.functional.softplus(mk(B, S, H)) * dt_scale
+    A = -torch.exp(mk(H))
+    state0 = mk(B, H, P, N) if state else None
+    return (mk(B, S, H, P).to(dtype), dt, mk(B, S, N).to(dtype),
+            mk(B, S, N).to(dtype), A, state0)
+
+
+SSD_SHAPES = [  # (B, S, H, P, N, chunk, state0)
+    (2, 512, 4, 64, 128, 256, False), (1, 100, 2, 16, 16, 256, True),
+    (2, 96, 3, 32, 64, 32, True), (1, 384, 2, 128, 32, 128, False),
+    (2, 48, 2, 16, 4, 16, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,state", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk,
+                                       state):
+    rng = np.random.default_rng(S + N)
+    args = _ssd_inputs(rng, B, S, H, P, N, dtype, cuda, state=state)
+    ssd_ops.reset_launches()
+    y, st = ssd_ops.ssd_scan(*args[:5], chunk=chunk, state0=args[5])
+    assert ssd_ops.LAUNCHES["ssd_scan"] == 1
+    y_p, st_p = ssd_ref.ssd_scan_plain(*args[:5], chunk, args[5])
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-4)
+    else:
+        _within_bf16_ulp(y, y_p)
+    torch.testing.assert_close(st, st_p, atol=1e-4 * float(
+        st_p.abs().max()), rtol=1e-4)
+
+
+def test_ssd_scan_kernel_large_decay_stays_finite(cuda):
+    """dt A of about -40 a step: exp(cum_i - cum_j) above the diagonal
+    would overflow to inf; the kernel never computes it."""
+    rng = np.random.default_rng(7)
+    args = _ssd_inputs(rng, 2, 128, 2, 16, 16, torch.float32, cuda,
+                       dt_scale=20.0, state=True)
+    y, st = ssd_ops.ssd_scan(*args[:5], chunk=64, state0=args[5])
+    y_p, st_p = ssd_ref.ssd_scan_plain(*args[:5], 64, args[5])
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(st, st_p, atol=1e-5, rtol=1e-4)
+
+
+def test_ssd_scan_block_widths_agree_bitwise(cuda):
+    """16, 32 or 64 state columns a block: every output entry is the same
+    sum in the same order."""
+    rng = np.random.default_rng(5)
+    x, dt, Bm, Cm, A, s0 = _ssd_inputs(rng, 2, 256, 3, 64, 64,
+                                       torch.bfloat16, cuda, state=True)
+    outs = [ssd_ops._launch(x, dt, Bm, Cm, A, 128, s0, pb)
+            for pb in (16, 32, 64)]
+    for y, st in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+
+
+def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(2)
+    for (S, P, N, chunk), match in [((64, 16, 24, 64), "d_state"),
+                                    ((64, 8, 16, 64), "head_dim"),
+                                    ((1024, 16, 16, 512), "chunk")]:
+        args = _ssd_inputs(rng, 1, S, 2, P, N, torch.float32, cuda)
+        with pytest.raises(NotImplementedError, match=match):
+            ssd_ops.ssd_scan(*args[:5], chunk=chunk)
+    args = _ssd_inputs(rng, 1, 96, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_ops.ssd_scan(*args[:5], chunk=64)
+
+
+def test_reduced_mamba2_served_on_card(cuda):
+    """Prefill through ssd_scan (n_layers launches) and 8 greedy decode
+    steps (no launch) on the card == the CPU's plain route (float32)."""
+    cfg = reduced(get_config("mamba2-130m"), seq=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    on_card = {k: _to(v, cuda) for k, v in params.items()}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    ssd_ops.reset_launches()
+    lg, cg = prefill(on_card, {"tokens": toks.to(cuda)})
+    assert ssd_ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+    lc, cc = prefill(params, {"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-3)
+    tok = lc[:, -1].argmax(-1, keepdim=True)
+    for i in range(8):
+        a, cg = decode(on_card, {"token": tok.to(cuda), "cache_pos": 128 + i},
+                       cg)
+        b, cc = decode(params, {"token": tok, "cache_pos": 128 + i}, cc)
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+        assert torch.equal(a.cpu()[:, -1].argmax(-1), b[:, -1].argmax(-1))
+        tok = b[:, -1].argmax(-1, keepdim=True)
+    assert ssd_ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+    for name in cc:
+        for got, want in zip(cg[name], cc[name]):
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return {k: _to(v, dev) for k, v in tree.items()}

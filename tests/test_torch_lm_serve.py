@@ -6,8 +6,11 @@ parameters (the reference's tree carried over by
 flash_attention then greedy-decoded for 8 steps: float32 logits within
 1e-4/1e-3, identical tokens and equal caches, with the decode step on the
 dense route and on flash_decode; bfloat16 within 2e-2 of the values'
-scale. Then the other reduced dense configs, and what the slice does not
-serve."""
+scale. Then the other reduced dense configs; reduced mamba2-130m (2
+layers, d 64, N 16, P 16, chunk 16) prefilled through ssd_scan and
+greedy-decoded the same way (float32 logits within 1e-4/1e-3, identical
+tokens, equal caches; bfloat16 within 2e-2 of the values' scale); and
+what the port does not serve yet."""
 import dataclasses
 
 import jax
@@ -164,8 +167,7 @@ def test_other_dense_configs_match(arch):
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("mamba2-130m", "mamba2-130m serving slice"),
-    ("granite-moe-1b-a400m", "MoE"), ("jamba-1.5-large-398b", "SSM"),
+    ("granite-moe-1b-a400m", "MoE"), ("jamba-1.5-large-398b", "MoE"),
     ("internvl2-2b", "frontend")])
 def test_unsupported_families_raise(arch, match):
     cfg = reduced(get_config(arch), seq=S)
@@ -173,6 +175,87 @@ def test_unsupported_families_raise(arch, match):
         init_params(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match=match):
         blocks.init_cache(cfg, 1, 8, "cpu", torch.float32)
+
+
+@pytest.fixture(scope="module")
+def mamba_f32():
+    return _serve_reference(j_reduced(j_get_config("mamba2-130m"), seq=S),
+                            "float32", "auto", STEPS)
+
+
+def _assert_caches_equal(caches, want, **tol):
+    for name, c in want.items():
+        assert type(caches[name]).__name__ == type(c).__name__ == "SSMCache"
+        for f, got, w in zip(c._fields, caches[name], c):
+            assert tuple(got.shape) == w.shape, f
+            np.testing.assert_allclose(np_(got.float()), np.asarray(
+                w, np.float32), err_msg=f"{name}.{f}", **tol)
+
+
+def test_mamba2_prefill_and_greedy_decode_match(mamba_f32):
+    """Prefill through ssd_scan (its plain version here), 8 greedy decode
+    steps on the one-step recurrence: logits, tokens and the caches after
+    the prefill and after the last step."""
+    tree, prompts, want_logits, want_toks, want_caches = mamba_f32
+    cfg = reduced(get_config("mamba2-130m"), seq=S)
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm.d_state, cfg.ssm.head_dim,
+            cfg.ssm.chunk) == (2, 64, 16, 16, 16)
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    _, caches0 = make_prefill_step(cfg)(
+        params, {"tokens": torch.as_tensor(prompts)})
+    _assert_caches_equal(caches0, want_caches[0], atol=1e-5, rtol=1e-4)
+    logits, toks, caches = _serve_port(cfg, tree, prompts, want_toks, "auto",
+                                       "auto")
+    for got, want in zip(logits, want_logits):
+        np.testing.assert_allclose(got, want, **TOL)
+    for got, want in zip(toks, want_toks):
+        np.testing.assert_array_equal(got, want)
+    _assert_caches_equal(caches, want_caches[-1], atol=1e-5, rtol=1e-4)
+
+
+def test_mamba2_bfloat16_matches():
+    """bf16 parameters (A_log, D and dt_bias stay float32, as in the
+    reference tree) and activations, both sides fed the reference's greedy
+    tokens: logits and caches within 2e-2 of their scale."""
+    jcfg = j_reduced(j_get_config("mamba2-130m"), seq=S)
+    tree, prompts, want_logits, fed, want_caches = _serve_reference(
+        jcfg, "bfloat16", "auto", 3)
+    cfg = reduced(get_config("mamba2-130m"), seq=S)
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    ssm_p = params["groups"]["layer0"]["ssm"]
+    for k in ("A_log", "D", "dt_bias"):
+        assert ssm_p[k].dtype == torch.float32, k
+    assert ssm_p["wx"].dtype == torch.bfloat16
+    assert params["embed"]["tokens"].dtype == torch.bfloat16
+    logits, _, caches = _serve_port(cfg, tree, prompts, fed, "auto", "auto",
+                                    greedy=False)
+    assert caches["layer0"].state.dtype == torch.float32
+    assert caches["layer0"].conv_x.dtype == torch.bfloat16
+    for got, want in zip(logits, want_logits):
+        _close_to_scale(got, want, 2e-2)
+    for name, c in want_caches[-1].items():
+        for got, w in zip(caches[name], c):
+            _close_to_scale(np_(got.float()), w, 2e-2)
+
+
+def test_mamba2_init_shapes_and_caches():
+    """The tied head serves vocab 50280 with no learned positions; the
+    stacked caches take the float32 state and the model-dtype tails."""
+    full = get_config("mamba2-130m")
+    p = init_params(full, torch.Generator(), device="meta",
+                    dtype=torch.bfloat16)
+    assert "head" not in p and "positions" not in p["embed"]
+    assert p["embed"]["tokens"].shape == (50280, 768)
+    assert p["groups"]["layer0"]["ssm"]["wx"].shape == (24, 768, 24, 64)
+    assert set(p["groups"]["layer0"]) == {"norm1", "ssm"}
+    cfg = reduced(full, seq=S)
+    caches = blocks.init_cache(cfg, 3, 100, "cpu", torch.bfloat16)
+    c = caches["layer0"]
+    assert c.state.shape == (2, 3, 8, 16, 16) and c.state.dtype == \
+        torch.float32
+    assert c.conv_x.shape == (2, 3, 3, 8, 16) and c.conv_x.dtype == \
+        torch.bfloat16
+    assert c.conv_B.shape == c.conv_C.shape == (2, 3, 3, 16)
 
 
 def test_what_one_card_does_not_serve():
