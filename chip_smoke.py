@@ -46,7 +46,12 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      phase_lm); flash_decode against ``decode_attention`` on decode step
      0's inputs of every layer (float32, 1e-5/1e-4); the share of greedy
      tokens equal to the reference route's is printed. Then each kernel's
-     time (CUDA events), bound, plain and library times;
+     time (CUDA events per wrapper call at layer 0's inputs, and each
+     launch's device time in the profiled prefill and decode step), bound
+     and the share of it reached, plain and library
+     times, its design (tiles, stages and MMA route of flash_attention;
+     splits and blocks of flash_decode, which must exceed the card's SMs)
+     and its ptxas register and spill lines;
   8. Mamba-2 serving: mamba2-130m at full width and depth, random bf16
      weights, B=8 prompts of S=32768 tokens from ``LMDataPipeline``
      prefilled through ``make_prefill_step`` (24 ssd_scan launches), 32
@@ -1154,6 +1159,25 @@ def print_profile(what, wall, share, by, card, top=6, tag="lm"):
                   by.items(), key=lambda kv: -kv[1])[:top]) + f" | {card}")
 
 
+def _dev_line(by_name) -> str:
+    """Device ms by kernel name (torch.profiler), short names."""
+    return ", ".join(f"{k.split('(')[0].removeprefix('void ')[:40]} "
+                     f"{v:.4f} ms" for k, v in sorted(by_name.items(),
+                                                     key=lambda kv: -kv[1]))
+
+
+def per_launch(by_name, part, n):
+    """{kernel name: device ms a launch} of the kernels whose name holds
+    ``part``, from a profile of a step that launched each n times."""
+    return {k: v / n for k, v in by_name.items() if part in k}
+
+
+def _print_ptxas(source):
+    print(f"  {source} (ptxas):")
+    for ln in build.BUILD_LOG.get(source, {}).get("ptxas", []):
+        print(f"    {ln}")
+
+
 def phase_lm(cfg, B, S, steps, card):
     """LM serving through the port's entry points: prefill on
     flash_attention, greedy decode on flash_decode; then the checks
@@ -1312,18 +1336,32 @@ def phase_lm(cfg, B, S, steps, card):
     assert ulps <= 1.0, ("flash_attention bf16", ulps)
     a_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, scale, True, W),
                    5, warmup=1)
+    a_dev = per_launch(prof_prefill[2], "flash_fwd", cfg.n_layers)
+    assert any(fa_ops.KERNELS[torch.bfloat16] in n for n in a_dev), a_dev
     band = fa_ref.mask(S, S, True, W, DEV)
     a_lib = sdpa_ms(q, k, v, band, 5)
     nb, nops = attention_work(B, S, H, KH, d, W, 2)
     a_bound = max(nb / HBM_BPS, nops / BF16_OPS) * 1e3
     a_by = "bytes" if nb / HBM_BPS >= nops / BF16_OPS else "operations"
+    a_cfg = fa_ops.config(torch.bfloat16, d)
+    a_design = (f"{fa_ops.KERNELS[torch.bfloat16]}: {a_cfg['block_q']}-query "
+                f"tiles ({a_cfg['block_q'] // 64} consumer warpgroups) x "
+                f"{a_cfg['block_k']}-key "
+                f"tiles, {a_cfg['threads']} threads, TMA ring of "
+                f"{a_cfg['stages']} stages; wgmma m64n64k16 for QK^T, 2 x "
+                f"m64n{a_cfg['pv_mma_n']}k16 (p hi + lo) for PV; grid "
+                f"{B * H} x {-(-S // a_cfg['block_q'])}; float32 runs "
+                f"{fa_ops.KERNELS[torch.float32]} on the CUDA cores")
     print(f"[lm] flash_attention B={B} S={S} H={H} KH={KH} d={d} W={W} bf16: "
-          f"{a_ms:.3f} ms (plain {a_plain:.1f} ms, library "
-          f"{a_lib if a_lib is None else round(a_lib, 3)} ms), max|d| vs "
-          f"plain {max_diff(got, want):.3g} = {ulps:.3g} bf16 ulp; bound "
-          f"{a_bound:.4f} ms by {a_by} at the bf16 tensor-core peak "
+          f"{a_ms:.3f} ms (device {_dev_line(a_dev)}; plain {a_plain:.1f} "
+          f"ms, library {a_lib if a_lib is None else round(a_lib, 3)} ms), "
+          f"max|d| vs plain {max_diff(got, want):.3g} = {ulps:.3g} bf16 ulp; "
+          f"bound {a_bound:.4f} ms by {a_by} at the bf16 tensor-core peak "
           f"({nb} B, {nops} ops; at the float32 CUDA-core peak "
-          f"{nops / F32_OPS * 1e3:.2f} ms) | {card}")
+          f"{nops / F32_OPS * 1e3:.2f} ms), {a_bound / a_ms:.4f} of the "
+          f"bound | {card}")
+    print(f"[lm] flash_attention design: {a_design}")
+    _print_ptxas("flash_attention.cu")
 
     q0, kc, vc, kn, vn = captured[0]
     acc_got = fd_ops.flash_decode_partial(q0[:, 0], kc, vc, scale=scale,
@@ -1335,6 +1373,7 @@ def phase_lm(cfg, B, S, steps, card):
     torch.testing.assert_close(out_got, out_want, atol=1e-5, rtol=1e-4)
     d_ms = cuda_ms(lambda: fd_ops.flash_decode_partial(
         q0[:, 0], kc, vc, scale=scale, block_k=bk), 50)
+    d_dev = per_launch(prof_decode[2], "fd::decode_", cfg.n_layers)
     T = kc.shape[1]
     kfull, vfull = torch.cat([kc, kn], 1), torch.cat([vc, vn], 1)
     d_lib = sdpa_ms(q0, kfull, vfull, None, 50)
@@ -1342,11 +1381,28 @@ def phase_lm(cfg, B, S, steps, card):
     nops_d = 4 * d * T * B * H
     d_bound = max(nb_d / HBM_BPS, nops_d / BF16_OPS) * 1e3
     d_by = "bytes" if nb_d / HBM_BPS >= nops_d / BF16_OPS else "operations"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = fd_ops.choose_split(B, KH, T, H // KH, sms)
+    n_split = -(-T // split)
+    d_cfg = fd_ops.config()
+    d_design = (f"pass 1 decode_split: {n_split} splits of {split} keys x "
+                f"{KH} kv heads x {B} batches = {n_split * KH * B} blocks of "
+                f"{d_cfg['threads']} threads, the split's K and V staged by "
+                f"16-byte cp.async (budget {d_cfg['smem_budget']} B); scores "
+                f"a thread a key row, PV a half-warp a key row, "
+                f"{d_cfg['chunk']} values a lane; "
+                f"pass 2 decode_merge: {B * H} blocks; one kv head a block")
+    assert n_split * KH * B > sms, (sms, d_design)
     print(f"[lm] flash_decode B={B} T={T} H={H} KH={KH} d={d} bf16 (layer 0, "
-          f"decode step 0): {d_ms:.4f} ms (plain {d_plain:.3f} ms, library "
+          f"decode step 0): {d_ms:.4f} ms by events per wrapper call "
+          f"(device {_dev_line(d_dev)}; plain {d_plain:.3f} ms, library "
           f"over cache + self {d_lib if d_lib is None else round(d_lib, 4)} "
           f"ms), out max|d| vs plain {max_diff(out_got, out_want):.3g}; "
-          f"bound {d_bound:.5f} ms by {d_by} ({nb_d} B) | {card}")
+          f"bound {d_bound:.5f} ms by {d_by} ({nb_d} B), {d_bound / d_ms:.4f} "
+          f"of the bound by events, {d_bound / sum(d_dev.values()):.4f} by "
+          f"device time | {card}")
+    print(f"[lm] flash_decode design: {d_design} ({sms} SMs)")
+    _print_ptxas("flash_decode.cu")
     row = dict(arch=cfg.name, B=B, S=S, decode_steps=steps,
                prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
                decode_tokens_per_s=B * 1e3 / decode_ms, step_ms=step_ms,
@@ -1364,6 +1420,8 @@ def phase_lm(cfg, B, S, steps, card):
                              launches=launches["flash_attention"],
                              max_abs_err=max(err_a, max_diff(got, want)),
                              bf16_ulps=ulps, bytes=nb, operations=nops,
+                             bound_share=a_bound / a_ms, device_ms=a_dev,
+                             design=a_design,
                              shape=f"B={B} S={S} H={H} KH={KH} d={d} "
                                    f"window={W} bf16, causal; bound at the "
                                    "bf16 tensor-core peak"),
@@ -1372,6 +1430,8 @@ def phase_lm(cfg, B, S, steps, card):
                           launches=launches["flash_decode"],
                           max_abs_err=max(err_d, d32),
                           bytes=nb_d, operations=nops_d,
+                          bound_share=d_bound / d_ms, device_ms=d_dev,
+                          design=d_design,
                           shape=f"B={B} T={T} H={H} KH={KH} d={d} bf16 "
                                 "(layer 0's cache at decode step 0)"))
     return row, kern

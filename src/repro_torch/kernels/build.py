@@ -75,10 +75,12 @@ SIGNATURES = {
     "flash_attention.cu": {
         "flash_attention_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                 _F, _I, _I, _P],
+        "flash_attention_config": [_I, _I, _P],
     },
     "flash_decode.cu": {
-        "flash_decode_partial_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                     _P, _P, _F, _P],
+        "flash_decode_partial_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                     _P, _P, _P, _P, _F, _P],
+        "flash_decode_config": [_P],
     },
     "ssd_scan.cu": {
         "ssd_scan_run": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -181,6 +183,13 @@ def on_cuda(t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return True
+
+
+def aligned16(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
+    loads and TMA need it): a copy only where a view starts off it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(device) -> int:

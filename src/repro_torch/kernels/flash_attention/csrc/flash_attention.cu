@@ -7,58 +7,103 @@
 // Layout: q (B, Sq, H, d), k/v (B, Sk, KH, d) with KH dividing H, the
 // model's own layouts: no transpose, no padding, no broadcast of the kv
 // heads (query head h reads kv head h / (H / KH)). Output (B, Sq, H, d)
-// in the input type.
+// in the input type. d a multiple of 8 up to 128.
 //
 // Bound: operations. At the serving shape (h2o-danube-1.8b prefill,
-// B=4, S=8192, H=32, d=80, window 4096) a call does ~1.03e12 flops over
-// ~0.42 GB. This first kernel runs them in float32 on the CUDA cores (no
-// tensor cores, no TMA): one block of 256 threads per (64-query tile,
-// batch x head); the kv loop visits only the 64-key tiles that the
-// causal and window conditions leave (kernel.py:39-44). Q, K and V tiles
-// sit in shared memory as float32 (row stride d + 1: conflict-free
-// column reads); each thread holds a 4 x 4 block of the score tile and
-// 4 rows x ceil(d / 16) columns of the output accumulator in registers.
+// B=4, S=8192, H=32, d=80, window 4096, bf16) a call does ~1.03e12 flops
+// over ~0.42 GB: 1.04 ms at the 989 TFLOP/s bf16 tensor-core peak, 15 ms
+// at the 67 TFLOP/s float32 CUDA-core peak. So bf16 runs on the tensor
+// cores, Hopper's way (flash_fwd_wgmma):
 //
-// Arithmetic as the reference: q/k/v to float32, s = q.k * scale, masked
+//   - a block takes 192 queries of one (batch, head) where d <= 80, 128
+//     above; three (two) consumer warpgroups own 64 query rows each, a
+//     producer warp keeps the K and V tiles of 64 keys coming by TMA into
+//     a ring of STAGES stages, completed on mbarriers (full: the bytes
+//     arrived; empty: the consumer warps are done with the stage); Q is
+//     loaded once;
+//   - S = Q K^T is wgmma m64n64k16 with Q and K in shared memory, float32
+//     accumulators; O += P V is wgmma m64nNk16 with P from registers and
+//     V read transposed from shared memory (imm-trans-b), N = d rounded
+//     up to 16, 32, 64, 80 or 128;
+//   - the tiles sit in shared memory as boxes of 16 columns (32-byte
+//     rows, the 32-byte swizzle): d = 80 is five whole boxes, so no
+//     operand straddles a swizzle atom, and the tensor map's dimension of
+//     d itself zero-fills the columns of a box past d (d = 8) and the
+//     rows past Sq or Sk; QK^T runs one k16 step a box;
+//   - the kv loop visits only the tiles that the causal and window
+//     conditions leave (kernel.py:39-44), a warpgroup skips a tile that
+//     is masked for all its rows, and only the diagonal, window-edge and
+//     ragged tiles apply the element mask; the query tiles go out
+//     heaviest (last) first, so the short causal tiles fill the tail;
+//   - what is left on the CUDA cores is the softmax between the two
+//     products, about as many issue slots as the products take: exp is
+//     one ex2.approx of (s - m) scale log2 e (the running max m kept on
+//     the unscaled q.k, the same order for scale > 0, which the wrapper
+//     requires of a bf16 call), not expf's ten
+//     instructions, and more warpgroups hide the rest: a third fits the
+//     registers at d <= 80 (416 threads, at most 152 registers each; a
+//     fourth would leave 120 and spill). Issuing the next tile's QK^T
+//     before this tile's softmax (a software pipeline in each
+//     warpgroup) was slower: the warpgroups already overlap one's
+//     softmax with the others' products.
+//
+// Why P is split hi/lo: the reference forms p in float32 and multiplies
+// it by v in float32 (kernel.py:50-72), and the port's check holds the
+// output within one bf16 ulp of that. Rounding p to bf16 once (2^-8
+// relative) moves rows with a few visible keys by more than an ulp of a
+// small output. So p = p_hi + p_lo, p_hi = bf16(p), p_lo = bf16(p - p_hi),
+// and two PV wgmmas go into the same accumulator: p is carried to 2^-16,
+// every product of bf16 operands is exact, the sums are float32. The PV
+// work doubles (6 d tensor-core operations per visible pair instead of
+// 4 d). l is summed from the float32 p. QK^T is exact in its products:
+// q and k arrive in bf16. The ex2 exp is within ~3e-6 of expf where p
+// matters, far inside the same ulp.
+//
+// Why float32 keeps the CUDA-core kernel (flash_fwd_f32): float32 inputs
+// cannot enter the bf16 tensor cores unrounded, and TF32 keeps 10 bits,
+// so the float32 check (2e-5 against the plain version) would fail. The
+// C entry point dispatches on the type: bf16 runs flash_fwd_wgmma (a bf16
+// call that cannot launch returns its error; it never runs the float32
+// kernel), float32 runs flash_fwd_f32, the file's first kernel: one
+// block of 256 threads per (64-query tile, batch x head), the tiles in
+// shared memory as float32 (row stride d + 1), 4 x 4 register blocks of
+// scalar FMAs, expf.
+//
+// Arithmetic, both kernels, as the reference: s = q.k * scale, masked
 // entries -1e30 (never -inf: a row whose first visited tile is all
 // masked gets p = exp(0) = 1 there, which the first real score wipes
-// with alpha = 0; -inf would give NaN), p stays float32 in the PV
-// product, the output is acc / max(l, 1e-30) rounded to nearest even.
-// Keys are masked by the true length Sk: nothing is padded.
+// with alpha = 0; -inf would give NaN), alpha = exp(m_old - m_new), the
+// output acc / max(l, 1e-30) rounded to nearest even. Keys are masked by
+// the true length Sk: nothing is padded.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace fa {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr int BQ = 64;        // queries a block
 constexpr int BK = 64;        // keys a tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column threads
 constexpr int MAXD = 128;
 constexpr int NCOL = MAXD / 16;  // output columns a thread, at most
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // rows [r0, r0 + 64) of one head of a (B, S, heads, d) tensor, ``src``
 // pointing at (b, 0, head, 0); rows at or past n read as zero
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
+__device__ void load_tile(float* dst, int ld, const float* __restrict__ src,
                           int r0, int n, long row_stride, int d) {
   for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
     const int r = i / d, c = i - r * d, row = r0 + r;
-    dst[r * ld + c] = row < n ? to_f(src[row * row_stride + c]) : 0.f;
+    dst[r * ld + c] = row < n ? src[row * row_stride + c] : 0.f;
   }
 }
 
@@ -74,11 +119,11 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-              int H, int KH, int d, float scale, int causal, int window) {
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int Sq,
+                  int Sk, int H, int KH, int d, float scale, int causal,
+                  int window) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;             // BQ x ld
@@ -92,9 +137,9 @@ __global__ void __launch_bounds__(THREADS)
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, grp = tid >> 4, tx = tid & 15;
   const long qrs = (long)H * d, krs = (long)KH * d;
-  const T* qb = q + (long)b * Sq * qrs + (long)h * d;
-  const T* kb = k + (long)b * Sk * krs + (long)kh * d;
-  const T* vb = v + (long)b * Sk * krs + (long)kh * d;
+  const float* qb = q + (long)b * Sq * qrs + (long)h * d;
+  const float* kb = k + (long)b * Sk * krs + (long)kh * d;
+  const float* vb = v + (long)b * Sk * krs + (long)kh * d;
 
   load_tile(qs, ld, qb, q0, Sq, qrs, d);
 
@@ -185,7 +230,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  T* ob = o + (long)b * Sq * qrs + (long)h * d;
+  float* ob = o + (long)b * Sq * qrs + (long)h * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * grp + i;
@@ -194,23 +239,580 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int cc = 0; cc < NCOL; ++cc) {
       const int c = tx + 16 * cc;
-      if (c < d) ob[row * qrs + c] = from_f<T>(acc[i][cc] / denom);
+      if (c < d) ob[row * qrs + c] = acc[i][cc] / denom;
     }
   }
 }
 
-template <typename T>
+}  // namespace f32
+
+// ---------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA, mbarriers
+// ---------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int BK = 64;           // keys a tile
+constexpr int STAGES = 3;        // K/V ring
+constexpr int ROWB = 32;         // bytes of a box row: 16 bf16 columns
+constexpr int KBOX = BK * ROWB;  // ... of K or V
+constexpr int SBO = 8 * ROWB;    // bytes between 8-row core-matrix groups
+
+// A block of NWG consumer warpgroups (64 query rows each) and a producer
+// warp. Three where their registers fit 416 threads (d <= 80: one more
+// warpgroup to run its products while the others are in the softmax),
+// else two.
+template <int NWG>
+struct Tile {
+  static constexpr int BQ = 64 * NWG;              // queries a block
+  static constexpr int WARPS = 4 * NWG;            // consumer warps
+  static constexpr int THREADS = 32 * WARPS + 32;  // + the producer warp
+  static constexpr int QBOX = BQ * ROWB;  // bytes of a 16-column box of Q
+};
+constexpr int warpgroups(int dp) { return dp <= 80 ? 3 : 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of parity ``parity`` to complete. A wait that never
+// ends traps (the launch fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1L << 26)) __trap();
+  }
+}
+
+// one box of a 4-d tensor map, coordinates innermost first
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3): start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers that an in-flight wgmma reads or writes: the compiler must
+// not move their uses across the wait (it sees the asm as done at issue).
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^y on the special-function unit (one instruction; expf takes ~10):
+// the softmax's exp(scale (s - m)) is exp2((s - m) scale log2 e), within
+// ~3e-6 relative of expf where scale |s - m| < 64 (below that p is far
+// under a bf16 ulp of the output), 0 at s = -1e30, 1 at s = m
+__device__ __forceinline__ float exp2_approx(float y) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(y));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 64) = A B^T (+ D if accumulate): A (64 x 16) and B (64 x 16)
+// bf16, K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      ", %8, %9, %10, %11, %12, %13, %14, %15"
+      ", %16, %17, %18, %19, %20, %21, %22, %23"
+      ", %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 16) += A B: A (64 x 16) bf16 in registers, B (16 x 16) bf16
+// MN-major in shared memory (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32) += A B: A (64 x 16) bf16 in registers, B (16 x 32) bf16
+// MN-major in shared memory (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      ", %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64) += A B: A (64 x 16) bf16 in registers, B (16 x 64) bf16
+// MN-major in shared memory (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      ", %8, %9, %10, %11, %12, %13, %14, %15"
+      ", %16, %17, %18, %19, %20, %21, %22, %23"
+      ", %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 80) += A B: A (64 x 16) bf16 in registers, B (16 x 80) bf16
+// MN-major in shared memory (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      ", %8, %9, %10, %11, %12, %13, %14, %15"
+      ", %16, %17, %18, %19, %20, %21, %22, %23"
+      ", %24, %25, %26, %27, %28, %29, %30, %31"
+      ", %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128) += A B: A (64 x 16) bf16 in registers, B (16 x 128) bf16
+// MN-major in shared memory (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      ", %8, %9, %10, %11, %12, %13, %14, %15"
+      ", %16, %17, %18, %19, %20, %21, %22, %23"
+      ", %24, %25, %26, %27, %28, %29, %30, %31"
+      ", %32, %33, %34, %35, %36, %37, %38, %39"
+      ", %40, %41, %42, %43, %44, %45, %46, %47"
+      ", %48, %49, %50, %51, %52, %53, %54, %55"
+      ", %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// DP: d rounded up to 16, 32, 64, 80 or 128 (the PV wgmma's N); NWG:
+// consumer warpgroups.
+template <int DP, int NWG>
+__global__ void __launch_bounds__(Tile<NWG>::THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmq,
+                    const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                    int KH, int d, float scale, int causal, int window) {
+  constexpr int NB = DP / 16;  // 16-column boxes of a row
+  constexpr int NO = DP / 2;   // output accumulators a thread
+  constexpr int BQ = Tile<NWG>::BQ, QBOX = Tile<NWG>::QBOX;
+  constexpr int CONSUMER_WARPS = Tile<NWG>::WARPS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + NB * QBOX;           // STAGES x NB boxes
+  uint8_t* vs = ks + STAGES * NB * KBOX;  // STAGES x NB boxes
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + STAGES * NB * KBOX);
+  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int kh = h / (H / KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  // the kv tiles this query tile needs (kernel.py:39-44)
+  int kt_end = (Sk + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // the producer
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(qbar, NB * QBOX);
+      for (int j = 0; j < NB; ++j)
+        tma_load(smem_u32(qs + j * QBOX), &tmq, qbar, 16 * j, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, k0 = (kt_begin + it) * BK;
+        if (it >= STAGES) mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * NB * KBOX);
+        for (int j = 0; j < NB; ++j) {
+          tma_load(smem_u32(ks + (s * NB + j) * KBOX), &tmk, full + 8 * s,
+                   16 * j, kh, k0, b);
+          tma_load(smem_u32(vs + (s * NB + j) * KBOX), &tmv, full + 8 * s,
+                   16 * j, kh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns query rows r0 .. r0 + 63; in the
+  // wgmma accumulator layout a thread holds rows ra and ra + 8, columns
+  // 8 j + 2 t4 + {0, 1} of each 8-column block j
+  const int wg = warp >> 2, r0 = q0 + 64 * wg;
+  const int t4 = lane & 3, ra = r0 + 16 * (warp & 3) + (lane >> 2);
+  const uint32_t qa = smem_u32(qs) + wg * 64 * ROWB;
+  float oacc[NO], sacc[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+  // m is the running max of the unscaled q.k (scale > 0 keeps the order)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * 1.4426950408889634f;  // scale log2 e
+  uint32_t p_hi[4][4], p_lo[4][4];
+
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  __syncwarp();  // wgmma wants the warp converged
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, k0 = (kt_begin + it) * BK;
+    const bool dead = (causal && k0 > r0 + 63) ||
+                      (window > 0 && k0 + BK - 1 < r0 - window + 1);
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    __syncwarp();
+    if (!dead) {
+      const uint32_t ka = smem_u32(ks + s * NB * KBOX);
+      const uint32_t va = smem_u32(vs + s * NB * KBOX);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk)
+        wgmma_ss(sacc, desc_sw32(qa + kk * QBOX, 16, SBO),
+                 desc_sw32(ka + kk * KBOX, 16, SBO), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(sacc);
+
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > r0) ||
+                        (window > 0 && r0 + 63 - k0 >= window);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int half = (i >> 1) & 1, row = ra + 8 * half;
+        const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        bool ok = true;
+        if (edge) {
+          ok = col < Sk;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && row - col < window;
+        }
+        if (!ok) sacc[i] = NEG_INF;
+        mx[half] = fmaxf(mx[half], sacc[i]);
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2_approx((m[r] - m_new) * sl2);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int half = (i >> 1) & 1;
+        sacc[i] = exp2_approx((sacc[i] - m[half]) * sl2);
+        rs[half] += sacc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      // p as the A fragments of the four k16 steps: p = p_hi + p_lo
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = sacc[8 * kk + 2 * r], x1 = sacc[8 * kk + 2 * r + 1];
+          p_hi[kk][r] = pack_bf16(x0, x1);
+          const __nv_bfloat162 hv =
+              *reinterpret_cast<const __nv_bfloat162*>(&p_hi[kk][r]);
+          p_lo[kk][r] = pack_bf16(x0 - __low2float(hv),
+                                  x1 - __high2float(hv));
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = desc_sw32(va + kk * 16 * ROWB, KBOX, SBO);
+        wgmma_rs(oacc, p_hi[kk], dv);
+        wgmma_rs(oacc, p_lo[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(oacc);
+      hold(p_hi);
+      hold(p_lo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // out = acc / max(l, 1e-30), bf16, rows < Sq, columns < d
+  const long rstride = (long)H * d;
+  __nv_bfloat16* ob = o + (long)b * Sq * rstride + (long)h * d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    if (row >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * rstride + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] / denom,
+                                  oacc[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the
+// library links no libcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, heads, d) bf16 as a 4-d tensor map; boxes of 16 columns x
+// ``rows`` rows of one head, 32-byte swizzle, out-of-bounds reads zero
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                int d, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)S * heads * d * 2};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
 cudaError_t launch(int B, int Sq, int Sk, int H, int KH, int d,
                    const void* q, const void* k, const void* v, void* o,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float scale, int causal, int window,
+                   cudaStream_t stream) {
+  constexpr int NB = DP / 16, NWG = warpgroups(DP);
+  using T = Tile<NWG>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, H, d, T::BQ) ||
+      !tensor_map(&tk, k, B, Sk, KH, d, BK) ||
+      !tensor_map(&tv, v, B, Sk, KH, d, BK))
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      1024 + NB * T::QBOX + 2 * STAGES * NB * KBOX + 8 * (2 * STAGES + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<DP, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + T::BQ - 1) / T::BQ);
+  flash_fwd_wgmma<DP, NWG><<<grid, T::THREADS, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, Sq, Sk, H, KH, d, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+// the PV wgmma's N for a head dim
+constexpr int pv_n(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 80 ? 80 : 128;
+}
+
+cudaError_t run(int B, int Sq, int Sk, int H, int KH, int d, const void* q,
+                const void* k, const void* v, void* o, float scale,
+                int causal, int window, cudaStream_t stream) {
+  if (d % 8 || d > 128 || Sq < 1) return cudaErrorInvalidValue;
+  switch (pv_n(d)) {
+    case 16:
+      return launch<16>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                        window, stream);
+    case 32:
+      return launch<32>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                        window, stream);
+    case 64:
+      return launch<64>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                        window, stream);
+    case 80:
+      return launch<80>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                        window, stream);
+    default:
+      return launch<128>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                         window, stream);
+  }
+}
+
+}  // namespace hop
+
+cudaError_t run_f32(int B, int Sq, int Sk, int H, int KH, int d,
+                    const void* q, const void* k, const void* v, void* o,
+                    float scale, int causal, int window,
+                    cudaStream_t stream) {
+  using namespace f32;
   const size_t smem = sizeof(float) * (3 * BQ * (d + 1) + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KH, d, scale,
-      causal, window);
+  flash_fwd_f32<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+      H, KH, d, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -218,17 +820,34 @@ cudaError_t launch(int B, int Sq, int Sk, int H, int KH, int d,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. window <= 0: none.
+// dtype: 0 float32 (flash_fwd_f32), 1 bfloat16 (flash_fwd_wgmma).
+// window <= 0: none.
 int flash_attention_run(int dtype, int B, int Sq, int Sk, int H, int KH,
                         int d, const void* q, const void* k, const void* v,
                         void* o, float scale, int causal, int window,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)fa::launch<__nv_bfloat16>(B, Sq, Sk, H, KH, d, q, k, v, o,
-                                          scale, causal, window, s);
-  return (int)fa::launch<float>(B, Sq, Sk, H, KH, d, q, k, v, o, scale,
-                                causal, window, s);
+    return (int)fa::hop::run(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                             window, s);
+  return (int)fa::run_f32(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                          window, s);
+}
+
+// The tiling a call of this type and head dim runs: out = {queries a
+// block, keys a tile, K/V stages, threads a block, the PV MMA's N (0: no
+// tensor cores)}. Returns the number of values written.
+int flash_attention_config(int dtype, int d, int* out) {
+  if (dtype == 1) {
+    const int n = fa::hop::pv_n(d), nwg = fa::hop::warpgroups(n);
+    const int v[5] = {64 * nwg, fa::hop::BK, fa::hop::STAGES,
+                      32 * (4 * nwg + 1), n};
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+  } else {
+    const int v[5] = {fa::f32::BQ, fa::f32::BK, 1, fa::f32::THREADS, 0};
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+  }
+  return 5;
 }
 
 const char* katana_error_string(int code) {

@@ -4,7 +4,11 @@ tests/test_kernels.py runs them: flash_attention within 2e-5 (float32)
 and 2e-2 (bfloat16), flash_decode and lse_merge within 1e-5/1e-4. Also
 the kv heads read in place (GQA) and the non-causal unaligned case,
 which the port masks by the true key length, against the reference's
-oracle ``attention_ref``."""
+oracle ``attention_ref``. And the arithmetic of the redesigned kernels:
+flash_decode cut into splits and merged (ragged and single splits)
+against the Pallas op within 1e-5/1e-4; p carried as bf16 hi + lo
+(2^-16 of p) keeps the bf16 attention within one bf16 ulp of the float32
+p, where p rounded to bf16 once leaves it on rows with 2-4 keys."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from repro.kernels.flash_decode.ops import lse_merge as j_merge
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_decode import ops as fd
+from repro_torch.kernels.flash_decode import ref as fd_ref
 
 from _torch_parity import np_
 
@@ -143,3 +148,107 @@ def test_wrappers_refuse_bad_shapes():
                                 torch.zeros(1, 8, 2, 16),
                                 torch.zeros(1, 8, 2, 16), scale=1.0,
                                 block_k=8)
+
+
+@pytest.mark.parametrize("T,split,KH,bk", [
+    (200, 64, 2, 40),   # splits of 64 keys, the last 8
+    (128, 256, 1, 32),  # T below one split
+    (96, 20, 2, 32),    # splits of 20, the last 16
+    (64, 1, 1, 16)])    # a key a split
+def test_split_partials_match_the_pallas_op(T, split, KH, bk):
+    """The kernel's cut: per-split partials merged as its second pass
+    merges them, against the Pallas kernel on the repeated kv heads."""
+    rng = np.random.default_rng(T + split)
+    B, H, d = 2, 4, 16
+    (jq, tq), (jk, tk), (jv, tv) = (_both(rng.normal(size=s)) for s in (
+        (B, H, d), (B, T, KH, d), (B, T, KH, d)))
+    rep = lambda a: jnp.repeat(a, H // KH, axis=2)  # noqa: E731
+    acc_j, m_j, l_j = j_part(jq, rep(jk), rep(jv), scale=0.25, block_k=bk)
+    acc, m, l = fd_ref.flash_decode_partial_split_plain(tq, tk, tv, 0.25,
+                                                        split)
+    np.testing.assert_allclose(np_(acc / l), np.asarray(acc_j / l_j),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(np_(m), np.asarray(m_j), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(np_(l), np.asarray(l_j), atol=0, rtol=1e-4)
+    fd.reset_launches()
+    got = fd._partial_split(tq, tk, tv, 0.25, split)
+    assert fd.LAUNCHES["flash_decode"] == 0  # the CPU runs the plain one
+    for a, b in zip(got, (acc, m, l)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,split,bounds", [
+    (200, 64, (0, 64, 128, 192, 200)),
+    (256, 160, (0, 160, 256)),
+    (100, 100, (0, 100))])
+def test_split_plain_cuts_where_the_kernel_does(T, split, bounds):
+    """Splits of ``split`` keys from t = 0, the last one ragged, as the
+    kernel's first pass cuts them (``decode_split``: block s takes the
+    keys from t0 = s * split, min(split, T - t0) of them): the same merge
+    over those slices, bit for bit."""
+    rng = np.random.default_rng(T + split)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((2, 4, 16), (2, T, 2, 16), (2, T, 2, 16)))
+    parts = [fd_ref.flash_decode_partial_plain(q, k[:, a:b], v[:, a:b], 0.25)
+             for a, b in zip(bounds, bounds[1:])]
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    w = [torch.exp(p[1] - m) for p in parts]
+    want = (sum(p[0] * ws for p, ws in zip(parts, w)), m,
+            sum(p[2] * ws for p, ws in zip(parts, w)))
+    got = fd_ref.flash_decode_partial_split_plain(q, k, v, 0.25, split)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_choose_split_fills_the_card():
+    # danube's decode: 8 splits of 512 keys x 8 kv heads x 4 = 256 blocks
+    assert fd.choose_split(4, 8, 4096, 4, 132) == 512
+    # one prompt of it: halved to 256 keys, 128 blocks
+    assert fd.choose_split(1, 8, 4096, 4, 132) == 256
+    # one batch, one kv head: halved to 64 keys, 64 blocks
+    assert fd.choose_split(1, 1, 4096, 8, 132) == 64
+    # 48 query heads a kv head: the scores stay under MAX_OUTPUTS
+    split = fd.choose_split(2, 1, 8192, 48, 132)
+    assert 48 * split <= fd.MAX_OUTPUTS and split % 16 == 0
+
+
+def test_split_bf16_carries_p_to_2_16():
+    p = torch.as_tensor(np.random.default_rng(4).uniform(1e-6, 1.0, 4096),
+                        dtype=torch.float32)
+    hi, lo = fa_ref.split_bf16(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert bool(((hi.float() - p).abs() <= 2.0 ** -8 * p).all())
+    assert bool(((hi.float() + lo.float() - p).abs()
+                 <= 2.0 ** -16 * p).all())
+
+
+def _ulp_excess(a, b):
+    """|a - b| in bf16 ulps of max(|a|, |b|), values under 2^-6 judged at
+    2^-6 (as tests/test_torch_gpu.py holds the kernel)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(2 ** -6))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def test_hilo_p_keeps_one_ulp_where_single_rounding_leaves_it():
+    """bf16 q, k, v, causal: rows 1-3 see 2-4 keys. p = p_hi + p_lo
+    stays within one bf16 ulp of the float32-p attention (the port's
+    plain version and the Pallas op); p rounded once does not."""
+    rng = np.random.default_rng(6)
+    B, S, H, d = 2, 64, 4, 32
+    (jq, tq), (jk, tk), (jv, tv) = (_both(rng.normal(size=(B, S, H, d)),
+                                          "bfloat16") for _ in range(3))
+    scale = d ** -0.5
+    plain = fa_ref.flash_attention_plain(tq, tk, tv, scale, True)
+    pallas = torch.as_tensor(np.asarray(
+        j_flash(jq, jk, jv, scale, True, None, 32, 32, True), np.float32))
+    hilo = fa_ref.flash_attention_hilo_plain(tq, tk, tv, scale, True)
+    once = fa_ref.flash_attention_hilo_plain(tq, tk, tv, scale, True,
+                                             lo=False)
+    assert hilo.dtype == once.dtype == torch.bfloat16
+    for want in (plain, pallas):
+        assert float(_ulp_excess(hilo, want).max()) <= 1.0
+    early = _ulp_excess(once, plain)[:, 1:4]
+    assert float(early.max()) > 1.0
+    assert torch.equal(once[:, 0], plain[:, 0])  # one key: p = 1 exactly

@@ -9,7 +9,11 @@ steps = the scan), and ``TrackingEngine.replay`` on the card against the
 CPU. The LM kernels (flash_attention, flash_decode) against their plain
 versions in float32 (2e-5; 1e-5/1e-4) and bfloat16 (one bf16 ulp of the
 output), and a reduced h2o-danube-1.8b served on the card through both
-kernels against the torch-op routes. The ssd_scan kernel against its
+kernels against the torch-op routes; the bf16 tensor-core attention at
+every head dim and at the tile, window and ragged edges, each type
+running its own kernel; flash_decode at chosen splits (one, several,
+ragged, T below a split, 2048 blocks) against the plain version cut the
+same way, and at every register grouping of the query heads. The ssd_scan kernel against its
 plain version (float32 1e-5 + 1e-4|x|; bf16 y within one bf16 ulp, the
 float32 state within 1e-4 of its scale), and a reduced mamba2-130m
 served on the card through it against the CPU. Needs an NVIDIA GPU; run
@@ -377,6 +381,141 @@ def test_flash_decode_on_card_matches_decode_attention(cuda):
     got = fd_ops.flash_decode(q, kc, vc, kn, vn, scale=d ** -0.5, block_k=64)
     want = fd_ref.flash_decode_ref(q, kc, vc, kn, vn, scale=d ** -0.5)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,T,d,split", [
+    (2, 4, 2, 128, 32, 256),      # T below one split: one block a head
+    (2, 32, 8, 4096, 80, 256),    # the serving cut: 16 splits
+    (2, 8, 8, 200, 16, 64),       # ragged: the fourth split holds 8 keys
+    (1, 48, 1, 256, 128, 160),    # G = 48 in groups of 8, splits 160 + 96
+    (3, 6, 2, 100, 24, 32),       # G = 3 in a group of 4, d = 24
+    (16, 32, 8, 1024, 80, 64)])   # 2048 blocks
+def test_flash_decode_split_kernel_matches_plain(cuda, dtype, B, H, KH, T, d,
+                                                 split):
+    """The two-pass kernel at a given split against the plain version cut
+    at the same boundaries (splits of ``split`` keys, the last ragged) and
+    against the uncut one."""
+    rng = np.random.default_rng(T + split)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda, dtype)
+    q, k, v = mk(B, H, d), mk(B, T, KH, d), mk(B, T, KH, d)
+    fd_ops.reset_launches()
+    got = fd_ops._partial_split(q, k, v, d ** -0.5, split)
+    assert fd_ops.LAUNCHES["flash_decode"] == 1
+    cut = fd_ref.flash_decode_partial_split_plain(q, k, v, d ** -0.5, split)
+    whole = fd_ref.flash_decode_partial_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    for want in (cut, whole):
+        torch.testing.assert_close(got[0] / got[2], want[0] / want[2],
+                                   atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,KH,d,causal,window", [
+    (2, 77, 4, 1, 16, True, None),     # one query tile, ragged keys, KH = 1
+    (1, 200, 4, 2, 80, True, 64),      # window on a tile edge
+    (1, 300, 2, 1, 8, True, 1),        # only the diagonal: d padded to 16
+    (2, 256, 2, 2, 128, False, 128),
+    (1, 300, 4, 4, 80, True, 129),     # window one past a tile edge
+    (1, 200, 8, 1, 80, False, None),   # every key, 8 heads on one kv head
+    (1, 130, 2, 2, 48, True, None),    # d = 48 runs N = 64: a box all past d
+    (1, 1, 2, 1, 80, True, None)])
+def test_flash_attention_bf16_tensor_core_edges(cuda, B, S, H, KH, d, causal,
+                                                window):
+    rng = np.random.default_rng(S * d + H)
+    q, k, v = _qkv(rng, B, S, S, H, KH, d, torch.bfloat16, cuda)
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, window)
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, causal, window)
+    hilo = fa_ref.flash_attention_hilo_plain(q, k, v, d ** -0.5, causal,
+                                             window)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, want)
+    _within_bf16_ulp(got, hilo)
+
+
+def test_flash_attention_bf16_refuses_a_scale_not_above_zero(cuda):
+    """The bf16 kernel's running max is taken on the unscaled q.k."""
+    q, k, v = _qkv(np.random.default_rng(0), 1, 64, 64, 2, 2, 16,
+                   torch.bfloat16, cuda)
+    fa_ops.reset_launches()
+    for scale in (-0.25, 0.0):
+        with pytest.raises(NotImplementedError, match="scale > 0"):
+            fa_ops.flash_attention(q, k, v, scale, True, None)
+    assert fa_ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_attention_bf16_every_head_dim(cuda, d):
+    """Every head dim the wrapper takes: the PV wgmma's N is d rounded up
+    to 16, 32, 64, 80 or 128, the boxes past d zero-filled by TMA."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 1, 150, 150, 4, 2, d, torch.bfloat16, cuda)
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, True, 100)
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, True, 100)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KH,d", [(5, 5, 8), (10, 2, 40), (9, 1, 96),
+                                    (16, 2, 128), (7, 1, 56)])
+def test_flash_decode_head_groups_and_dims(cuda, dtype, H, KH, d):
+    """G = 1, 5, 9, 8 and 7 query heads a kv head (register groups of 1,
+    8 with guards, two groups), head dims 8 to 128, at the default split."""
+    rng = np.random.default_rng(H * d)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda, dtype)
+    q, k, v = mk(3, H, d), mk(3, 640, KH, d), mk(3, 640, KH, d)
+    got = fd_ops.flash_decode_partial(q, k, v, scale=d ** -0.5, block_k=64)
+    want = fd_ref.flash_decode_partial_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0] / got[2], want[0] / want[2],
+                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+def test_lm_kernels_take_views_off_16_bytes(cuda):
+    """Inputs that start 2 bytes past an aligned address (TMA and the
+    16-byte loads need 16): the wrappers copy them, the results hold."""
+    rng = np.random.default_rng(8)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda, torch.bfloat16)
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(  # noqa: E731
+        t.shape)
+    q, k, v = mk(1, 100, 4, 80), mk(1, 100, 2, 80), mk(1, 100, 2, 80)
+    assert off(q).data_ptr() % 16 != 0
+    _within_bf16_ulp(fa_ops.flash_attention(off(q), off(k), off(v), 0.1),
+                     fa_ref.flash_attention_plain(q, k, v, 0.1))
+    qd = mk(1, 4, 80)
+    got = fd_ops.flash_decode_partial(off(qd), off(k), off(v), scale=0.1,
+                                      block_k=100)
+    want = fd_ref.flash_decode_partial_plain(qd, k, v, 0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0] / got[2], want[0] / want[2],
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_flash_attention_runs_the_kernel_of_its_type(cuda):
+    """bf16 launches the tensor-core kernel, float32 the CUDA-core one,
+    each and only it (torch.profiler's kernel names)."""
+    rng = np.random.default_rng(5)
+    for dtype, name in fa_ops.KERNELS.items():
+        q, k, v = _qkv(rng, 1, 128, 128, 2, 2, 32, dtype, cuda)
+        fa_ops.flash_attention(q, k, v, 0.25)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fa_ops.flash_attention(q, k, v, 0.25)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "device_time_total", 0) > 0]
+        assert any(name in n for n in names), (dtype, names)
+        others = [o for o in fa_ops.KERNELS.values() if o != name]
+        assert not any(o in n for o in others for n in names), (dtype, names)
 
 
 def test_reduced_danube_served_on_card(cuda):
