@@ -18,10 +18,13 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      frame) for the lkf, ekf and imm workloads, each frame held against
      the port's einsum route on the card (identical assoc and track ids)
      and the states against that route run in float64 (see ROUTE_SLACK),
-     the launch counters equal to the frame count; then the kernel,
-     plain-version and einsum-route times at this shape (CUDA events),
-     each CUDA kernel's device time (torch.profiler) and the least time
-     the frame's data needs (bound_ms);
+     the launch counters equal to the frame count, the gated pairs and
+     greedy waves of every frame; then the kernel, plain-version and
+     einsum-route times at this shape (CUDA events), each CUDA kernel's
+     device time (torch.profiler, every launch's event counted), the
+     greedy's device time inside the frame both ways (CUDA events the
+     kernel records around its launches, and torch.profiler) and the
+     least time the frame's data needs (bound_ms);
   4. the replay path: ``TrackingEngine(..., device="cuda").replay`` over
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
@@ -62,14 +65,16 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      prefill and one decode step. Held: ssd_scan against its plain
      version (float32 at small shapes, 1e-5 + 1e-4|x|, with S < chunk,
      state0 and decays that would overflow above the diagonal; bf16 on
-     layer 0's real prefill inputs, y within one bf16 ulp, the state
-     within 1e-4 of its scale); the float32 prefill through the kernel
-     against the same prefill with ``models.ssm.ssd_chunked`` in its place
-     (logits and every layer's cache within 1e-4 of their scale); the bf16
-     kernel route no farther from that float32 run than max(2^-8, 2x) the
-     bf16 ``ssd_chunked`` route (see phase_mamba). Then the kernel's time
-     (CUDA events; also at 16, 32 and 64 state columns a block), bound
-     and plain time;
+     layer 0's real prefill inputs, y within one bf16 ulp of the plain
+     version that rounds as the tensor cores do and of the float32 one,
+     the state within 1e-4 of its scale); the float32 prefill through the
+     kernel against the same prefill with ``models.ssm.ssd_chunked`` in its
+     place (logits and every layer's cache within 1e-4 of their scale); the
+     bf16 kernel route no farther from that float32 run than max(2^-8, 2x)
+     the bf16 ``ssd_chunked`` route (see phase_mamba). Then the kernel's time
+     (CUDA events; also at 16, 32 and 64 columns of p a pass), its four
+     launches' device times, bound and plain time, and the float32
+     route's time on the same inputs;
   9. one JSON line with the kernel table, then the status line.
 """
 from __future__ import annotations
@@ -191,8 +196,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> dict:
-    """Device milliseconds per call by kernel name (torch.profiler)."""
+def _short(count, launches, iters):
+    """{part: {kernel name: events}} for each part of a kernel name in
+    ``launches`` ({part: launches a call}) whose kernels show another
+    number of events than ``iters`` calls launched; empty when whole."""
+    short = {}
+    for part, n in (launches or {}).items():
+        got = {k: c for k, c in count.items() if part in k}
+        if not got or any(c != n * iters for c in got.values()):
+            short[part] = got
+    return short
+
+
+def device_ms(fn, iters: int = 20, launches=None):
+    """(device milliseconds per call by kernel name, from the kernel
+    events of a torch.profiler session, and the events missing from them
+    (``_short``): later sessions of a long process lose some or all of
+    their kernel events (PERF.md, Findings), so a time read here is
+    printed with its count)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -201,12 +222,33 @@ def device_ms(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0.0)
-        if t > 0:
-            out[ev.key] = t / iters / 1e3
-    return out
+    out, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = (out.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / iters)
+            count[e.name] = count.get(e.name, 0) + 1
+    return out, _short(count, launches, iters)
+
+
+def event_pairs_ms(call, n: int = 50) -> float:
+    """Mean ms between the two CUDA events that ``call(events)`` has the
+    device record around a part of its work, over n calls (each its own
+    pair, read after one synchronise). The device first spins for ~50 ms,
+    so the calls queue up behind it and the events time the device's own
+    work, not the host's pace of launching it."""
+    def pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    call(pair())
+    pairs = [pair() for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # clock cycles
+    for evs in pairs:
+        call(evs)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
 def max_diff(a, b) -> float:
@@ -326,11 +368,10 @@ def frame_work(model, C, M, n_active, n_valid, n_assigned, waves):
     return nbytes, ops
 
 
-def greedy_work(C, n_active, n_valid, waves):
-    """The frame's greedy: one read of the active x valid cost entries per
-    wave run, two argmin comparisons per entry per wave, assoc out."""
-    pairs = n_active * n_valid
-    return waves * pairs * 4 + C * 4, 2 * pairs * waves
+def greedy_work(C, n_active, n_valid, gated, waves):
+    """The frame's greedy: the active x valid cost entries read once,
+    assoc out; two argmin comparisons per gated pair per wave run."""
+    return n_active * n_valid * 4 + C * 4, 2 * gated * waves
 
 
 def both_bounds(nbytes, ops) -> str:
@@ -488,6 +529,28 @@ def phase_main_path(kind):
     gap, err_f, err_32 = {}, {}, {}
     lockstep_64 = T_SERVE
     confirmed, assigned = 0, 0
+    # per frame: the kernel's greedy waves (device tensors, read after the
+    # run) and the gated pairs of the float32 einsum route's cost tile,
+    # the pairs the kernel's candidate list holds (the two routes' tiles
+    # round alike: their assoc is held equal every frame)
+    frame_waves, frame_pairs = [], []
+    kernel = getattr(tracker, name)
+    greedy_ref = tracker.greedy_assign
+
+    def kernel_spy(*a, **kw):
+        out = kernel(*a, return_waves=True, **kw)
+        frame_waves.append(out[-1])
+        return out[:-1]
+
+    def greedy_spy(cost, valid, gate, rounds):
+        if cost.dtype == torch.float32:
+            frame_pairs.append((valid & (cost <= gate)).sum())
+        return greedy_ref(cost, valid, gate, rounds)
+
+    spies = (mock.patch.object(tracker, name, kernel_spy),
+             mock.patch.object(tracker, "greedy_assign", greedy_spy))
+    for spy in spies:
+        spy.start()
     ops.reset_launches()
     for t in range(T_SERVE):
         meas = z[t][valid[t]].astype(np.float32)
@@ -511,6 +574,17 @@ def phase_main_path(kind):
             for f in s_f:
                 err_f.setdefault(f, []).append(max_rel(s_f[f], s_64[f]))
                 err_32.setdefault(f, []).append(max_rel(s_32[f], s_64[f]))
+    for spy in spies:
+        spy.stop()
+    waves_f = [int(w) for w in frame_waves]
+    pairs_f = [int(p) for p in frame_pairs]
+    assert len(waves_f) == len(pairs_f) == T_SERVE, (len(waves_f),
+                                                    len(pairs_f))
+    print(f"[{kind}] greedy per frame: gated pairs mean "
+          f"{np.mean(pairs_f):.1f} (min {min(pairs_f)}, max {max(pairs_f)}), "
+          f"waves mean {np.mean(waves_f):.2f} (min {min(waves_f)}, max "
+          f"{max(waves_f)}) over {T_SERVE} frames of C={C_SERVE} x "
+          f"M={M_SERVE} = {C_SERVE * M_SERVE} entries")
     print(f"[{kind}] {T_SERVE} frames: launches {launches}; "
           f"assoc and track ids identical to the einsum route every frame; "
           f"the float64 einsum route's assoc identical for {lockstep_64} "
@@ -556,11 +630,20 @@ def phase_main_path(kind):
     einsum_ms = cuda_ms(lambda: step(model, cfg_e, bank, zt, vt), 3,
                         warmup=1)
     bms, by = bound(nb, nops)
-    prof = device_ms(kern)
-    greedy_key = [k for k in prof if "greedy_waves_kernel<katana::FrameTile>"
-                  in k]
-    assert len(greedy_key) == 1, sorted(prof)
-    gb, gby = bound(*greedy_work(C_SERVE, n_active, n_valid, waves))
+    greedy_parts = ("greedy_candidates<katana::FrameTile>",
+                    "greedy_candidate_waves")
+    prof, prof_short = device_ms(kern,
+                                 launches={k: 1 for k in greedy_parts})
+    greedy_prof = sum(v for k, v in prof.items()
+                      if any(g in k for g in greedy_parts))
+    # the same from CUDA events the kernel records around its greedy
+    greedy_ev = event_pairs_ms(lambda evs: (
+        ops.katana_imm_frame if is_imm else ops.katana_frame)(
+            model, *kargs, greedy_events=evs))
+    with mock.patch.object(tracker, "greedy_assign", greedy_spy):
+        step(model, cfg_e, bank, zt, vt)  # the gated pairs of these inputs
+    gated = int(frame_pairs[-1])
+    gb, gby = bound(*greedy_work(C_SERVE, n_active, n_valid, gated, waves))
     row = dict(frames=T_SERVE, fps=fps, ms_per_frame=1e3 / fps,
                mean_confirmed=confirmed / T_SERVE,
                mean_assigned=assigned / T_SERVE, kernel_ms=ms,
@@ -569,9 +652,12 @@ def phase_main_path(kind):
                active_last=n_active, valid_last=n_valid,
                assigned_last=n_assigned, launches=launches[name],
                greedy_launches=launches["greedy_assign"],
-               greedy_device_ms=prof[greedy_key[0]], greedy_bound_ms=gb,
-               greedy_bound_by=gby, float64_lockstep_frames=lockstep_64,
-               route=route, device_ms=prof)
+               greedy_device_ms=greedy_ev, greedy_profiler_ms=greedy_prof,
+               greedy_profile_whole=not prof_short,
+               greedy_bound_ms=gb, greedy_bound_by=gby,
+               gated_pairs_per_frame=pairs_f, waves_per_frame=waves_f,
+               float64_lockstep_frames=lockstep_64, route=route,
+               device_ms=prof)
     print(f"[{kind}] fps={fps:.1f} ms/frame={1e3 / fps:.3f} "
           f"mean confirmed={confirmed / T_SERVE:.1f} | {name}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, einsum frame {einsum_ms:.3f} ms, "
@@ -581,6 +667,13 @@ def phase_main_path(kind):
     print(f"[{kind}] device ms per call: " + ", ".join(
         f"{k[:60]}={v:.4f}" for k, v in sorted(prof.items(),
                                                 key=lambda kv: -kv[1])))
+    whole = ("every launch's event recorded" if not prof_short else
+             f"events missing: {prof_short} of 20 calls")
+    print(f"[{kind}] the greedy inside the frame: {greedy_ev:.4f} ms by CUDA "
+          f"events the kernel records around its launches (mean of 50 "
+          f"frames), {greedy_prof:.4f} ms by torch.profiler (its two "
+          f"kernels; {whole}); {gated} gated pairs, {waves} waves; bound "
+          f"{gb:.6f} ms by {gby}")
 
     greedy = None
     if kind == "lkf":
@@ -602,6 +695,7 @@ def phase_main_path(kind):
                           warmup=1)
         greedy = dict(kernel_ms=row["greedy_device_ms"], plain_ms=g_plain,
                       bound_ms=gb, bound_by=gby, waves=waves,
+                      profiler_ms=row["greedy_profiler_ms"],
                       standalone_ms=g_ms, standalone_waves=wb)
         print(f"[lkf] greedy_assign in the frame: {greedy['kernel_ms']:.4f} "
               f"ms device (plain {g_plain:.3f} ms, bound {gb:.6f} ms by "
@@ -1132,10 +1226,10 @@ def sdpa_ms(q, k, v, mask, iters):
 
 
 def busy_profile(fn):
-    """(host ms, device-busy share, {kernel name: device ms}) of one
-    synchronised call of ``fn`` under torch.profiler: the CUDA kernels'
-    durations summed (one stream: they do not overlap) against the host
-    clock around the call."""
+    """(host ms, device-busy share, {kernel name: device ms}, {kernel
+    name: events}) of one synchronised call of ``fn`` under
+    torch.profiler: the CUDA kernels' durations summed (one stream: they
+    do not overlap) against the host clock around the call."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1144,14 +1238,15 @@ def busy_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by = {}
+    by, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return wall, sum(by.values()) / wall, by
+            count[e.name] = count.get(e.name, 0) + 1
+    return wall, sum(by.values()) / wall, by, count
 
 
-def print_profile(what, wall, share, by, card, top=6, tag="lm"):
+def print_profile(what, wall, share, by, count, card, top=6, tag="lm"):
     total = sum(by.values())
     print(f"[{tag}] {what}: {wall:.2f} ms host, device busy {share:.4f} "
           f"({total:.2f} ms in {len(by)} kernel names); top: " + "; ".join(
@@ -1443,6 +1538,9 @@ def phase_lm(cfg, B, S, steps, card):
 
 MAMBA_ARCH, MAMBA_B, MAMBA_S, MAMBA_STEPS = "mamba2-130m", 8, 32768, 32
 MAMBA_CHECK_B = 2  # prompts of the float32 and bf16 route checks
+# the bf16 route's launches (csrc/ssd_scan.cu)
+SSD_KERNELS = ("ssd_cum", "ssd_chunk_state", "ssd_state_pass",
+               "ssd_chunk_out")
 SMALL_SSD = [  # (B, S, H, P, N, chunk, state0, dt scale): float32
     (2, 512, 4, 64, 128, 256, False, 0.5), (1, 100, 2, 16, 16, 256, True, 0.5),
     (2, 96, 3, 32, 64, 32, True, 0.5), (1, 384, 2, 128, 32, 128, False, 0.5),
@@ -1624,26 +1722,54 @@ def phase_mamba(cfg, B, S, steps, card):
     x, dt, Bm, Cm, A = args[:5]
     assert x.shape == (B, S, H, P) and x.dtype == torch.bfloat16
     y, st = ssd_ops.ssd_scan(*args, **kw)
+    # held to the plain version that rounds as the tensor cores do, and
+    # to the float32 one
     (y_p, st_p), s_plain = timed_once(
-        lambda: ssd_ref.ssd_scan_plain(x, dt, Bm, Cm, A, Q))
+        lambda: ssd_ref.ssd_scan_hilo_plain(x, dt, Bm, Cm, A, Q))
     ulps = bf16_ulp_excess(y, y_p)
     st_err = _rel(st, st_p)
     assert ulps <= 1.0 and st_err <= 1e-4, ("ssd_scan bf16", ulps, st_err)
-    pb = ssd_ops.block_p(P, N, Q)
+    y_f, st_f = ssd_ref.ssd_scan_plain(x, dt, Bm, Cm, A, Q)
+    ulps_f, st_err_f = bf16_ulp_excess(y, y_f), _rel(st, st_f)
+    assert ulps_f <= 1.0 and st_err_f <= 1e-4, ("ssd_scan bf16 vs float32 "
+                                                "plain", ulps_f, st_err_f)
+    del y_f, st_f
+    pb = ssd_ops.block_p(P, N, Q, x.dtype)
     s_ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, **kw), 5, warmup=1)
     by_pb = {w: cuda_ms(lambda: ssd_ops._launch(x, dt, Bm, Cm, A, Q, None,
                                                 w), 3, warmup=1)
              for w in ssd_ops.P_BLOCKS}
+    # the four launches' device times
+    s_dev, s_short = device_ms(lambda: ssd_ops.ssd_scan(*args, **kw), 3,
+                               launches={k: 1 for k in SSD_KERNELS})
+    s_dev = {k: v for k, v in s_dev.items()
+             if any(p in k for p in SSD_KERNELS)}
+    # the float32 check route (the CUDA-core kernel) on the same inputs
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    f32_ms = cuda_ms(lambda: ssd_ops.ssd_scan(x32, dt, B32, C32, A, chunk=Q),
+                     2, warmup=1)
+    del x32, B32, C32
+    torch.cuda.empty_cache()
     nb, nops = ssd_work(B, S, H, P, N, Q, 2)
     s_bound = max(nb / HBM_BPS, nops / BF16_OPS) * 1e3
     s_by = "bytes" if nb / HBM_BPS >= nops / BF16_OPS else "operations"
     print(f"[mamba] ssd_scan B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 (layer "
-          f"0's prefill inputs): {s_ms:.3f} ms at {pb} state columns a block "
+          f"0's prefill inputs): {s_ms:.3f} ms at {pb} columns of p a pass "
           f"(" + ", ".join(f"{w}: {v:.3f}" for w, v in by_pb.items()) +
-          f" ms; plain {s_plain:.1f} ms, no library call), y vs plain "
-          f"{ulps:.3g} bf16 ulp, state {st_err:.3g} of its scale; bound "
-          f"{s_bound:.4f} ms by {s_by} ({nb} B, {nops} ops; at the float32 "
-          f"CUDA-core peak {nops / F32_OPS * 1e3:.2f} ms) | {card}")
+          f" ms; device ms a launch: {_dev_line(s_dev)}"
+          f"{f' (events missing: {s_short})' if s_short else ''}; plain "
+          f"{s_plain:.1f} "
+          f"ms, no library call), y vs the hi/lo plain {ulps:.3g} bf16 ulp, "
+          f"state {st_err:.3g} of its scale (float32 plain: {ulps_f:.3g} "
+          f"ulp, {st_err_f:.3g}); bound {s_bound:.4f} ms by {s_by} ({nb} B, "
+          f"{nops} ops; at the float32 CUDA-core peak "
+          f"{nops / F32_OPS * 1e3:.2f} ms); the float32 route (CUDA cores) "
+          f"{f32_ms:.3f} ms | {card}")
+    prefill_dev = per_launch(prof_prefill[2], "ssd_", cfg.n_layers)
+    prefill_n = {k: c for k, c in prof_prefill[3].items() if "ssd_" in k}
+    print(f"[mamba] ssd_scan in the profiled prefill, device ms a launch: "
+          f"{_dev_line(prefill_dev)}; events recorded "
+          f"{sorted(prefill_n.values())} of {cfg.n_layers} launches each")
     row = dict(arch=cfg.name, B=B, S=S, decode_steps=steps,
                params=n_params, prefill_ms=prefill_ms,
                prefill_tokens_per_s=B * S / prefill_ms * 1e3,
@@ -1661,10 +1787,18 @@ def phase_mamba(cfg, B, S, steps, card):
     kern = dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
                 bound_ms=s_bound, bound_by=s_by, launches=launches,
                 max_abs_err=max(err_small, max_diff(y, y_p)),
-                bf16_ulps=ulps, state_rel_err=st_err, bytes=nb,
-                operations=nops, ms_by_block_p=by_pb, block_p=pb,
+                bf16_ulps=ulps, state_rel_err=st_err,
+                bf16_ulps_vs_f32_plain=ulps_f,
+                state_rel_err_vs_f32_plain=st_err_f,
+                bytes=nb, operations=nops, ms_by_block_p=by_pb, block_p=pb,
+                device_ms=s_dev, profile_whole=not s_short,
+                prefill_device_ms=prefill_dev,
+                prefill_events=prefill_n,
+                f32_route_ms=f32_ms,
                 shape=f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16 (layer "
-                      "0's prefill inputs); bound at the bf16 tensor-core "
+                      "0's prefill inputs; four launches: cum, chunk "
+                      "states, state passing, outputs); plain_ms is the "
+                      "hi/lo plain version's; bound at the bf16 tensor-core "
                       "peak; no single PyTorch call computes the SSD scan")
     return row, kern
 
@@ -1745,7 +1879,9 @@ def main() -> int:
               sum(r["greedy_launches"] for r in rows.values()),
               dict(shape=f"in the lkf frame, (M, C) cost tile C={C_SERVE} "
                          f"M={M_SERVE}, {greedy['waves']} waves; ms is "
-                         "device time (torch.profiler)",
+                         "device time (CUDA events the kernel records "
+                         "around its launches)",
+                   profiler_ms=greedy["profiler_ms"],
                    standalone_ms=greedy["standalone_ms"])),
         entry("katana_bank_sequence", replay["lkf"]["kernel_ms"],
               replay["lkf"]["plain_ms"], replay["lkf"]["bound_ms"],

@@ -48,15 +48,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "frame.cu": {
         "katana_frame_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
-                             _F, _I, _P, _P, _P, _P, _P, _P],
+                             _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "imm_frame.cu": {
         "katana_imm_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _P, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                                 _P],
+                                 _P, _P, _P, _P],
     },
     "greedy.cu": {
-        "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P],
+        "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P, _P, _P,
+                              _P],
     },
     "scan.cu": {
         "katana_bank_scan_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
@@ -83,8 +84,10 @@ SIGNATURES = {
         "flash_decode_config": [_P],
     },
     "ssd_scan.cu": {
-        "ssd_scan_run": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P],
+        "ssd_scan_f32_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P],
+        "ssd_scan_bf16_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -13,14 +13,15 @@
 //   1. frame_predict_cost: a thread per track predicts, writes x'/P' into
 //      the outputs and its column of the (M, C) cost tile (a scratch
 //      tensor that stays in L2);
-//   2. greedy_waves (greedy.cuh): one block assigns over the tile;
+//   2. the greedy (greedy.cuh): the gated pairs of the tile compacted
+//      into a candidate list, then one block runs the waves over it;
 //   3. frame_update: a thread per assigned track rebuilds S^-1 from the
 //      stored P' (same code, same bits) and overwrites x'/P' with the
 //      update.
 // What bounds it: per-track work is a few thousand float32 operations on
 // registers and the tile pass is C*M*(~4m^2) operations, both far from
 // the card's limits at these sizes; the frame is bound by launch latency
-// and by the single-block greedy's serial waves. Fusing into one
+// and by the greedy's serial waves. Fusing into one
 // persistent launch with a cluster-wide argmin is later work.
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
@@ -88,15 +89,16 @@ cudaError_t run_frame(int C, int Mz, const float* x, const float* P,
                       const float* z, const uint8_t* zval, const uint8_t* act,
                       const float* consts, int nonlinear, float dt, float gate,
                       int rounds, float* x_out, float* P_out, int* assoc,
-                      float* cost, int* waves, cudaStream_t stream) {
+                      float* cost, void* scratch, int* waves,
+                      cudaStream_t stream, void* ev0, void* ev1) {
   const int blocks = (C + kThreads - 1) / kThreads;
   const size_t zbytes = (size_t)Mz * M * sizeof(float);
   frame_predict_cost<N, M><<<blocks, kThreads, zbytes, stream>>>(
       C, Mz, x, P, z, consts, nonlinear, dt, x_out, P_out, cost);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds, assoc,
-                    waves, stream);
+  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds,
+                    scratch, assoc, waves, stream, ev0, ev1);
   if (e != cudaSuccess) return e;
   frame_update<N, M><<<blocks, kThreads, 0, stream>>>(C, z, act, consts,
                                                       assoc, x_out, P_out);
@@ -108,13 +110,15 @@ cudaError_t run_frame(int C, int Mz, const float* x, const float* P,
 extern "C" {
 
 // The whole frame. Shapes (n, m) in {(6, 3), (8, 4), (9, 3)}; any other
-// shape returns cudaErrorInvalidValue without launching.
+// shape returns cudaErrorInvalidValue without launching. `scratch` holds
+// greedy_scratch_bytes(C, Mz); ev0 / ev1 (null, or CUDA events) are
+// recorded around the greedy's launches.
 int katana_frame_run(int n, int m, int C, int Mz, const void* x,
                      const void* P, const void* z, const void* zval,
                      const void* act, const void* consts, int nonlinear,
                      float dt, float gate, int rounds, void* x_out,
-                     void* P_out, void* assoc, void* cost, void* waves,
-                     void* stream) {
+                     void* P_out, void* assoc, void* cost, void* scratch,
+                     void* waves, void* stream, void* ev0, void* ev1) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
 #define KATANA_FRAME_CASE(N_, M_)                                           \
@@ -123,7 +127,7 @@ int katana_frame_run(int n, int m, int C, int Mz, const void* x,
         C, Mz, (const float*)x, (const float*)P, (const float*)z,           \
         (const uint8_t*)zval, (const uint8_t*)act, (const float*)consts,    \
         nonlinear, dt, gate, rounds, (float*)x_out, (float*)P_out,          \
-        (int*)assoc, (float*)cost, (int*)waves, s);
+        (int*)assoc, (float*)cost, scratch, (int*)waves, s, ev0, ev1);
   KATANA_FRAME_CASE(6, 3)
   KATANA_FRAME_CASE(8, 4)
   KATANA_FRAME_CASE(9, 3)

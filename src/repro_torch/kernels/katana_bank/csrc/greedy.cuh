@@ -1,4 +1,4 @@
-// Wave-scheduled greedy assignment, one block over the whole bank.
+// Wave-scheduled greedy assignment over the gated candidate pairs.
 //
 // Replaces the in-kernel assignment of the reference frame kernels
 // (repro/kernels/katana_bank/kernel.py:_emit_greedy_assign, also the
@@ -7,18 +7,34 @@
 // column and measurement j's row of the masked cost tile; committed
 // rows and columns are then masked out. The loop ends when a wave
 // commits nothing or after `rounds` waves. Same gate test
-// (cost <= gate, NaN fails), same FLT_MAX sentinel, same tie-break
-// (lowest index), same early exit, so the result equals the sequential
-// global-argmin greedy.
+// (cost <= gate, NaN fails), same tie-break (lowest index), same early
+// exit, so the result and the wave count equal the sequential
+// global-argmin greedy's.
 //
-// Bound: each wave reads the surviving (M, C) tile once (1 MiB at
-// C=1024, M=256, L2-resident after the cost pass), so the kernel is
-// bound by those reads and by the wave count. One block of up to 1024
-// threads owns every column (a thread per track, looping when C > 1024):
-// the row argmin of a track is a register loop; the column argmin of a
-// measurement is a warp shuffle-min of 64-bit keys (order-preserving
-// float bits high, track index low) followed by one shared-memory
-// atomicMin per warp and row.
+// Only gated pairs carry information: a pair can commit only if its
+// entry is below the FLT_MAX sentinel, and then the argmins of its row
+// and column are below it too. So two launches:
+//   1. greedy_candidates: a thread per tile entry, many blocks, writes
+//      every pair with entry < FLT_MAX to a flat list in a scratch
+//      (64-bit key = order-preserving float bits high, j low; and c);
+//      a block reserves its slots with one atomicAdd on the count;
+//   2. greedy_candidate_waves: one block runs the waves over the list.
+//      A wave is one pass over the live candidates with two
+//      shared-memory atomicMins each: the track's key (bits, j) (its
+//      minimum is the row's first-occurrence argmin) and the
+//      measurement's key (bits, c) (the column's). Then a pass over the
+//      tracks commits the mutual minima. Two barriers a wave; the work
+//      scales with the gated pairs, not with C x M. The keys are
+//      double-buffered, so the buffer of the next wave is reset while
+//      this one is read.
+// The list's order is the blocks' arrival order; the minima do not
+// depend on it. Frames, IMM frames and the standalone greedy share this
+// code; only the tile accessor differs.
+//
+// Bound: one read of the masked tile (L2-resident after the cost pass)
+// and, per wave, one read of the candidate list; at the serving shape
+// (C=1024, M=256, a few hundred gated pairs) launch latency and the
+// waves' barriers bound it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,29 +44,34 @@
 namespace katana {
 
 // Masked entry of the frame's (M, C) cost tile: track active, measurement
-// valid, cost within the gate.
+// valid, cost within the gate. Entry e of the tile in memory order is
+// (j, c) = (e / C, e % C).
 struct FrameTile {
   const float* cost;
   const uint8_t* act;
   const uint8_t* zval;
   int C;
   float gate;
-  __device__ __forceinline__ float operator()(int j, int c) const {
-    const float v = cost[(size_t)j * C + c];
+  __device__ __forceinline__ float at(size_t e, int& j, int& c) const {
+    j = (int)(e / C);
+    c = (int)(e - (size_t)j * C);
+    const float v = cost[e];
     return (act[c] && zval[j] && v <= gate) ? v : FLT_MAX;
   }
 };
 
-// Masked entry of a canonical (C, M) cost with a (C, M) pair-validity mask.
+// Masked entry of a canonical (C, M) cost with a (C, M) pair-validity mask:
+// entry e is (j, c) = (e % M, e / M).
 struct PairTile {
   const float* cost;
   const uint8_t* valid;
   int M;
   float gate;
-  __device__ __forceinline__ float operator()(int j, int c) const {
-    const size_t o = (size_t)c * M + j;
-    const float v = cost[o];
-    return (valid[o] && v <= gate) ? v : FLT_MAX;
+  __device__ __forceinline__ float at(size_t e, int& j, int& c) const {
+    c = (int)(e / M);
+    j = (int)(e - (size_t)c * M);
+    const float v = cost[e];
+    return (valid[e] && v <= gate) ? v : FLT_MAX;
   }
 };
 
@@ -60,99 +81,166 @@ __device__ __forceinline__ unsigned int ordered_bits(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__host__ __device__ inline size_t greedy_smem_bytes(int C, int M) {
-  return (size_t)M * 8 + (size_t)C * 8 + (size_t)M + (size_t)C;
+constexpr unsigned long long kNone = ~0ull;
+constexpr unsigned long long kLow = 0xffffffffull;
+constexpr int kCandThreads = 256;
+constexpr int kCandPerThread = 8;
+
+// The scratch the wrapper allocates: keys (C*M x 8 bytes), tracks
+// (C*M x 4), the count (4).
+__host__ __device__ inline size_t greedy_scratch_bytes(int C, int M) {
+  return (size_t)C * M * 12 + 4;
 }
 
-__host__ inline int greedy_threads(int C) {
-  const int t = ((C + 31) / 32) * 32;
+__host__ __device__ inline size_t greedy_smem_bytes(int C, int M) {
+  return (size_t)C * 16 + (size_t)M * 16 + (size_t)M + (size_t)C;
+}
+
+__host__ inline int greedy_threads(int n) {
+  const int t = ((n + 31) / 32) * 32;
   return t < 1024 ? (t > 0 ? t : 32) : 1024;
 }
 
 template <class Tile>
-__global__ void greedy_waves_kernel(Tile tile, int C, int M, int rounds,
-                                    int* __restrict__ assoc,
-                                    int* __restrict__ waves_out) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  unsigned long long* colkey = reinterpret_cast<unsigned long long*>(smem);
-  int* targ = reinterpret_cast<int*>(colkey + M);
-  float* tmin = reinterpret_cast<float*>(targ + C);
-  uint8_t* row_dead = reinterpret_cast<uint8_t*>(tmin + C);  // meas taken
-  uint8_t* col_dead = row_dead + M;                          // track taken
-  const int tid = threadIdx.x;
-  const int bd = blockDim.x;
-  const int lane = tid & 31;
-  const int chunks = (C + bd - 1) / bd;
-  for (int c = tid; c < C; c += bd) {
-    col_dead[c] = 0;
-    assoc[c] = -1;
+__global__ void __launch_bounds__(kCandThreads)
+    greedy_candidates(Tile tile, size_t entries,
+                      unsigned long long* __restrict__ keys,
+                      int* __restrict__ tracks, int* __restrict__ count) {
+  __shared__ int s_n, s_base;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  const size_t e0 =
+      (size_t)blockIdx.x * kCandThreads * kCandPerThread + threadIdx.x;
+  unsigned long long key[kCandPerThread];
+  int trk[kCandPerThread], slot[kCandPerThread];
+#pragma unroll
+  for (int k = 0; k < kCandPerThread; ++k) {
+    const size_t e = e0 + (size_t)k * kCandThreads;
+    slot[k] = -1;
+    if (e < entries) {
+      int j, c;
+      const float v = tile.at(e, j, c);
+      if (v < FLT_MAX) {
+        key[k] = ((unsigned long long)ordered_bits(v) << 32) | (unsigned)j;
+        trk[k] = c;
+        slot[k] = atomicAdd(&s_n, 1);
+      }
+    }
   }
-  for (int j = tid; j < M; j += bd) row_dead[j] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) s_base = s_n ? atomicAdd(count, s_n) : 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCandPerThread; ++k)
+    if (slot[k] >= 0) {
+      keys[s_base + slot[k]] = key[k];
+      tracks[s_base + slot[k]] = trk[k];
+    }
+}
+
+__global__ void greedy_candidate_waves(int C, int M, int rounds,
+                                       const unsigned long long* __restrict__
+                                           keys,
+                                       const int* __restrict__ tracks,
+                                       const int* __restrict__ count,
+                                       int* __restrict__ assoc,
+                                       int* __restrict__ waves_out) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  unsigned long long* rowkey = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* colkey = rowkey + 2 * C;            // 2 x M
+  uint8_t* row_dead = reinterpret_cast<uint8_t*>(colkey + 2 * M);  // meas
+  uint8_t* col_dead = row_dead + M;                                // track
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int n = *count;
+  for (int c = tid; c < C; c += bd) {
+    assoc[c] = -1;
+    col_dead[c] = 0;
+    rowkey[c] = rowkey[C + c] = kNone;
+  }
+  for (int j = tid; j < M; j += bd) {
+    row_dead[j] = 0;
+    colkey[j] = colkey[M + j] = kNone;
+  }
   __syncthreads();
 
   int r = 0;
   bool go = true;
   while (go && r < rounds) {
-    for (int j = tid; j < M; j += bd) colkey[j] = ~0ull;
-    __syncthreads();
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int c = ch * bd + tid;
-      const bool live = c < C;
-      const bool open = live && !col_dead[c];
-      float best = FLT_MAX;
-      int arg = 0;
-      for (int j = 0; j < M; ++j) {
-        const float v = (open && !row_dead[j]) ? tile(j, c) : FLT_MAX;
-        if (j == 0 || v < best) {
-          best = v;
-          arg = j;
-        }
-        unsigned long long key =
-            live ? ((unsigned long long)ordered_bits(v) << 32) | (unsigned)c
-                 : ~0ull;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const unsigned long long o = __shfl_xor_sync(0xffffffffu, key, off);
-          key = o < key ? o : key;
-        }
-        if (lane == 0) atomicMin(&colkey[j], key);
-      }
-      if (live) {
-        tmin[c] = best;
-        targ[c] = arg;
+    unsigned long long* rk = rowkey + (r & 1) * C;
+    unsigned long long* ck = colkey + (r & 1) * M;
+    for (int i = tid; i < n; i += bd) {
+      const unsigned long long key = __ldg(keys + i);
+      const int c = __ldg(tracks + i), j = (int)(key & kLow);
+      if (!row_dead[j] && !col_dead[c]) {
+        atomicMin(&rk[c], key);
+        atomicMin(&ck[j], (key & ~kLow) | (unsigned)c);
       }
     }
     __syncthreads();
+    unsigned long long* rk_next = rowkey + ((r + 1) & 1) * C;
+    unsigned long long* ck_next = colkey + ((r + 1) & 1) * M;
     int committed = 0;
     for (int c = tid; c < C; c += bd) {
-      const int j = targ[c];
-      if (tmin[c] < FLT_MAX &&
-          (unsigned)(colkey[j] & 0xffffffffull) == (unsigned)c) {
-        assoc[c] = j;
-        col_dead[c] = 1;
-        row_dead[j] = 1;
-        committed = 1;
+      const unsigned long long key = rk[c];
+      if (key != kNone) {
+        const int j = (int)(key & kLow);
+        if ((int)(ck[j] & kLow) == c) {
+          assoc[c] = j;
+          col_dead[c] = 1;
+          row_dead[j] = 1;
+          committed = 1;
+        }
       }
+      rk_next[c] = kNone;
     }
+    for (int j = tid; j < M; j += bd) ck_next[j] = kNone;
     ++r;
     go = __syncthreads_or(committed) != 0;
   }
   if (tid == 0) *waves_out = r;
 }
 
+// The greedy's launches on `stream`: the count reset, the candidate list,
+// the waves. `scratch` holds greedy_scratch_bytes(C, M). ev_start / ev_end,
+// when not null, are CUDA events recorded just before and after (the
+// greedy's device time inside a frame).
 template <class Tile>
 inline cudaError_t launch_greedy(const Tile& tile, int C, int M, int rounds,
-                                 int* assoc, int* waves, cudaStream_t stream) {
+                                 void* scratch, int* assoc, int* waves,
+                                 cudaStream_t stream, void* ev_start,
+                                 void* ev_end) {
+  const size_t entries = (size_t)C * M;
+  auto* keys = static_cast<unsigned long long*>(scratch);
+  auto* tracks = reinterpret_cast<int*>(keys + entries);
+  int* count = tracks + entries;
   const size_t smem = greedy_smem_bytes(C, M);
+  cudaError_t e;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        greedy_waves_kernel<Tile>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(greedy_candidate_waves,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
   }
-  greedy_waves_kernel<Tile><<<1, greedy_threads(C), smem, stream>>>(
-      tile, C, M, rounds, assoc, waves);
-  return cudaGetLastError();
+  if (ev_start) {
+    e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), stream);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaMemsetAsync(count, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  if (entries > 0) {
+    const size_t per_block = (size_t)kCandThreads * kCandPerThread;
+    const unsigned blocks = (unsigned)((entries + per_block - 1) / per_block);
+    greedy_candidates<Tile><<<blocks, kCandThreads, 0, stream>>>(
+        tile, entries, keys, tracks, count);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  greedy_candidate_waves<<<1, greedy_threads(C > M ? C : M), smem, stream>>>(
+      C, M, rounds, keys, tracks, count, assoc, waves);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (ev_end) e = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), stream);
+  return e;
 }
 
 }  // namespace katana

@@ -11,7 +11,7 @@
 //
 // Same three-launch split as frame.cu: imm_predict_cost (a thread per
 // track mixes its K slabs, predicts every model into the outputs and
-// writes its column of the weighted cost tile), greedy_waves,
+// writes its column of the weighted cost tile), the greedy,
 // imm_update (a thread per track rebuilds each model's S / S^-1 from the
 // stored P', updates, and forms mu' and x_c).
 // What bounds it: per track ~K*(2 n^3) float32 operations for mixing and
@@ -157,15 +157,16 @@ cudaError_t run_imm_frame(int C, int Mz, const float* x, const float* P,
                           const float* consts, float gate, int rounds,
                           float log2pi_m, float* x_out, float* P_out,
                           float* mu_out, float* xc_out, int* assoc,
-                          float* cost, int* waves, cudaStream_t stream) {
+                          float* cost, void* scratch, int* waves,
+                          cudaStream_t stream, void* ev0, void* ev1) {
   const int blocks = (C + kThreads - 1) / kThreads;
   const size_t zbytes = (size_t)Mz * M * sizeof(float);
   imm_predict_cost<N, M, K><<<blocks, kThreads, zbytes, stream>>>(
       C, Mz, x, P, mu, z, consts, x_out, P_out, cost);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds, assoc,
-                    waves, stream);
+  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds,
+                    scratch, assoc, waves, stream, ev0, ev1);
   if (e != cudaSuccess) return e;
   imm_update<N, M, K><<<blocks, kThreads, 0, stream>>>(
       C, z, act, mu, consts, log2pi_m, assoc, x_out, P_out, mu_out, xc_out);
@@ -177,14 +178,16 @@ cudaError_t run_imm_frame(int C, int Mz, const float* x, const float* P,
 extern "C" {
 
 // The whole IMM frame for K > 1. Shapes (K, n, m) in {(4, 9, 3)}; any
-// other shape returns cudaErrorInvalidValue without launching.
+// other shape returns cudaErrorInvalidValue without launching. scratch,
+// ev0 and ev1 as in katana_frame_run.
 int katana_imm_frame_run(int K, int n, int m, int C, int Mz, const void* x,
                          const void* P, const void* mu, const void* z,
                          const void* zval, const void* act,
                          const void* consts, float gate, int rounds,
                          float log2pi_m, void* x_out, void* P_out,
                          void* mu_out, void* xc_out, void* assoc, void* cost,
-                         void* waves, void* stream) {
+                         void* scratch, void* waves, void* stream, void* ev0,
+                         void* ev1) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
   if (K == 4 && n == 9 && m == 3)
@@ -193,7 +196,7 @@ int katana_imm_frame_run(int K, int n, int m, int C, int Mz, const void* x,
         (const float*)z, (const uint8_t*)zval, (const uint8_t*)act,
         (const float*)consts, gate, rounds, log2pi_m, (float*)x_out,
         (float*)P_out, (float*)mu_out, (float*)xc_out, (int*)assoc,
-        (float*)cost, (int*)waves, s);
+        (float*)cost, scratch, (int*)waves, s, ev0, ev1);
   return (int)cudaErrorInvalidValue;
 }
 

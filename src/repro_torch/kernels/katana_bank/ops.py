@@ -125,9 +125,26 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _greedy_scratch(C: int, M: int, device) -> torch.Tensor:
+    """The greedy's candidate list (csrc/greedy.cuh): C*M 8-byte keys,
+    C*M 4-byte tracks and the count."""
+    return torch.empty((12 * C * M + 4,), dtype=torch.uint8, device=device)
+
+
+def _event_handles(events):
+    """(start, end) ``torch.cuda.Event`` handles for the kernel to record
+    around the greedy's launches, or (None, None)."""
+    if events is None:
+        return None, None
+    for ev in events:
+        if not ev.cuda_event:
+            ev.record()  # the event is created at its first record
+    return events[0].cuda_event, events[1].cuda_event
+
+
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
-                  rounds: int):
-    """The three launches of the single-model frame (csrc/frame.cu)."""
+                  rounds: int, greedy_events=None):
+    """The launches of the single-model frame (csrc/frame.cu)."""
     _check_model(model)
     dev = x.device
     C, n = x.shape
@@ -142,6 +159,7 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
     assoc = torch.empty((C,), dtype=torch.int32, device=dev)
     cost = torch.empty((M, C), dtype=f32, device=dev)
+    scratch = _greedy_scratch(C, M, dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
     lib = build.load("frame.cu")
     code = lib.katana_frame_run(
@@ -149,37 +167,43 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
         z_valid.data_ptr(), active.data_ptr(), consts.data_ptr(),
         int(not model.is_linear), float(model.dt), float(gate), int(rounds),
         x_out.data_ptr(), P_out.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), waves.data_ptr(), build.stream_of(dev))
+        cost.data_ptr(), scratch.data_ptr(), waves.data_ptr(),
+        build.stream_of(dev), *_event_handles(greedy_events))
     build.check(lib, code, "katana_frame")
     LAUNCHES["greedy_assign"] += 1
     return x_out, P_out, assoc, waves
 
 
 def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
-                 rounds: int, return_waves: bool = False):
+                 rounds: int, return_waves: bool = False, greedy_events=None):
     """The fused live tracking frame. x (C, n); P (C, n, n); z (M, m);
     z_valid (M,) bool; active (C,) bool; ``gate``/``rounds`` are the
     tracker's chi-square gate and assignment-round bound. Returns
     (x' (C, n), P' (C, n, n), assoc (C,) int32): the updated state where
     a slot got a measurement, the predicted state elsewhere. With
     ``return_waves`` also the number of greedy waves run (a device
-    int32 tensor on CUDA, an int on the CPU)."""
+    int32 tensor on CUDA, an int on the CPU). ``greedy_events``: a
+    (start, end) pair of ``torch.cuda.Event(enable_timing=True)`` that
+    the kernel records just before and after the greedy's launches, for
+    its device time inside the frame (CUDA tensors only)."""
     if not build.on_cuda(x):
         return ref.katana_frame_plain(model, x, P, z, z_valid, active, gate,
                                       rounds, return_waves=return_waves)
     x2, P2, assoc, waves = _launch_frame(model, x, P, z, z_valid, active,
-                                         gate, rounds)
+                                         gate, rounds, greedy_events)
     LAUNCHES["katana_frame"] += 1
     return (x2, P2, assoc, waves) if return_waves else (x2, P2, assoc)
 
 
 def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
-                     gate: float, rounds: int, return_waves: bool = False):
+                     gate: float, rounds: int, return_waves: bool = False,
+                     greedy_events=None):
     """The fused live IMM frame. x (K, C, n); P (K, C, n, n); mu (C, K);
     z (M, m); z_valid (M,) bool; active (C,) bool. Returns
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
     coasting slots keep x̂/P̂ and take mu <- cbar. K=1 is the
-    single-model frame with mu passed through."""
+    single-model frame with mu passed through. ``greedy_events`` as in
+    ``katana_frame``."""
     if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
@@ -190,7 +214,8 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     _require(mu, "mu", torch.float32, (C, K), dev)
     if K == 1:
         x2, P2, assoc, waves = _launch_frame(imm.models[0], x[0], P[0], z,
-                                             z_valid, active, gate, rounds)
+                                             z_valid, active, gate, rounds,
+                                             greedy_events)
         LAUNCHES["katana_imm_frame"] += 1
         out = (x2[None], P2[None], mu.clone(), x2.clone(), assoc)
         return out + (waves,) if return_waves else out
@@ -215,6 +240,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     xc = torch.empty((C, n), dtype=f32, device=dev)
     assoc = torch.empty((C,), dtype=torch.int32, device=dev)
     cost = torch.empty((M, C), dtype=f32, device=dev)
+    scratch = _greedy_scratch(C, M, dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
     lib = build.load("imm_frame.cu")
     code = lib.katana_imm_frame_run(
@@ -223,7 +249,8 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
         consts.data_ptr(), float(gate), int(rounds),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), waves.data_ptr(), build.stream_of(dev))
+        cost.data_ptr(), scratch.data_ptr(), waves.data_ptr(),
+        build.stream_of(dev), *_event_handles(greedy_events))
     build.check(lib, code, "katana_imm_frame")
     LAUNCHES["katana_imm_frame"] += 1
     LAUNCHES["greedy_assign"] += 1
@@ -244,10 +271,12 @@ def katana_greedy_assign(cost, valid, gate: float, rounds: int,
     _require(valid, "valid", torch.bool, (C, M), dev)
     assoc = torch.empty((C,), dtype=torch.int32, device=dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
+    scratch = _greedy_scratch(C, M, dev)
     lib = build.load("greedy.cu")
     code = lib.greedy_assign_run(C, M, cost.data_ptr(), valid.data_ptr(),
-                                 float(gate), int(rounds), assoc.data_ptr(),
-                                 waves.data_ptr(), build.stream_of(dev))
+                                 float(gate), int(rounds), scratch.data_ptr(),
+                                 assoc.data_ptr(), waves.data_ptr(),
+                                 build.stream_of(dev), None, None)
     build.check(lib, code, "greedy_assign")
     LAUNCHES["greedy_assign"] += 1
     return (assoc, waves) if return_waves else assoc

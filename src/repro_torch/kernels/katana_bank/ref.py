@@ -6,11 +6,11 @@ computes, written as the same entry-wise op stream as the reference
 Pallas emit (``repro/kernels/katana_bank/kernel.py``): every state entry
 is one (C,) lane tensor, float constants multiply lane tensors, zero
 constants are pruned, sums fold left in index order, and the greedy
-assignment is a Python ``while`` loop of waves. Adding a pruned zero
-term is exact, so the kernels' dense loops over F/Q/R give the same
-float32 bits as this stream when neither side contracts a multiply-add
-into an FMA (the kernels build with ``--fmad=false``; PyTorch runs each
-elementwise op as its own kernel).
+assignment is a Python ``while`` loop of waves over the gated pairs.
+Adding a pruned zero term is exact, so the kernels' dense loops over
+F/Q/R give the same float32 bits as this stream when neither side
+contracts a multiply-add into an FMA (the kernels build with
+``--fmad=false``; PyTorch runs each elementwise op as its own kernel).
 
 The ops wrappers (``ops.py``) take these only for tensors on the CPU;
 ``chip_smoke.py`` and the GPU tests call them directly on the card to
@@ -317,7 +317,9 @@ def greedy_waves(masked, rounds: int):
     or out-of-gate pairs already hold F32_MAX. Every wave commits each
     pair that is the first argmin of both its track column and its
     measurement row; the loop ends when a wave commits nothing or after
-    ``rounds`` waves. Returns (assoc (C,) int32, waves run)."""
+    ``rounds`` waves. Returns (assoc (C,) int32, waves run). The tile
+    schedule of the reference (``_emit_greedy_assign``); the kernels run
+    ``greedy_candidates``, which gives the same result and wave count."""
     M, C = masked.shape
     dev = masked.device
     iM = torch.arange(M, device=dev, dtype=torch.int32)[:, None]
@@ -340,6 +342,52 @@ def greedy_waves(masked, rounds: int):
     return assoc, waves
 
 
+def ordered_bits(v):
+    """The kernels' order-preserving key of float32 values as int64 in
+    [0, 2^32): -0 counts as +0, negative values below positive ones."""
+    v = torch.where(v == 0, torch.zeros_like(v), v).contiguous()
+    u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, ~u & 0xFFFFFFFF, u | 2 ** 31)
+
+
+def greedy_candidates(masked, rounds: int):
+    """``greedy_waves`` on the schedule of the kernels (csrc/greedy.cuh):
+    only the pairs below F32_MAX (the gated ones) are listed, once; a
+    wave takes, over the live pairs, each track's minimum key (float
+    bits, j) -- its first-occurrence argmin -- and each measurement's
+    (float bits, c), and commits the pairs that are both. Returns
+    (assoc (C,) int32, waves run), equal to ``greedy_waves``'."""
+    M, C = masked.shape
+    dev = masked.device
+    j, c = torch.nonzero(masked < F32_MAX, as_tuple=True)
+    # the kernel's unsigned 64-bit keys, shifted into int64's order
+    high = (ordered_bits(masked[j, c]) - 2 ** 31) * 2 ** 32
+    row_key, col_key = high + j, high + c
+    none = torch.iinfo(torch.int64).max
+    assoc = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    row_dead = torch.zeros((M,), dtype=torch.bool, device=dev)
+    col_dead = torch.zeros((C,), dtype=torch.bool, device=dev)
+    tracks = torch.arange(C, device=dev)
+    waves = 0
+    while waves < rounds:
+        live = ~row_dead[j] & ~col_dead[c]
+        rk = torch.full((C,), none, device=dev).scatter_reduce(
+            0, c[live], row_key[live], "amin")
+        # + one entry that no track wins, for the tracks without a pair
+        ck = torch.full((M + 1,), none, device=dev).scatter_reduce(
+            0, j[live], col_key[live], "amin")
+        has = rk != none
+        tj = torch.where(has, rk & 0xFFFFFFFF, M)
+        commit = has & ((ck[tj] & 0xFFFFFFFF) == tracks)
+        assoc = torch.where(commit, tj.to(torch.int32), assoc)
+        col_dead |= commit
+        row_dead[tj[commit]] = True
+        waves += 1
+        if not bool(commit.any()):
+            break
+    return assoc, waves
+
+
 def gate_mask(cost, valid, gate: float):
     """The greedy's entry mask: cost where the pair is valid and
     ``cost <= gate`` (gate rounded to float32, NaN fails), else F32_MAX."""
@@ -353,7 +401,8 @@ def greedy_assign_plain(cost, valid, gate: float, rounds: int,
                         return_waves: bool = False):
     """Plain version of the standalone greedy kernel. cost (C, M),
     valid (C, M) bool, canonical layout. Returns assoc (C,) int32."""
-    assoc, waves = greedy_waves(gate_mask(cost.T, valid.T, gate), rounds)
+    assoc, waves = greedy_candidates(gate_mask(cost.T, valid.T, gate),
+                                     rounds)
     return (assoc, waves) if return_waves else assoc
 
 
@@ -368,7 +417,7 @@ def _frame_lanes(model, xv, P, z, z_valid, active, gate, rounds):
     inno = _innovation(Pp, R, obs, n, m)
     cost = cost_tile([xp[obs[r]] for r in range(m)], inno[1], z, m)
     masked = gate_mask(cost, active[None, :] & z_valid[:, None], gate)
-    assoc, waves = greedy_waves(masked, rounds)
+    assoc, waves = greedy_candidates(masked, rounds)
     zk = [torch.where(assoc >= 0, z[assoc.clamp(0, z.shape[0] - 1).long(),
                                     r], 0.0) for r in range(m)]
     xn, Pn = _update(xp, Pp, zk, obs, n, m, inno, False)
@@ -512,7 +561,7 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
         t = cbar_parts[k][None, :] * d[:, k * C:(k + 1) * C]
         cost = t if cost is None else cost + t
     masked = gate_mask(cost, active[None, :] & z_valid[:, None], gate)
-    assoc, waves = greedy_waves(masked, rounds)
+    assoc, waves = greedy_candidates(masked, rounds)
     zk1 = [torch.where(assoc >= 0, z[assoc.clamp(0, z.shape[0] - 1).long(),
                                      r], 0.0) for r in range(m)]
     zk = [torch.cat([q] * K) for q in zk1]

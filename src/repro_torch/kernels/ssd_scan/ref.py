@@ -9,6 +9,13 @@ taken only where i >= j (masked to exp(-inf) = 0 above the diagonal,
 where it could overflow). cum is the float32 rounding of the prefix sum
 accumulated in float64, as the kernel accumulates it.
 
+``ssd_scan_hilo_plain`` is the same scan rounded as the bf16 tensor-core
+kernels round: every float32 operand of a bf16 product enters as hi + lo
+(hi = bf16(v), lo = bf16(v - hi)): the weights W = (C B^T) o decay o dt,
+the state that C reads, and x o w_end of the state update (the kernels
+take x o w_end, not B o w_end, the smaller of the two, so B enters as
+it is).
+
 ``ssd_naive`` is a copy of the reference's sequential oracle
 (``repro/kernels/ssd_scan/ref.py:ssd_naive``): one step at a time, in
 float32.
@@ -28,12 +35,29 @@ def chunk_len(S: int, chunk: int) -> int:
     return Q
 
 
+def hilo(t):
+    """t carried by a bf16 pair: bf16(t) + bf16(t - bf16(t)), in
+    float32 (exact: 16 significant bits)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
 def ssd_scan_plain(x, dt, Bm, Cm, A, chunk: int, state0=None):
     """x: (B, S, H, P); dt: (B, S, H) (post-softplus); Bm/Cm: (B, S, N);
     A: (H,) negative; state0: (B, H, P, N) or None.
 
     Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
     float32)."""
+    return _scan(x, dt, Bm, Cm, A, chunk, state0, False)
+
+
+def ssd_scan_hilo_plain(x, dt, Bm, Cm, A, chunk: int, state0=None):
+    """``ssd_scan_plain`` with the bf16 kernels' hi + lo operands (see
+    the module docstring); the same arguments and results."""
+    return _scan(x, dt, Bm, Cm, A, chunk, state0, True)
+
+
+def _scan(x, dt, Bm, Cm, A, chunk: int, state0, split: bool):
     Bb, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk_len(S, chunk)
@@ -52,17 +76,24 @@ def ssd_scan_plain(x, dt, Bm, Cm, A, chunk: int, state0=None):
         dtc = dt[:, sl].float()                               # (B, Q, H)
         Bc, Cc = Bm[:, sl].float(), Cm[:, sl].float()         # (B, Q, N)
         cum = torch.cumsum((dtc * A).double(), dim=1).float()  # (B, Q, H)
-        y_inter = (torch.einsum("bqn,bhpn->bqhp", Cc, state)
+        y_inter = (torch.einsum("bqn,bhpn->bqhp", Cc,
+                                hilo(state) if split else state)
                    * torch.exp(cum)[..., None])
         G = torch.einsum("bin,bjn->bij", Cc, Bc)               # (B, Q, Q)
         diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, i, j, H)
         decay = torch.exp(diff.masked_fill(~below, float("-inf")))
         W = G[..., None] * decay * dtc[:, None, :, :]
+        if split:
+            W = hilo(W)
         y_intra = torch.einsum("bijh,bjhp->bihp", W, xc)
         y[:, sl] = (y_inter + y_intra).to(x.dtype)
         w_end = torch.exp(cum[:, -1:, :] - cum) * dtc          # (B, Q, H)
-        S_add = torch.einsum("bqhp,bqhn->bhpn", xc,
-                             Bc[:, :, None, :] * w_end[..., None])
+        if split:
+            S_add = torch.einsum("bqhp,bqn->bhpn",
+                                 hilo(xc * w_end[..., None]), Bc)
+        else:
+            S_add = torch.einsum("bqhp,bqhn->bhpn", xc,
+                                 Bc[:, :, None, :] * w_end[..., None])
         state = state * torch.exp(cum[:, -1])[..., None, None] + S_add
     return y, state
 

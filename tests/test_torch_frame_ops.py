@@ -1,6 +1,9 @@
 """The kernel wrappers' plain versions (what a CPU tensor runs) against
 the JAX package: the greedy assignment equals ``tracker.greedy_assign``
-exactly, ties and invalid padding included, and the fused frames match
+exactly, ties and invalid padding included; the candidate-list greedy
+(``ref.greedy_candidates``, the kernels' schedule) gives the tile
+schedule's (``ref.greedy_waves``) assoc and wave count and the JAX
+greedy_assign_step's assoc; and the fused frames match
 ``ops.katana_frame`` / ``katana_imm_frame`` (identical assoc, states
 within 1e-5)."""
 import jax.numpy as jnp
@@ -11,6 +14,7 @@ import torch
 from repro.core import tracker as jtr
 from repro.kernels.katana_bank import ops as jops
 from repro_torch.kernels.katana_bank import ops as tops
+from repro_torch.kernels.katana_bank import ref as tref
 
 from _torch_inputs import random_frame_inputs
 from _torch_parity import models, np_, t32
@@ -61,6 +65,60 @@ def test_greedy_nan_cost_is_gated_out():
                                         5.0, 2))
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, [1, 0])
+
+
+def _greedy_case(name):
+    """(cost (C, M) float32, valid (C, M) bool, gate, rounds) of a named
+    edge case of the candidate-list greedy."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    C, M = 9, 7
+    cost = (np.round(rng.uniform(0, 10, (C, M)) * 2) / 2).astype(np.float32)
+    valid = rng.random((C, M)) > 0.3
+    gate, rounds = 6.0, min(C, M)
+    if name == "nan":
+        cost[rng.random((C, M)) < 0.3] = np.nan
+    elif name == "signed_zero":
+        cost = np.where(rng.random((C, M)) < 0.5, 0.0,
+                        rng.choice([-1.0, 1.0], (C, M))).astype(np.float32)
+        cost[rng.random((C, M)) < 0.4] *= -1.0  # -0.0 among the zeros
+        assert np.signbit(cost[cost == 0]).any()
+    elif name == "padding":
+        valid[:, 5:] = False  # measurements past the real ones
+        valid[6:] = False     # inactive slots
+        cost[6:] = 0.0        # the cheapest entries, none of them valid
+    elif name == "nothing_gated":
+        cost += 7.0
+    elif name == "dense":
+        C, M = 40, 30
+        cost = rng.uniform(0, 10, (C, M)).astype(np.float32)
+        valid = np.ones((C, M), bool)
+        gate, rounds = 1e30, min(C, M)
+    elif name == "rounds_cut":
+        rounds = 2
+    return cost, valid, gate, rounds
+
+
+@pytest.mark.parametrize("name", ["ties", "nan", "signed_zero", "padding",
+                                  "nothing_gated", "dense", "rounds_cut"])
+def test_candidate_greedy_matches_the_tile_schedule_and_the_pallas_step(
+        name):
+    cost, valid, gate, rounds = _greedy_case(name)
+    masked = tref.gate_mask(t32(cost).T, torch.as_tensor(valid).T, gate)
+    got, waves = tref.greedy_candidates(masked, rounds)
+    want, want_waves = tref.greedy_waves(masked, rounds)
+    assert torch.equal(got, want) and waves == want_waves
+    pallas = np.asarray(jops.katana_greedy_assign(
+        jnp.asarray(cost), jnp.asarray(valid), gate=gate, rounds=rounds))
+    np.testing.assert_array_equal(np_(got), pallas)
+    plain, plain_waves = tops.katana_greedy_assign(
+        t32(cost), torch.as_tensor(valid), gate, rounds, return_waves=True)
+    assert torch.equal(plain, got) and plain_waves == waves
+    if name == "nothing_gated":
+        assert (np_(got) == -1).all() and waves == 1
+    if name == "rounds_cut":
+        assert waves == 2 and tref.greedy_waves(masked, 7)[1] > 2
+    if name == "dense":
+        assert (np_(got) >= 0).sum() == 30
 
 
 @pytest.mark.parametrize("kind,seed", [("lkf", 0), ("lkf", 1), ("ekf", 2),

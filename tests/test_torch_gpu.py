@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card, on
-the same CUDA tensors: identical assoc (and greedy wave count), states
+the same CUDA tensors: identical assoc (and greedy wave count, also on
+tiles with C > 1024, M = 0, nothing gated, dense, sparse, signed zeros
+and NaN, and a rounds cut), states
 within 1e-4 (IMM 5e-4), at small shapes and at the serving size
 C=1024, M=256; the engine's fused route on the card against its einsum
 route. The replay scans and the per-frame bank steps against their plain
@@ -14,8 +16,11 @@ every head dim and at the tile, window and ragged edges, each type
 running its own kernel; flash_decode at chosen splits (one, several,
 ragged, T below a split, 2048 blocks) against the plain version cut the
 same way, and at every register grouping of the query heads. The ssd_scan kernel against its
-plain version (float32 1e-5 + 1e-4|x|; bf16 y within one bf16 ulp, the
-float32 state within 1e-4 of its scale), and a reduced mamba2-130m
+plain version (float32 1e-5 + 1e-4|x|; bf16 y within one bf16 ulp of
+both the plain version and the one that rounds as the tensor cores do,
+the float32 state within 1e-4 of its scale; chunks 16-256, d_state 4-128,
+head_dim 16-128, state0, large decays, views off 16 bytes), each type
+running its own kernels, and a reduced mamba2-130m
 served on the card through it against the CPU. Needs an NVIDIA GPU; run
 with
 
@@ -80,6 +85,77 @@ def test_greedy_kernel_matches_plain(cuda, C, M):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert int(w) == wb
+
+
+def _greedy_tile(name, rng):
+    """(cost (C, M), valid (C, M), gate, rounds) of an edge tile."""
+    C, M, gate = 1500, 64, 6.0
+    cost = np.round(rng.uniform(0, 10, (C, M)) * 2) / 2
+    valid = rng.random((C, M)) > 0.3
+    rounds = None
+    if name == "meas0":
+        C, M = 1200, 0
+        cost, valid = cost[:C, :0], valid[:C, :0]
+    elif name == "none_gated":
+        cost += 6.5
+    elif name == "dense":
+        C, M, gate = 1100, 300, 1e30
+        cost = rng.uniform(0, 10, (C, M))
+        valid = np.ones((C, M), bool)
+    elif name == "sparse":
+        C, M = 2048, 256
+        cost = rng.uniform(0, 10, (C, M))
+        valid = rng.random((C, M)) < 0.01
+    elif name == "signed_zero_nan":
+        C, M = 1030, 40
+        cost = np.where(rng.random((C, M)) < 0.5, 0.0,
+                        rng.choice([-1.0, 1.0, np.nan], (C, M)))
+        cost[rng.random((C, M)) < 0.5] *= -1.0
+        valid = rng.random((C, M)) > 0.3
+    elif name == "rounds_cut":
+        rounds = 3
+    rounds = min(C, M) if rounds is None else rounds
+    return cost.astype(np.float32), valid, gate, rounds
+
+
+@pytest.mark.parametrize("name", ["meas0", "none_gated", "dense", "sparse",
+                                  "signed_zero_nan", "rounds_cut"])
+def test_greedy_kernel_edge_tiles(cuda, name):
+    """assoc and the wave count equal the plain version's (which follows
+    the kernel's candidate list) and the tile schedule's."""
+    cost, valid, gate, rounds = _greedy_tile(name, np.random.default_rng(3))
+    cost_t, valid_t = _dev((cost, valid), cuda)
+    a, w = ops.katana_greedy_assign(cost_t, valid_t, gate, rounds,
+                                    return_waves=True)
+    b, wb = ref.greedy_assign_plain(cost_t, valid_t, gate, rounds,
+                                    return_waves=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and int(w) == wb, (name, int(w), wb)
+    if cost.shape[1]:
+        c, wc = ref.greedy_waves(ref.gate_mask(cost_t.T, valid_t.T, gate),
+                                 rounds)
+        assert torch.equal(a, c) and wc == wb
+    if name in ("meas0", "none_gated"):  # one wave, none with no rounds
+        assert bool((a == -1).all()) and wb == min(1, rounds)
+    if name == "rounds_cut":
+        assert wb == 3
+
+
+def test_greedy_events_time_the_frames_greedy(cuda):
+    """The events a frame records around its greedy: the same result as
+    without them, and a positive device time inside the frame."""
+    model = get_filter("lkf")
+    rng = np.random.default_rng(11)
+    x, P, z, zv, act = _dev(random_frame_inputs(rng, 6, 3, 1024, 256,
+                                                [0, 1, 2], spread=20.0), cuda)
+    evs = (torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+    got = ops.katana_frame(model, x, P, z, zv, act, 11.34, 256,
+                           greedy_events=evs)
+    want = ops.katana_frame(model, x, P, z, zv, act, 11.34, 256)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert evs[0].elapsed_time(evs[1]) > 0
 
 
 @pytest.mark.parametrize("kind", ["lkf", "ekf"])
@@ -566,7 +642,9 @@ def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, dt_scale=0.5, state=False):
 SSD_SHAPES = [  # (B, S, H, P, N, chunk, state0)
     (2, 512, 4, 64, 128, 256, False), (1, 100, 2, 16, 16, 256, True),
     (2, 96, 3, 32, 64, 32, True), (1, 384, 2, 128, 32, 128, False),
-    (2, 48, 2, 16, 4, 16, True)]
+    (2, 48, 2, 16, 4, 16, True), (1, 256, 2, 16, 128, 64, True),
+    (2, 256, 3, 128, 16, 128, True), (1, 512, 2, 64, 64, 256, True),
+    (1, 192, 2, 48, 8, 64, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -586,6 +664,11 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk,
         torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-4)
     else:
         _within_bf16_ulp(y, y_p)
+        # and the plain version that rounds as the tensor cores do
+        y_h, st_h = ssd_ref.ssd_scan_hilo_plain(*args[:5], chunk, args[5])
+        _within_bf16_ulp(y, y_h)
+        assert float((st - st_h).abs().max()) <= 1e-4 * float(
+            st_h.abs().max())
     torch.testing.assert_close(st, st_p, atol=1e-4 * float(
         st_p.abs().max()), rtol=1e-4)
 
@@ -603,26 +686,82 @@ def test_ssd_scan_kernel_large_decay_stays_finite(cuda):
     torch.testing.assert_close(st, st_p, atol=1e-5, rtol=1e-4)
 
 
+def test_ssd_scan_kernel_large_decay_stays_finite_bf16(cuda):
+    """The bf16 tensor-core route at dt A of about -40 a step: finite,
+    within one bf16 ulp of both plain versions."""
+    rng = np.random.default_rng(7)
+    args = _ssd_inputs(rng, 2, 128, 2, 16, 16, torch.bfloat16, cuda,
+                       dt_scale=20.0, state=True)
+    y, st = ssd_ops.ssd_scan(*args[:5], chunk=64, state0=args[5])
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
+    for plain in (ssd_ref.ssd_scan_plain, ssd_ref.ssd_scan_hilo_plain):
+        y_p, st_p = plain(*args[:5], 64, args[5])
+        _within_bf16_ulp(y, y_p)
+        torch.testing.assert_close(st, st_p, atol=1e-4 * float(
+            st_p.abs().max()), rtol=1e-4)
+
+
 def test_ssd_scan_block_widths_agree_bitwise(cuda):
-    """16, 32 or 64 state columns a block: every output entry is the same
-    sum in the same order."""
+    """16, 32 or 64 columns of p a block (float32) or a pass (bf16):
+    every output entry is the same sum in the same order."""
     rng = np.random.default_rng(5)
-    x, dt, Bm, Cm, A, s0 = _ssd_inputs(rng, 2, 256, 3, 64, 64,
-                                       torch.bfloat16, cuda, state=True)
-    outs = [ssd_ops._launch(x, dt, Bm, Cm, A, 128, s0, pb)
-            for pb in (16, 32, 64)]
-    for y, st in outs[1:]:
-        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, Bm, Cm, A, s0 = _ssd_inputs(rng, 2, 256, 3, 64, 64, dtype,
+                                           cuda, state=True)
+        outs = [ssd_ops._launch(x, dt, Bm, Cm, A, 128, s0, pb)
+                for pb in (16, 32, 64)]
+        for y, st in outs[1:]:
+            assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+
+
+def test_ssd_scan_takes_views_off_16_bytes(cuda):
+    """bf16 inputs that start 2 bytes past an aligned address (the
+    kernels read 16 bytes at a time): the wrapper copies them."""
+    rng = np.random.default_rng(9)
+    args = _ssd_inputs(rng, 1, 128, 2, 32, 16, torch.bfloat16, cuda,
+                       state=True)
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(  # noqa: E731
+        t.shape)
+    moved = [off(t) for t in args[:5]] + [off(args[5])]
+    assert moved[0].data_ptr() % 16 != 0 and moved[2].data_ptr() % 16 != 0
+    y, st = ssd_ops.ssd_scan(*moved[:5], chunk=64, state0=moved[5])
+    y_p, st_p = ssd_ref.ssd_scan_hilo_plain(*args[:5], 64, args[5])
+    torch.cuda.synchronize()
+    _within_bf16_ulp(y, y_p)
+    torch.testing.assert_close(st, st_p, atol=1e-4 * float(
+        st_p.abs().max()), rtol=1e-4)
+
+
+def test_ssd_scan_runs_the_kernels_of_its_type(cuda):
+    """bf16 launches the tensor-core schedule, float32 the CUDA-core
+    kernel, each and only it (torch.profiler's kernel names)."""
+    rng = np.random.default_rng(6)
+    kinds = {torch.bfloat16: ("ssd_chunk_out", "ssd_scan_fwd"),
+             torch.float32: ("ssd_scan_fwd", "ssd_chunk_out")}
+    for dtype, (name, other) in kinds.items():
+        args = _ssd_inputs(rng, 1, 128, 2, 16, 16, dtype, cuda)
+        ssd_ops.ssd_scan(*args[:5], chunk=64)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            ssd_ops.ssd_scan(*args[:5], chunk=64)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "device_time_total", 0) > 0]
+        assert any(name in n for n in names), (dtype, names)
+        assert not any(other in n for n in names), (dtype, names)
 
 
 def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):
     rng = np.random.default_rng(2)
-    for (S, P, N, chunk), match in [((64, 16, 24, 64), "d_state"),
-                                    ((64, 8, 16, 64), "head_dim"),
-                                    ((1024, 16, 16, 512), "chunk")]:
-        args = _ssd_inputs(rng, 1, S, 2, P, N, torch.float32, cuda)
-        with pytest.raises(NotImplementedError, match=match):
-            ssd_ops.ssd_scan(*args[:5], chunk=chunk)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (S, P, N, chunk), match in [((64, 16, 24, 64), "d_state"),
+                                        ((64, 8, 16, 64), "head_dim"),
+                                        ((1024, 16, 16, 512), "chunk")]:
+            args = _ssd_inputs(rng, 1, S, 2, P, N, dtype, cuda)
+            with pytest.raises(NotImplementedError, match=match):
+                ssd_ops.ssd_scan(*args[:5], chunk=chunk)
     args = _ssd_inputs(rng, 1, 96, 2, 16, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="multiple"):
         ssd_ops.ssd_scan(*args[:5], chunk=64)

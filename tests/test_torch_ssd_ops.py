@@ -6,7 +6,11 @@ state), and the port's own copy of ``ssd_naive``. Float32 within atol
 1e-4 / rtol 1e-3, the reference's own tolerance; bfloat16 against the
 Pallas op within one bf16 ulp (both do float32 inside and round once;
 values under 2^-6 judged at 2^-6). Chunks 16, 32 and 64, S < chunk,
-state0, and decays that would overflow above the diagonal."""
+state0, and decays that would overflow above the diagonal. The plain
+version that rounds as the bf16 tensor-core kernels do
+(``ref.ssd_scan_hilo_plain``) against the Pallas op and the float32
+plain version (y within one bf16 ulp, the state within 1e-4 of its
+scale)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,13 +158,66 @@ def test_shapes_are_checked():
                                          (8, 16, 64, "head_dim"),
                                          (64, 128, 512, "chunk")])
 def test_kernel_limits_raise(P, N, Q, match):
-    """What the CUDA kernel does not take raises, naming the limit (a
-    CUDA tensor never falls back to the plain version)."""
-    with pytest.raises(NotImplementedError, match=match):
-        ops.block_p(P, N, Q)
+    """What the CUDA kernels do not take raises, naming the limit (a
+    CUDA tensor never falls back to the plain version); the float32 and
+    bf16 routes take the same shapes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(NotImplementedError, match=match):
+            ops.block_p(P, N, Q, dtype)
+
+
+def test_unsupported_type_raises():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.block_p(64, 128, 256, torch.float16)
 
 
 @pytest.mark.parametrize("P,want", [(64, 32), (128, 32), (16, 16),
                                     (48, 16)])
 def test_block_width(P, want):
+    """float32: the CUDA-core kernel's state columns a block, 32 where P
+    allows (the default type)."""
     assert ops.block_p(P, 128, 256) == want
+    assert ops.block_p(P, 128, 256, torch.float32) == want
+
+
+@pytest.mark.parametrize("P,want", [(64, 64), (128, 64), (16, 16),
+                                    (48, 16), (96, 32)])
+def test_block_width_bf16(P, want):
+    """bf16: the tensor-core output pass's columns of p, the widest of
+    64, 32 and 16 that divides P."""
+    assert ops.block_p(P, 128, 256, torch.bfloat16) == want
+
+
+def test_hilo_carries_float32_to_16_bits():
+    t = torch.as_tensor(np.random.default_rng(3).normal(size=4096) * 1e3,
+                        dtype=torch.float32)
+    err = (ref.hilo(t) - t).abs() / t.abs()
+    assert float(err.max()) <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_hilo_plain_matches_the_pallas_op_and_plain(chunk):
+    """bf16 inputs: y of the hi + lo plain version within one bf16 ulp of
+    the Pallas op (interpret mode) and of the float32 plain version; the
+    final state within 1e-4 of its scale of the plain version's."""
+    args = _torch(_inputs(chunk + 7, S=128, P=32, N=16), "bfloat16")
+    y, st = ref.ssd_scan_hilo_plain(*args[:5], chunk)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    want = j_scan(*_jax(_inputs(chunk + 7, S=128, P=32, N=16),
+                        "bfloat16")[:5], chunk=chunk)
+    _within_bf16_ulp(np_(y.float()), np.asarray(want, np.float32))
+    y_p, st_p = ref.ssd_scan_plain(*args[:5], chunk)
+    _within_bf16_ulp(np_(y.float()), np_(y_p.float()))
+    assert float((st - st_p).abs().max()) <= 1e-4 * float(st_p.abs().max())
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (24, 64)])
+def test_hilo_plain_with_state0_matches_chunked(S, chunk):
+    """state0 and S < chunk: y and the final state of the hi + lo plain
+    version (float32 inputs, so only the hi + lo rounding differs) against
+    the reference's ssd_chunked within its own tolerance."""
+    args = _inputs(S + 3, S=S, state=True)
+    y, st = ref.ssd_scan_hilo_plain(*_torch(args)[:5], chunk, _torch(args)[5])
+    yc, sc = j_chunked(*_jax(args)[:5], chunk, state0=_jax(args)[5])
+    np.testing.assert_allclose(np_(y), np.asarray(yc), **TOL)
+    np.testing.assert_allclose(np_(st), np.asarray(sc), **TOL)
