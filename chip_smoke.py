@@ -181,13 +181,18 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+def cuda_ms(fn, iters: int, warmup: int = 2, spin: bool = False) -> float:
+    """Mean milliseconds per call, CUDA events around ``iters`` calls.
+    With ``spin`` the device first spins for ~50 ms, so the calls queue
+    up behind it and the events time the device's own work, not the
+    host's pace of launching it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(100_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -962,10 +967,15 @@ def phase_replay(kind, plain_ms):
     h2d_ms = host_ms(lambda: torch.from_numpy(zs).to(DEV))
     d2h_ms = host_ms(lambda: xs_t.cpu())
     # CUDA events only: torch.profiler sessions this late in the run have
-    # recorded none or part of the scans' launches
-    ms = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t), 10)
-    # the whole stream in one launch, beside the time_chunk default
-    ms_one = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t, time_chunk=T), 10)
+    # recorded none or part of the scans' launches; the IMM scan's with
+    # the device queued behind a spin
+    ms = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t), 10, spin=is_imm)
+    # the whole stream in one launch, and (IMM) in the reference's chunks
+    # of 64 frames, beside the time_chunk default
+    ms_one = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t, time_chunk=T), 10,
+                     spin=is_imm)
+    ms_64 = (cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t, time_chunk=64), 10,
+                     spin=True) if is_imm else None)
     nb, nops = scan_work(model, N, T)
     bms, by = bound(nb, nops)
 
@@ -1011,6 +1021,17 @@ def phase_replay(kind, plain_ms):
                plain_ms=plain_ms[f"scan_{kind}"], bound_ms=bms, bound_by=by,
                bytes=nb, operations=nops, launches=launches[name],
                time_chunk=chunk, oracle=check)
+    if is_imm:
+        inst = ops.pick_pattern(model.models).name
+        row.update(instantiation=inst, chunk64_ms=ms_64,
+                   bound_share=bms / ms,
+                   registers=ptxas_registers("imm_scan.cu", "imm_scan",
+                                             f"{len(inst)}{inst}"))
+        print(f"[replay imm] katana_imm_sequence, instantiation {inst} "
+              f"({row['registers']} registers): {ms:.3f} ms by events "
+              f"(device queued) in {launches[name]} launch(es) of up to "
+              f"{chunk} frames; in chunks of 64: {ms_64:.3f} ms; bound "
+              f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it reached")
     print(f"[replay {kind}] N={N} T={T}: {fps:.1f} frames/s, "
           f"{fps * N:.4g} track-frames/s (engine, host clock incl. the copies "
           f"of zs in and xs out: {eng.stats.replay_latency_s * 1e3:.1f} ms; "
@@ -1088,15 +1109,25 @@ def phase_per_frame(plain_ms):
     K = imm.K
     xK = x0[None].expand(K, N, imm.n).contiguous()
     PK = P0[None].expand(K, N, imm.n, imm.n).contiguous()
-    ms = cuda_ms(lambda: ops.katana_bank_imm(imm, xK, PK, zs[0]), 20)
+    ms = cuda_ms(lambda: ops.katana_bank_imm(imm, xK, PK, zs[0]), 50,
+                 spin=True)
     drv_ms = cuda_ms(lambda: ops.imm_bank_sequence(imm, zs, x0, P0), 1,
                      warmup=0)
     work = step_work(imm, N)
     bms, by = bound(*work)
+    inst = ops.pick_pattern(imm.models).name
     rows["imm"] = dict(kernel_ms=ms, plain_ms=plain_ms["step_imm"],
                        bound_ms=bms, bound_by=by, launches=launches,
                        driver_ms=drv_ms, driver_vs_scan_max_abs=gap,
-                       outside_ref_tolerance=int(over.sum()))
+                       outside_ref_tolerance=int(over.sum()),
+                       instantiation=inst, bound_share=bms / ms,
+                       registers=ptxas_registers("imm_step.cu", "imm_step",
+                                                 f"{len(inst)}{inst}"))
+    print(f"[per-frame imm] katana_bank_imm, instantiation {inst} "
+          f"({rows['imm']['registers']} registers): {ms:.4f} ms a launch by "
+          f"events (device queued); {launches} launches in "
+          f"imm_bank_sequence, {drv_ms:.1f} ms the stream; bound {bms:.5f} "
+          f"ms by {by}, {bms / ms:.1%} of it reached")
     print(f"[per-frame imm] imm_bank_sequence ({launches} katana_bank_imm "
           f"launches, {drv_ms:.1f} ms) vs katana_imm_sequence: max|d| "
           f"{gap:.3g}; katana_bank_imm {ms:.4f} ms a call (plain "
@@ -1265,6 +1296,18 @@ def per_launch(by_name, part, n):
     """{kernel name: device ms a launch} of the kernels whose name holds
     ``part``, from a profile of a step that launched each n times."""
     return {k: v / n for k, v in by_name.items() if part in k}
+
+
+def ptxas_registers(source, *parts):
+    """Registers ptxas gave the entry of ``source`` whose mangled name
+    holds every one of ``parts`` (phase 1's build log), or None."""
+    entry = None
+    for ln in build.BUILD_LOG.get(source, {}).get("ptxas", []):
+        if "Compiling entry" in ln:
+            entry = ln
+        elif entry and "registers" in ln and all(p in entry for p in parts):
+            return int(ln.split("Used ")[1].split()[0])
+    return None
 
 
 def _print_ptxas(source):
@@ -1897,7 +1940,11 @@ def main() -> int:
               replay["imm"]["bound_by"], replay["imm"]["launches"],
               dict(shape=f"imm K=4 N={N_REPLAY} T={T_REPLAY}, time_chunk "
                          f"{replay['imm']['time_chunk']}",
-                   replay_fps=replay["imm"]["replay_fps"])),
+                   replay_fps=replay["imm"]["replay_fps"],
+                   one_launch_ms=replay["imm"]["one_launch_ms"],
+                   chunk64_ms=replay["imm"]["chunk64_ms"],
+                   instantiation=replay["imm"]["instantiation"],
+                   registers=replay["imm"]["registers"])),
         entry("katana_bank", per_frame["lkf"]["kernel_ms"],
               per_frame["lkf"]["plain_ms"], per_frame["lkf"]["bound_ms"],
               per_frame["lkf"]["bound_by"],
@@ -1908,7 +1955,10 @@ def main() -> int:
               per_frame["imm"]["plain_ms"], per_frame["imm"]["bound_ms"],
               per_frame["imm"]["bound_by"], per_frame["imm"]["launches"],
               dict(shape=f"imm K=4 N={N_REPLAY}, one frame (in "
-                         "imm_bank_sequence)")),
+                         "imm_bank_sequence)",
+                   driver_ms=per_frame["imm"]["driver_ms"],
+                   instantiation=per_frame["imm"]["instantiation"],
+                   registers=per_frame["imm"]["registers"])),
     ] + [entry(name, k.pop("ms"), k.pop("plain_ms"), k.pop("bound_ms"),
                k.pop("bound_by"), k.pop("launches"), k,
                library_ms=k.pop("library_ms"))

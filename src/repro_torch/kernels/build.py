@@ -66,12 +66,12 @@ SIGNATURES = {
                                  _P, _P],
     },
     "imm_scan.cu": {
-        "katana_imm_scan_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                _F, _P, _P, _P, _P, _P],
+        "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P, _F, _P, _P, _P, _P, _P],
     },
     "imm_step.cu": {
-        "katana_imm_step_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F,
-                                _P, _P, _P, _P],
+        "katana_imm_step_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F,
+                                _F, _P, _P, _P, _P],
     },
     "flash_attention.cu": {
         "flash_attention_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -10,42 +10,60 @@
 // select: x^/P^ kept, mu <- cbar. The K = 1 IMM replay runs the
 // single-model scan (scan.cu).
 //
-// Design: one thread per (model, track), K * kTracks threads a block,
-// the threads of one model in one warp (kTracks = 32), so every warp
-// reads the same model constants. One thread per track would carry
-// K*(n + n^2) = 360 floats (K=4, n=9) through the time loop and spill
-// every frame. Here a thread carries only its track's mode probabilities
-// (K floats, the same in all K threads of the track); the states live in
-// shared memory, one slab per (model, track) holding x (n) and P's upper
-// triangle (n(n+1)/2), padded to an odd stride so a warp's 32 slabs sit in
-// 32 different banks (K=4, n=9: 4*32*55*4 = 28 KB a block). Per frame:
-//   1. each thread mixes its target model from the K slabs of its track
-//      in index order (imm.cuh) -- sync --
-//   2. predicts and updates its model with the track's z, computes its
-//      log-likelihood, applies the valid select, and writes its slab and
-//      loglik -- sync --
-//   3. every thread of the track forms the same mode posterior from the K
-//      logliks in the plain version's order; thread (k, c) writes the
-//      combined estimate's entries d = k, k + K, ... of xs[t, c].
-// Layouts are canonical: x (K, N, n), P (K, N, n, n), mu (N, K),
-// zs (T, N, m), xs (T, N, n); the xs store is spread over the K warps of
-// a track block.
-//
-// What bounds it: ~5 k float32 operations per track-frame (ref.py's
+// What bounds it: ~6.2 k float32 operations per track-frame (ref.py's
 // pruned op stream: the K x K mixing of the 45 covariance entries, K
 // predicts of a 9-state model, K updates) against (m + n)*4 bytes per
-// track-frame: at N = 131,072 the operations bound it, a few
-// milliseconds per 300 frames at the card's float32 rate. The dense
-// predict loops here multiply the zeros of F too.
+// track-frame: at N = 131,072 the operations, 3.65 ms per 300 frames at
+// the card's float32 peak. Built with --fmad=false, every one of them is
+// an instruction of its own, so the issue rate, not the FMA pipes' peak,
+// is the practical ceiling: half of that bound.
+//
+// Design: one thread per (model, track), K * kTracks threads a block, the
+// threads of model j in warp j (kTracks = 32), every warp on one code
+// path. A thread keeps its own x and P in registers across the frames;
+// shared memory holds the copies the track's other threads read, one
+// slab per (model, track) with x (n) and P's upper triangle (n(n+1)/2),
+// padded to an odd stride so a warp's 32 slabs sit in 32 different banks
+// (K=4, n=9: 4*32*55*4 = 28 KB a block). Shared-memory traffic, not the
+// float32 work alone, bounds a frame: the mixing reads K slabs for each
+// of the K targets. Model j's constants are a runtime offset
+// into the kernel's parameters (ImmTable, 2.8 KB), read from the constant
+// bank where they are used, so none is held in a register across the
+// time loop; the predict follows the model set's compile-time Pattern
+// (pruned.cuh): the plain version's op stream, none of F's 59 shared
+// zeros multiplied for make_imm(). At most 128 registers a thread: 4
+// blocks (16 warps) an SM. Per frame, three barriers:
+//   1. thread (i >= 1, c) forms its share of the spread, xt_i = x_i - x_0
+//      and A_i = P_i + xt_i xt_i^T, once for the K targets (the plain
+//      version's order), and writes A_i (A_0 = P_0) into its slab and xt_i
+//      into a small xt slab;
+//   2. each thread mixes its target model j from the K slabs of its
+//      track in index order (P_mix = sum_i w_ij A_i - mt mt^T);
+//   3. predicts and updates its model with the track's z (F P one row at
+//      a time), computes its log-likelihood, applies the valid select, and
+//      writes its x and loglik;
+//   4. every thread of the track forms the same mode posterior from the K
+//      logliks; thread (k, c) writes the combined estimate's entries
+//      d = k, k + K, ... of xs[t, c]. Step 1 of the next frame writes
+//      only P and xt, which step 4 does not read: no barrier between them.
+// A model's P for the block's 32 tracks is one contiguous span of device
+// memory (10 KB): it comes in and goes out through a staging buffer with
+// 16-byte accesses, one model at a time. Layouts are canonical:
+// x (K, N, n), P (K, N, n, n), mu (N, K), zs (T, N, m), xs (T, N, n).
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
 
-#include "imm.cuh"
+#include <string.h>
+
+#include "pruned.cuh"
 
 namespace katana {
 
 constexpr int kTracks = 32;
+// resident blocks an SM: at most 128 registers a thread (3 blocks were
+// slower on the card with 168, 5 spilled at 96)
+constexpr int kMinBlocks = 4;
 
 template <int N>
 __host__ __device__ constexpr int tri(int r, int q) {  // r <= q
@@ -57,18 +75,45 @@ __host__ __device__ constexpr int slab_stride() {
   return (N + N * (N + 1) / 2) | 1;
 }
 
+// The model constants as ops._host_consts lays them out: per model F, Q,
+// R (row major), then the Markov matrix.
 template <int N, int M, int K>
-__global__ void __launch_bounds__(K * kTracks)
-imm_scan(int Ntr, int T, const float* __restrict__ x,
+struct ImmTable {
+  struct Model {
+    float F[N * N];
+    float Q[N * N];
+    float R[M * M];
+  } mdl[K];
+  float Pi[K * K];
+};
+
+template <int N, int K>
+struct ScanShared {
+  // one model's P for the block's tracks, a contiguous span of device
+  // memory, on its way in and out with 16-byte accesses
+  __align__(16) float stage[kTracks * N * N];
+  float slab[K][kTracks][slab_stride<N>()];
+  float xt[K - 1][kTracks][N | 1];
+  float ll[K][kTracks];
+};
+
+struct ScanArgs {
+  int Ntr, T;
+  const float* zs;
+  const uint8_t* vs;
+  float log2pi_m;
+  float* xs;
+};
+
+template <int N, int M, int K, class Pat>
+__global__ void __launch_bounds__(K * kTracks, kMinBlocks)
+imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ mu,
-         const float* __restrict__ zs, const uint8_t* __restrict__ vs,
-         const float* __restrict__ consts, float log2pi_m,
-         float* __restrict__ xs, float* __restrict__ x_fin,
-         float* __restrict__ P_fin, float* __restrict__ mu_fin) {
-  constexpr int SS = slab_stride<N>();
-  constexpr int stride = model_stride<N, M>();
-  __shared__ float slab[K][kTracks][SS];
-  __shared__ float sll[K][kTracks];
+         float* __restrict__ x_fin, float* __restrict__ P_fin,
+         float* __restrict__ mu_fin,
+         const __grid_constant__ ImmTable<N, M, K> tab) {
+  __shared__ ScanShared<N, K> sm;
+  const int Ntr = a.Ntr;
   const int j = threadIdx.x / kTracks;
   const int cl = threadIdx.x % kTracks;
   const int c_raw = blockIdx.x * kTracks + cl;
@@ -76,107 +121,203 @@ imm_scan(int Ntr, int T, const float* __restrict__ x,
   // every thread must reach the block's barriers
   const bool live = c_raw < Ntr;
   const int c = live ? c_raw : Ntr - 1;
-  const float* Pi = consts + K * stride;
-  const float* Fc = consts + j * stride;
-  const float* Qc = Fc + N * N;
-  const float* Rc = Fc + 2 * N * N;
+  const size_t lane = (size_t)j * Ntr + c;
 
-  float* own = slab[j][cl];
+  // model j's constants: a runtime offset into the parameters, read
+  // where they are used (one constant-bank load each a frame)
+  const auto& md = tab.mdl[j];
+  auto Fv = [&](int i, int k) { return md.F[i * N + k]; };
+  auto Qv = [&](int i, int k) { return md.Q[i * N + k]; };
+  auto Rv = [&](int r, int q) { return md.R[r * M + q]; };
+  float* own = sm.slab[j][cl];
+  const float* x0s = sm.slab[0][cl];
+  const int c0 = blockIdx.x * kTracks;
+  const int nc = min(kTracks, Ntr - c0);
+  const int tid = threadIdx.x;
+  float* mine = sm.stage + (c - c0) * N * N;  // this lane's P when staged
+  // the thread's own state stays in registers across the frames: the
+  // slab holds the copies the other models' threads read
+  float xs_own[N], Ps_own[N][N];
 #pragma unroll
-  for (int d = 0; d < N; ++d) own[d] = x[((size_t)j * Ntr + c) * N + d];
+  for (int d = 0; d < N; ++d) {
+    xs_own[d] = x[lane * N + d];
+    own[d] = xs_own[d];
+  }
+  for (int m = 0; m < K; ++m) {
+    stage_in(sm.stage, P + ((size_t)m * Ntr + c0) * N * N, nc * N * N, tid,
+             K * kTracks);
+    stage_wait();
+    __syncthreads();
+    if (j == m) {
 #pragma unroll
-  for (int r = 0; r < N; ++r)
+      for (int r = 0; r < N; ++r)
 #pragma unroll
-    for (int q = r; q < N; ++q)
-      own[N + tri<N>(r, q)] = P[((size_t)j * Ntr + c) * N * N + r * N + q];
+        for (int q = r; q < N; ++q) Ps_own[r][q] = mine[r * N + q];
+    }
+    __syncthreads();
+  }
   float mu_i[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) mu_i[i] = mu[(size_t)c * K + i];
   __syncthreads();
 
-  auto Pat = [&](int i, int r, int q) {
-    return slab[i][cl][N + tri<N>(r, q)];
-  };
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < a.T; ++t) {
     const size_t tc = (size_t)t * Ntr + c;
-    float cbar[K];
-    markov_predict<K>(Pi, mu_i, cbar);
-    float x0v[N], xt[N][K], xm[N], Pm[N][N];
+    // 1. this model's share of the spread, into its slab
+    if (j > 0) {
+      float xt[N];
 #pragma unroll
-    for (int d = 0; d < N; ++d) {
-      x0v[d] = slab[0][cl][d];
-      xt[d][0] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 1; i < K; ++i)
-#pragma unroll
-      for (int d = 0; d < N; ++d) xt[d][i] = slab[i][cl][d] - x0v[d];
-    float cbar_j = cbar[0];  // cbar[j] without a runtime register index
-#pragma unroll
-    for (int k = 1; k < K; ++k) cbar_j = (k == j) ? cbar[k] : cbar_j;
-    imm_mix_model<N, K>(Pi, mu_i, cbar_j, j, x0v, xt, Pat, xm, Pm);
-    __syncthreads();  // every slab read before any is overwritten
-
-    float z[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
-#pragma unroll
-    for (int r = 0; r < M; ++r) z[r] = zs[tc * M + r];
-    predict_lane<N>(Fc, Qc, false, 0.0f, xm, Pm, xp, Pp);
-    innovation<N, M>(Pp, Rc, S, Si);
-    kalman_update<N, M>(xp, Pp, Si, z, y, xn, Pn);
-    sll[j][cl] = gaussian_loglik<M>(S, Si, y, log2pi_m);
-    float v = 1.0f;
-    if (vs != nullptr) {
-      v = vs[tc] ? 1.0f : 0.0f;
-      const float nv = 1.0f - v;
-#pragma unroll
-      for (int d = 0; d < N; ++d) own[d] = v * xn[d] + nv * xp[d];
+      for (int d = 0; d < N; ++d) {
+        xt[d] = xs_own[d] - x0s[d];
+        sm.xt[j - 1][cl][d] = xt[d];
+      }
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
         for (int q = r; q < N; ++q)
-          own[N + tri<N>(r, q)] = v * Pn[r][q] + nv * Pp[r][q];
-    } else {
+          Ps_own[r][q] = Ps_own[r][q] + xt[r] * xt[q];
+    }
 #pragma unroll
-      for (int d = 0; d < N; ++d) own[d] = xn[d];
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int q = r; q < N; ++q) own[N + tri<N>(r, q)] = Ps_own[r][q];
+    __syncthreads();
+
+    // 2. the mixed state of target model j (imm.cuh's order, the terms of
+    // xt_0 = 0 pruned as ref._imm_mix prunes them)
+    float cbar[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float acc = tab.Pi[k] * mu_i[0];
+#pragma unroll
+      for (int i = 1; i < K; ++i) acc = acc + tab.Pi[i * K + k] * mu_i[i];
+      cbar[k] = acc;
+    }
+    float cbar_j = cbar[0];  // cbar[j] without a runtime register index
+#pragma unroll
+    for (int k = 1; k < K; ++k) cbar_j = k == j ? cbar[k] : cbar_j;
+    const float rden = 1.0f / fmaxf(cbar_j, FLT_MIN);
+    float w[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) w[i] = (tab.Pi[i * K + j] * mu_i[i]) * rden;
+    float xm[N], mt[N], Pm[N][N];
+#pragma unroll
+    for (int d = 0; d < N; ++d) {
+      float acc = w[1] * sm.xt[0][cl][d];
+#pragma unroll
+      for (int i = 2; i < K; ++i) acc = acc + w[i] * sm.xt[i - 1][cl][d];
+      mt[d] = acc;
+      xm[d] = acc + x0s[d];
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int q = r; q < N; ++q) {
+        const int e = N + tri<N>(r, q);
+        float acc = w[0] * sm.slab[0][cl][e];
+#pragma unroll
+        for (int i = 1; i < K; ++i) acc = acc + w[i] * sm.slab[i][cl][e];
+        acc = acc - mt[r] * mt[q];
+        Pm[r][q] = acc;
+        Pm[q][r] = acc;
+      }
+    __syncthreads();  // every slab read before any is overwritten
+
+    // 3. predict and update model j
+    float z[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
+#pragma unroll
+    for (int r = 0; r < M; ++r) z[r] = a.zs[tc * M + r];
+    predict_mean<Pat>(Fv, xm, xp);
+    predict_cov_pruned<Pat>(Fv, Qv, [&](int r, int q) { return Pm[r][q]; },
+                            Pp);
+    innovation_pruned<Pat>(Pp, Rv, S, Si);
+    kalman_update<N, M>(xp, Pp, Si, z, y, xn, Pn);
+    sm.ll[j][cl] = gaussian_loglik<M>(S, Si, y, a.log2pi_m);
+    float v = 1.0f;
+    if (a.vs != nullptr) {
+      v = a.vs[tc] ? 1.0f : 0.0f;
+      const float nv = 1.0f - v;
+#pragma unroll
+      for (int d = 0; d < N; ++d) xs_own[d] = v * xn[d] + nv * xp[d];
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q) own[N + tri<N>(r, q)] = Pn[r][q];
+        for (int q = r; q < N; ++q)
+          Ps_own[r][q] = v * Pn[r][q] + nv * Pp[r][q];
+    } else {
+#pragma unroll
+      for (int d = 0; d < N; ++d) xs_own[d] = xn[d];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+#pragma unroll
+        for (int q = r; q < N; ++q) Ps_own[r][q] = Pn[r][q];
     }
+#pragma unroll
+    for (int d = 0; d < N; ++d) own[d] = xs_own[d];
     __syncthreads();  // every slab and loglik of the frame written
 
+    // 4. mode posterior and combined estimate
     float ll[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) ll[k] = sll[k][cl];
+    for (int k = 0; k < K; ++k) ll[k] = sm.ll[k][cl];
     mode_posterior<K>(cbar, ll, mu_i);
-    if (vs != nullptr) {
+    if (a.vs != nullptr) {
       const float nv = 1.0f - v;
 #pragma unroll
       for (int k = 0; k < K; ++k) mu_i[k] = v * mu_i[k] + nv * cbar[k];
     }
     if (live) {
       for (int d = j; d < N; d += K) {
-        float acc = mu_i[0] * slab[0][cl][d];
+        float acc = mu_i[0] * sm.slab[0][cl][d];
 #pragma unroll
-        for (int k = 1; k < K; ++k) acc = acc + mu_i[k] * slab[k][cl][d];
-        xs[tc * N + d] = acc;
+        for (int k = 1; k < K; ++k) acc = acc + mu_i[k] * sm.slab[k][cl][d];
+        a.xs[tc * N + d] = acc;
       }
     }
   }
+
+  for (int m = 0; m < K; ++m) {
+    if (j == m) {
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+#pragma unroll
+        for (int q = r; q < N; ++q) {
+          mine[r * N + q] = Ps_own[r][q];
+          mine[q * N + r] = Ps_own[r][q];
+        }
+    }
+    __syncthreads();
+    stage_out(P_fin + ((size_t)m * Ntr + c0) * N * N, sm.stage, nc * N * N,
+              tid, K * kTracks);
+    __syncthreads();
+  }
   if (!live) return;
 #pragma unroll
-  for (int d = 0; d < N; ++d) x_fin[((size_t)j * Ntr + c) * N + d] = own[d];
-#pragma unroll
-  for (int r = 0; r < N; ++r)
-#pragma unroll
-    for (int q = r; q < N; ++q) {
-      const float p = own[N + tri<N>(r, q)];
-      P_fin[((size_t)j * Ntr + c) * N * N + r * N + q] = p;
-      P_fin[((size_t)j * Ntr + c) * N * N + q * N + r] = p;
-    }
+  for (int d = 0; d < N; ++d) x_fin[lane * N + d] = xs_own[d];
   if (j == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) mu_fin[(size_t)c * K + k] = mu_i[k];
+  }
+}
+
+template <class Pat>
+int launch_scan(int K, int Ntr, int T, const void* x, const void* P,
+                const void* mu, const void* zs, const void* vs,
+                const void* consts, float log2pi_m, void* xs, void* x_fin,
+                void* P_fin, void* mu_fin, cudaStream_t s) {
+  if constexpr (Pat::N == 9 && Pat::M == 3) {
+    if (K != 4) return (int)cudaErrorInvalidValue;
+    ImmTable<9, 3, 4> tab;
+    memcpy(&tab, consts, sizeof tab);
+    const ScanArgs a{Ntr, T, (const float*)zs, (const uint8_t*)vs, log2pi_m,
+                     (float*)xs};
+    const int blocks = (Ntr + kTracks - 1) / kTracks;
+    imm_scan<9, 3, 4, Pat><<<blocks, 4 * kTracks, 0, s>>>(
+        a, (const float*)x, (const float*)P, (const float*)mu, (float*)x_fin,
+        (float*)P_fin, (float*)mu_fin, tab);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -185,23 +326,24 @@ imm_scan(int Ntr, int T, const float* __restrict__ x,
 extern "C" {
 
 // The whole stream of T frames for Ntr tracks, K > 1. Shapes (K, n, m) in
-// {(4, 9, 3)}; any other shape returns cudaErrorInvalidValue without
-// launching. vs may be null (every frame valid).
-int katana_imm_scan_run(int K, int n, int m, int Ntr, int T, const void* x,
-                        const void* P, const void* mu, const void* zs,
-                        const void* vs, const void* consts, float log2pi_m,
-                        void* xs, void* x_fin, void* P_fin, void* mu_fin,
-                        void* stream) {
+// {(4, 9, 3)}, `pattern` the id of an instantiated Pattern of that shape
+// (pruned.cuh); any other combination returns cudaErrorInvalidValue
+// without launching. `consts` is the constant table in HOST memory
+// (ops._host_consts: per model F, Q, R, then the Markov matrix), copied
+// into the launch's parameters. vs may be null (every frame valid).
+int katana_imm_scan_run(int K, int n, int m, int pattern, int Ntr, int T,
+                        const void* x, const void* P, const void* mu,
+                        const void* zs, const void* vs, const void* consts,
+                        float log2pi_m, void* xs, void* x_fin, void* P_fin,
+                        void* mu_fin, void* stream) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
-  if (K == 4 && n == 9 && m == 3) {
-    const int blocks = (Ntr + kTracks - 1) / kTracks;
-    imm_scan<9, 3, 4><<<blocks, 4 * kTracks, 0, s>>>(
-        Ntr, T, (const float*)x, (const float*)P, (const float*)mu,
-        (const float*)zs, (const uint8_t*)vs, (const float*)consts, log2pi_m,
-        (float*)xs, (float*)x_fin, (float*)P_fin, (float*)mu_fin);
-    return (int)cudaGetLastError();
-  }
+#define KATANA_IMM_SCAN_CASE(id, name, n_, m_, ...)                          \
+  if (pattern == id && n == n_ && m == m_)                                  \
+    return launch_scan<name>(K, Ntr, T, x, P, mu, zs, vs, consts, log2pi_m, \
+                             xs, x_fin, P_fin, mu_fin, s);
+  KATANA_IMM_PATTERNS(KATANA_IMM_SCAN_CASE)
+#undef KATANA_IMM_SCAN_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,77 +7,163 @@
 // same S^-1. The per-frame IMM driver (ops.imm_bank_sequence) runs it
 // once per frame between the mixing and the mode posterior.
 //
-// Design: one thread per lane. Lane l's model is l / N, and its F, Q, R
-// are that model's rows of the float32 constant table (ops._consts). The
-// reference instead folds a per-lane (E, L) table of the entries that
-// differ between models on the host (ops._imm_lane_table); the values
-// each lane reads are the same. K = 1 also serves a nonlinear member
-// (the CTRA-8 EKF) through predict_lane's hard-coded dynamics. Layouts
-// are canonical: x (K, N, n), P (K, N, n, n), z (N, m), loglik (K, N).
+// What bounds it: (n + n^2)*4 bytes per lane in and again out, against
+// ~1 k float32 operations per lane: the bytes, at any N (K=4, n=9,
+// N=131,072: 377 MB, 0.114 ms at 3.35 TB/s).
 //
-// What bounds it: (n + n^2)*4*2 bytes per lane in and out against ~1 k
-// float32 operations per lane: the bytes, at any N. The thread's loads
-// and stores stride by n*4 and n^2*4 bytes (contiguous per warp in
-// aggregate).
+// Design: one thread per lane, kLanes lanes a block. The block's lanes of
+// x and P are one contiguous span of device memory (41 KB of P at n=9):
+// the block stages both spans into shared memory with coalesced 16-byte
+// cp.async, each thread computes its lane from there, writes x' and P'
+// over its own slots, and the block stores both spans back with 16-byte
+// stores. A lane's slots sit at an odd stride in shared memory (n^2 = 81
+// is odd; an even n^2 or n is padded by one, staged 4 bytes at a time),
+// so a warp's reads of one entry fall in 32 different banks. Lane l's
+// model is l / N: F, Q, R are that model's rows of the float32 constant
+// table (ops._consts), read where they are used. The predict follows the
+// compile-time Pattern of the model set (pruned.cuh): the plain version's
+// op stream, F's shared zeros skipped. K = 1 also serves a nonlinear
+// member (the CTRA-8 EKF): its Jacobian is built at the lane's state and
+// pruned by the same Pattern. Layouts are canonical: x (K, N, n),
+// P (K, N, n, n), z (N, m), loglik (K, N). P is read whole (the mixed P
+// need not be symmetric to the bit); P' is the upper triangle, mirrored.
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
 
-#include "imm.cuh"
+#include "pruned.cuh"
 
 namespace katana {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = 128;
 
-template <int N, int M>
-__global__ void __launch_bounds__(kThreads)
+// Lanes' rows of width W through shared memory at the odd stride W | 1.
+template <int W>
+__device__ __forceinline__ void lanes_in(float* s, const float* g, int nl,
+                                         int tid) {
+  if constexpr (W % 2 == 1) {
+    stage_in(s, g, nl * W, tid, kLanes);
+  } else {
+    for (int e = tid; e < nl * W; e += kLanes) s[(e / W) * (W | 1) + e % W] = g[e];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void lanes_out(float* g, const float* s, int nl,
+                                          int tid) {
+  if constexpr (W % 2 == 1) {
+    stage_out(g, s, nl * W, tid, kLanes);
+  } else {
+    for (int e = tid; e < nl * W; e += kLanes) g[e] = s[(e / W) * (W | 1) + e % W];
+  }
+}
+
+template <class Pat>
+__global__ void __launch_bounds__(kLanes)
 imm_step(int Ntr, int K, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ z,
          const float* __restrict__ consts, int nonlinear, float dt,
          float log2pi_m, float* __restrict__ x_out,
          float* __restrict__ P_out, float* __restrict__ ll) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K * Ntr) return;
-  const int k = l / Ntr;
-  const int c = l - k * Ntr;
-  const float* Fc = consts + k * model_stride<N, M>();
-  float xv[N], Pv[N][N], zv[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M],
-      xn[N], Pn[N][N];
-  load_lane<N>(x + (size_t)l * N, P + (size_t)l * N * N, xv, Pv);
+  constexpr int N = Pat::N, M = Pat::M, NN = N * N;
+  constexpr int SX = N | 1, SP = NN | 1;
+  __shared__ __align__(16) float sx[kLanes * SX];
+  __shared__ __align__(16) float sP[kLanes * SP];
+  const int tid = threadIdx.x;
+  const int l0 = blockIdx.x * kLanes;
+  const int nl = min(kLanes, K * Ntr - l0);
+  lanes_in<N>(sx, x + (size_t)l0 * N, nl, tid);
+  lanes_in<NN>(sP, P + (size_t)l0 * NN, nl, tid);
+  stage_wait();
+  __syncthreads();
+
+  if (tid < nl) {
+    const int l = l0 + tid;
+    const int k = l / Ntr;
+    const int c = l - k * Ntr;
+    const float* Fc = consts + k * model_stride<N, M>();
+    const float* Qc = Fc + NN;
+    const float* Rc = Qc + NN;
+    float* xl = sx + tid * SX;
+    float* Pl = sP + tid * SP;
+    auto Qv = [&](int i, int j) { return __ldg(Qc + i * N + j); };
+    auto Rv = [&](int r, int q) { return __ldg(Rc + r * M + q); };
+    auto Pa = [&](int r, int q) { return Pl[r * N + q]; };
+    float xv[N], zv[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N],
+        Pn[N][N];
 #pragma unroll
-  for (int r = 0; r < M; ++r) zv[r] = z[(size_t)c * M + r];
-  predict_lane<N>(Fc, Fc + N * N, nonlinear != 0, dt, xv, Pv, xp, Pp);
-  innovation<N, M>(Pp, Fc + 2 * N * N, S, Si);
-  kalman_update<N, M>(xp, Pp, Si, zv, y, xn, Pn);
-  store_lane<N>(x_out + (size_t)l * N, P_out + (size_t)l * N * N, xn, Pn);
-  ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
+    for (int i = 0; i < N; ++i) xv[i] = xl[i];
+#pragma unroll
+    for (int r = 0; r < M; ++r) zv[r] = z[(size_t)c * M + r];
+    bool linear = true;
+    if constexpr (N == 8) {
+      if (nonlinear) {
+        linear = false;
+        const float px = xv[0], py = xv[1], pz = xv[2], v = xv[3],
+                    th = xv[4], om = xv[5], a = xv[6], vz = xv[7];
+        const CtraJacobian J{cosf(th), sinf(th), v, dt};
+        xp[0] = px + (v * J.c) * dt;
+        xp[1] = py + (v * J.s) * dt;
+        xp[2] = pz + vz * dt;
+        xp[3] = v + a * dt;
+        xp[4] = th + om * dt;
+        xp[5] = om;
+        xp[6] = a;
+        xp[7] = vz;
+        predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
+      }
+    }
+    if (linear) {
+      auto Fv = [&](int i, int j) { return __ldg(Fc + i * N + j); };
+      predict_mean<Pat>(Fv, xv, xp);
+      predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
+    }
+    innovation_pruned<Pat>(Pp, Rv, S, Si);
+    kalman_update<N, M>(xp, Pp, Si, zv, y, xn, Pn);
+    ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
+#pragma unroll
+    for (int i = 0; i < N; ++i) xl[i] = xn[i];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) Pl[i * N + j] = Pn[i][j];
+  }
+  __syncthreads();
+  lanes_out<N>(x_out + (size_t)l0 * N, sx, nl, tid);
+  lanes_out<NN>(P_out + (size_t)l0 * NN, sP, nl, tid);
+}
+
+template <class Pat>
+int launch_step(int K, int Ntr, const void* x, const void* P, const void* z,
+                const void* consts, int nonlinear, float dt, float log2pi_m,
+                void* x_out, void* P_out, void* ll, cudaStream_t s) {
+  const int blocks = (K * Ntr + kLanes - 1) / kLanes;
+  imm_step<Pat><<<blocks, kLanes, 0, s>>>(
+      Ntr, K, (const float*)x, (const float*)P, (const float*)z,
+      (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
+      (float*)P_out, (float*)ll);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace katana
 
 extern "C" {
 
-// One frame for K models x Ntr tracks. Shapes (n, m) in {(6, 3), (8, 4),
-// (9, 3)}; any other shape returns cudaErrorInvalidValue without
-// launching.
-int katana_imm_step_run(int K, int n, int m, int Ntr, const void* x,
-                        const void* P, const void* z, const void* consts,
-                        int nonlinear, float dt, float log2pi_m, void* x_out,
-                        void* P_out, void* ll, void* stream) {
+// One frame for K models x Ntr tracks. `pattern` is the id of an
+// instantiated Pattern of shape (n, m) (pruned.cuh, KATANA_IMM_PATTERNS);
+// any other combination returns cudaErrorInvalidValue without launching.
+int katana_imm_step_run(int K, int n, int m, int pattern, int Ntr,
+                        const void* x, const void* P, const void* z,
+                        const void* consts, int nonlinear, float dt,
+                        float log2pi_m, void* x_out, void* P_out, void* ll,
+                        void* stream) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
-  const int blocks = (K * Ntr + kThreads - 1) / kThreads;
-#define KATANA_IMM_STEP_CASE(N_, M_)                                        \
-  if (n == N_ && m == M_) {                                                 \
-    imm_step<N_, M_><<<blocks, kThreads, 0, s>>>(                           \
-        Ntr, K, (const float*)x, (const float*)P, (const float*)z,          \
-        (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,       \
-        (float*)P_out, (float*)ll);                                         \
-    return (int)cudaGetLastError();                                         \
-  }
-  KATANA_IMM_STEP_CASE(6, 3)
-  KATANA_IMM_STEP_CASE(8, 4)
-  KATANA_IMM_STEP_CASE(9, 3)
+#define KATANA_IMM_STEP_CASE(id, name, n_, m_, ...)                          \
+  if (pattern == id && n == n_ && m == m_)                                  \
+    return launch_step<name>(K, Ntr, x, P, z, consts, nonlinear, dt,        \
+                             log2pi_m, x_out, P_out, ll, s);
+  KATANA_IMM_PATTERNS(KATANA_IMM_STEP_CASE)
 #undef KATANA_IMM_STEP_CASE
   return (int)cudaErrorInvalidValue;
 }

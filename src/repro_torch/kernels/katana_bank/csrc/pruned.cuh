@@ -1,0 +1,201 @@
+// The plain version's pruned op stream for a model set whose constant
+// pattern is known at compile time, shared by the IMM bank step
+// (imm_step.cu) and the IMM replay scan (imm_scan.cu).
+//
+// ref.py folds the model constants on the host (ref.plan_imm_tables): an
+// entry of F, Q or R that every member model agrees on stays a Python
+// float, pruned from its sum when it is 0.0 and its product elided when
+// it is 1.0 (ref._dot, ref._predict_cov, ref._innovation). A kernel that
+// skips exactly the entries its Pattern names issues that op stream
+// itself, so it rounds as the plain version does, signed zeros included,
+// and multiplies none of F's zeros. kalman.cuh's dense loops (the frames
+// and scan.cu) add the pruned terms instead, which is exact only where
+// they are not a signed zero.
+//
+// KATANA_IMM_PATTERNS lists the instantiated patterns; ops.py reads this
+// list from this file and gives each launch the id of the pattern whose
+// pruned entries the model set's shared zeros and ones cover (dense, with
+// nothing pruned, covers every set).
+#pragma once
+
+#include "imm.cuh"
+
+namespace katana {
+
+// Bit i*N + j of FZ (QZ) is set where every member's F (Q) is 0: the
+// term is pruned. Bit i*N + j of F1 is set where every member's F is
+// 1.0: the product is elided. Bit r*M + c of RZ is set where every
+// member's R is 0. Each mask is two 64-bit words (low, high).
+template <int N_, int M_, uint64_t FZ0, uint64_t FZ1, uint64_t F10,
+          uint64_t F11, uint64_t QZ0, uint64_t QZ1, uint32_t RZ>
+struct Pattern {
+  static constexpr int N = N_;
+  static constexpr int M = M_;
+  __host__ __device__ static constexpr bool bit(uint64_t lo, uint64_t hi,
+                                                int b) {
+    return ((b < 64 ? lo >> b : hi >> (b - 64)) & 1u) != 0;
+  }
+  __host__ __device__ static constexpr bool fz(int i, int j) {
+    return bit(FZ0, FZ1, i * N + j);
+  }
+  __host__ __device__ static constexpr bool f1(int i, int j) {
+    return bit(F10, F11, i * N + j);
+  }
+  __host__ __device__ static constexpr bool qz(int i, int j) {
+    return bit(QZ0, QZ1, i * N + j);
+  }
+  __host__ __device__ static constexpr bool rz(int r, int c) {
+    return ((RZ >> (r * M + c)) & 1u) != 0;
+  }
+  // every row of F keeps a term, so no entry of F x or F P is a
+  // structural zero (ref._dot would return the constant 0.0 there)
+  __host__ __device__ static constexpr bool rows_kept() {
+    for (int i = 0; i < N; ++i) {
+      bool any = false;
+      for (int k = 0; k < N; ++k) any = any || !fz(i, k);
+      if (!any) return false;
+    }
+    return true;
+  }
+};
+
+// id, name, n, m, F zeros (low, high), F ones (low, high), Q zeros (low,
+// high), R zeros. imm9 is make_imm() (CV9 + CA9 + CT9(+-w)): 22 of F's 81
+// entries kept, 27 of Q's, R's diagonal. ctra8 is the CTRA-8 Jacobian
+// (ref._predict_single: the identity and seven slots) with a diagonal Q.
+#define KATANA_IMM_PATTERNS(X)                                               \
+  X(0, dense6, 6, 3, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
+  X(1, dense8, 8, 4, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
+  X(2, ctra8, 8, 4, 0x7fbfdfcfb77be5e6ull, 0x0ull, 0x8040201008040201ull,    \
+    0x0ull, 0x7fbfdfeff7fbfdfeull, 0x0ull, 0x7bdeu)                          \
+  X(3, dense9, 9, 3, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
+  X(4, imm9, 9, 3, 0xefdbf67d3b6ecba6ull, 0xffbfull, 0x4000000100401ull,     \
+    0x0ull, 0xed9b76ddb36edbb6ull, 0xdbb6ull, 0xeeu)
+
+#define KATANA_DECLARE_PATTERN(id, name, n, m, ...)                          \
+  struct name : Pattern<n, m, __VA_ARGS__> {};                              \
+  static_assert(name::rows_kept(), #name ": a row of F is all pruned");
+KATANA_IMM_PATTERNS(KATANA_DECLARE_PATTERN)
+#undef KATANA_DECLARE_PATTERN
+
+// sum_k F[i][k] * v(k) over the kept terms of row i, folded left in index
+// order, the shared 1.0s elided (ref._dot). Fv(i, k) is read only for the
+// kept entries that are not a shared 1.0.
+template <class Pat, class FV, class V>
+__device__ __forceinline__ float fdot(int i, const FV& Fv, const V& v) {
+  float acc = 0.0f;
+  bool have = false;
+#pragma unroll
+  for (int k = 0; k < Pat::N; ++k) {
+    if (Pat::fz(i, k)) continue;
+    const float t = Pat::f1(i, k) ? v(k) : Fv(i, k) * v(k);
+    acc = have ? acc + t : t;
+    have = true;
+  }
+  return acc;
+}
+
+// x' = F x (ref._matvec).
+template <class Pat, class FV>
+__device__ __forceinline__ void predict_mean(const FV& Fv,
+                                             const float (&x)[Pat::N],
+                                             float (&xp)[Pat::N]) {
+#pragma unroll
+  for (int i = 0; i < Pat::N; ++i)
+    xp[i] = fdot<Pat>(i, Fv, [&](int k) { return x[k]; });
+}
+
+// P' = upper triangle of F P F^T + Q, mirrored (ref._predict_cov): row i
+// of F P, then P'[i][j] = F[j] . (F P)[i] for j >= i. Pa(k, j) reads
+// P[k][j]; only one row of F P is live at a time.
+template <class Pat, class FV, class QV, class PA>
+__device__ __forceinline__ void predict_cov_pruned(const FV& Fv, const QV& Qv,
+                                                   const PA& Pa,
+                                                   float (&Pp)[Pat::N]
+                                                              [Pat::N]) {
+  constexpr int N = Pat::N;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float FP[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      FP[j] = fdot<Pat>(i, Fv, [&](int k) { return Pa(k, j); });
+#pragma unroll
+    for (int j = i; j < N; ++j) {
+      float acc = fdot<Pat>(j, Fv, [&](int k) { return FP[k]; });
+      if (!Pat::qz(i, j)) acc = acc + Qv(i, j);
+      Pp[i][j] = acc;
+      Pp[j][i] = acc;
+    }
+  }
+}
+
+// S = P'[obs][obs] + R (shared zeros of R pruned) and its inverse
+// (ref._innovation).
+template <class Pat, class RV>
+__device__ __forceinline__ void innovation_pruned(
+    const float (&Pp)[Pat::N][Pat::N], const RV& Rv,
+    float (&S)[Pat::M][Pat::M], float (&Si)[Pat::M][Pat::M]) {
+  constexpr int N = Pat::N, M = Pat::M;
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      const float p = Pp[obs<N, M>(r)][obs<N, M>(c)];
+      S[r][c] = Pat::rz(r, c) ? p : p + Rv(r, c);
+    }
+  small_inv<M>(S, Si);
+}
+
+// The CTRA-8 Jacobian at (v, theta) as ref._predict_single builds it:
+// the identity, c dt, -v s dt, s dt, v c dt, and dt at (2,7), (3,6), (4,5).
+struct CtraJacobian {
+  float c, s, v, dt;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    if (i == 0 && k == 3) return c * dt;
+    if (i == 0 && k == 4) return ((-v) * s) * dt;
+    if (i == 1 && k == 3) return s * dt;
+    if (i == 1 && k == 4) return (v * c) * dt;
+    if ((i == 2 && k == 7) || (i == 3 && k == 6) || (i == 4 && k == 5))
+      return dt;
+    return i == k ? 1.0f : 0.0f;
+  }
+};
+
+// Copy `count` floats from device memory to shared memory with the
+// block's threads: 16-byte cp.async when the source is 16-byte aligned
+// and count a multiple of 4, 4-byte loads otherwise. `s` is 16-byte
+// aligned. Call stage_wait() and sync before reading.
+__device__ __forceinline__ void stage_in(float* s, const float* g, int count,
+                                         int tid, int nthreads) {
+  if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0 && (count & 3) == 0) {
+    for (int e = tid; e < count / 4; e += nthreads) {
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(s + 4 * e));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                   "l"(g + 4 * e)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  } else {
+    for (int e = tid; e < count; e += nthreads) s[e] = g[e];
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Copy `count` floats from shared memory (16-byte aligned) to device
+// memory: 16-byte stores where the target allows, 4-byte ones otherwise.
+__device__ __forceinline__ void stage_out(float* g, const float* s, int count,
+                                          int tid, int nthreads) {
+  if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0 && (count & 3) == 0) {
+    for (int e = tid; e < count / 4; e += nthreads)
+      reinterpret_cast<float4*>(g)[e] = reinterpret_cast<const float4*>(s)[e];
+  } else {
+    for (int e = tid; e < count; e += nthreads) g[e] = s[e];
+  }
+}
+
+}  // namespace katana

@@ -30,10 +30,19 @@ each wrapper (the frames also count their greedy launch under
 ``katana_bank_imm``). The kernels take the canonical layouts directly
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
+
+The two IMM bank kernels (imm_step.cu, imm_scan.cu) are instantiated
+for compile-time constant patterns (csrc/pruned.cuh): which entries of
+F, Q and R every member model shares as 0 (pruned) or 1.0 (elided).
+``pick_pattern`` gives each launch the instantiation that prunes the
+most among those the model set's shared constants cover; the dense one
+covers every set.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import re
+from pathlib import Path
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -53,10 +62,11 @@ LAUNCHES: Dict[str, int] = {
 FRAME_SHAPES = ((6, 3), (8, 4), (9, 3))
 IMM_FRAME_SHAPES = ((4, 9, 3),)
 IMM_SCAN_SHAPES = ((4, 9, 3),)
-# frames per launch when the caller passes time_chunk=0 (the reference's
-# static fallbacks)
+# frames per launch when the caller passes time_chunk=0: whole streams up
+# to 4096 frames. The reference's IMM scan falls back to 64, a bound of the
+# TPU's VMEM; on the card one launch beats chunks of 64 (PERF.md §6).
 SCAN_TIME_CHUNK = 4096
-IMM_SCAN_TIME_CHUNK = 64
+IMM_SCAN_TIME_CHUNK = 4096
 
 
 def reset_launches() -> None:
@@ -96,21 +106,132 @@ def _check_model(model: FilterModel):
 
 
 _CONSTS: Dict[Tuple[object, str], torch.Tensor] = {}
+_HOST_CONSTS: Dict[Tuple[object, ...], np.ndarray] = {}
 
 
-def _consts(models, trans, device) -> torch.Tensor:
-    """Device table of the model constants: per model F, Q, R (row
-    major), then the Markov matrix. Cached per model set and device."""
-    key = (tuple(models), str(device))
-    t = _CONSTS.get(key)
+def _host_consts(models, trans) -> np.ndarray:
+    """The model constants as one float32 array: per model F, Q, R (row
+    major), then the Markov matrix. Cached per model set."""
+    key = tuple(models) + (np.asarray(trans, np.float64).tobytes(),)
+    t = _HOST_CONSTS.get(key)
     if t is None:
         parts = [np.asarray(getattr(mdl, nm), np.float64).ravel()
                  for mdl in models for nm in ("F", "Q", "R")]
         parts.append(np.asarray(trans, np.float64).ravel())
-        t = torch.as_tensor(np.concatenate(parts).astype(np.float32),
-                            device=device)
+        t = np.ascontiguousarray(np.concatenate(parts), dtype=np.float32)
+        _HOST_CONSTS[key] = t
+    return t
+
+
+def _consts(models, trans, device) -> torch.Tensor:
+    """``_host_consts`` on ``device``, cached per model set and device."""
+    key = (tuple(models), str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = torch.as_tensor(_host_consts(models, trans), device=device)
         _CONSTS[key] = t
     return t
+
+
+# ---------------------------------------------------------------------------
+# Compile-time constant patterns of the IMM bank kernels (csrc/pruned.cuh).
+# ---------------------------------------------------------------------------
+
+_PRUNED_H = Path(__file__).resolve().parent / "csrc" / "pruned.cuh"
+# the non-zero slots of the CTRA-8 Jacobian besides its unit diagonal
+# (ref._predict_single; pruned.cuh: CtraJacobian)
+CTRA8_JACOBIAN = ((0, 3), (0, 4), (1, 3), (1, 4), (2, 7), (3, 6), (4, 5))
+MASKS = ("fz", "f1", "qz", "rz")
+
+
+class ImmPattern(NamedTuple):
+    """One instantiated pattern: its id in the kernels' dispatch, its
+    name, (n, m), and boolean masks fz / f1 / qz (n, n) and rz (m, m):
+    F's pruned zeros, F's elided 1.0s, Q's and R's pruned zeros."""
+    id: int
+    name: str
+    n: int
+    m: int
+    masks: Dict[str, np.ndarray]
+
+
+def _mask(word: int, rows: int, cols: int) -> np.ndarray:
+    return np.array([(word >> b) & 1 for b in range(rows * cols)],
+                    bool).reshape(rows, cols)
+
+
+_PATTERNS: list = []
+
+
+def instantiated_patterns():
+    """The patterns the kernels are built for, in the order of
+    KATANA_IMM_PATTERNS in csrc/pruned.cuh, read from that file."""
+    if not _PATTERNS:
+        text = _PRUNED_H.read_text()
+        body = text[text.index("#define KATANA_IMM_PATTERNS"):]
+        body = body[:body.index("\n\n")].replace("\\\n", " ")
+        for args in re.findall(r"X\(([^)]*)\)", body):
+            f = [a.strip() for a in args.split(",")]
+            n, m = int(f[2]), int(f[3])
+            w = [int(a.rstrip("ul"), 0) for a in f[4:]]
+            masks = dict(fz=_mask(w[0] | w[1] << 64, n, n),
+                         f1=_mask(w[2] | w[3] << 64, n, n),
+                         qz=_mask(w[4] | w[5] << 64, n, n),
+                         rz=_mask(w[6], m, m))
+            _PATTERNS.append(ImmPattern(int(f[0]), f[1], n, m, masks))
+    return list(_PATTERNS)
+
+
+def imm_pattern(models) -> Dict[str, np.ndarray]:
+    """The constants the plain version's op stream folds for this model
+    set (``ref.plan_imm_tables``: an entry every member shares stays a
+    float, pruned when 0 and elided when 1.0): masks fz / f1 / qz / rz as
+    in ``ImmPattern``. A nonlinear member (the K = 1 CTRA-8) has the
+    fixed pattern of the Jacobian the kernel builds."""
+    entries, _ = ref.plan_imm_tables(models)
+
+    def shared(name, value):
+        return np.array([[isinstance(c, float) and c == value for c in row]
+                         for row in entries[name]], bool)
+
+    fz, f1 = shared("F", 0.0), shared("F", 1.0)
+    if not models[0].is_linear:
+        f1 = np.eye(models[0].n, dtype=bool)
+        fz = ~f1
+        for i, j in CTRA8_JACOBIAN:
+            fz[i, j] = False
+    return dict(fz=fz, f1=f1, qz=shared("Q", 0.0), rz=shared("R", 0.0))
+
+
+_PICKED: Dict[Tuple[object, ...], ImmPattern] = {}
+
+
+def pick_pattern(models) -> ImmPattern:
+    """The instantiation a model set runs: of the patterns of its (n, m)
+    whose pruned zeros and elided 1.0s the set's shared ones cover (so
+    the kernel skips only terms the plain version skips too), the one
+    that prunes the most. Cached per model set. Raises
+    NotImplementedError for a shape without an instantiation."""
+    key = tuple(models)
+    if key not in _PICKED:
+        _PICKED[key] = _pick(models)
+    return _PICKED[key]
+
+
+def _pick(models) -> ImmPattern:
+    want = imm_pattern(models)
+    n, m = models[0].n, models[0].m
+    best = None
+    for p in instantiated_patterns():
+        if (p.n, p.m) != (n, m) or not all(
+                np.all(p.masks[k] <= want[k]) for k in MASKS):
+            continue
+        if best is None or (sum(int(v.sum()) for v in p.masks.values())
+                            > sum(int(v.sum()) for v in best.masks.values())):
+            best = p
+    if best is None:
+        raise NotImplementedError(f"no IMM bank kernel for (n, m)={(n, m)}")
+    return best
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device):
@@ -355,12 +476,13 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
                             torch.empty_like(mu))
     if N == 0:
         return x_fin, P_fin, mu_fin
-    consts = _consts(imm.models, imm.trans, dev)
+    consts = _host_consts(imm.models, imm.trans)
     lib = build.load("imm_scan.cu")
     code = lib.katana_imm_scan_run(
-        K, n, m, N, T, x.data_ptr(), P.data_ptr(), mu.data_ptr(),
-        zs.data_ptr(), None if valid is None else valid.data_ptr(),
-        consts.data_ptr(), float(np.float32(m * ref.LOG_2PI)),
+        K, n, m, pick_pattern(imm.models).id, N, T, x.data_ptr(),
+        P.data_ptr(), mu.data_ptr(), zs.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        consts.ctypes.data, float(np.float32(m * ref.LOG_2PI)),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), mu_fin.data_ptr(),
         build.stream_of(dev))
     build.check(lib, code, "katana_imm_sequence")
@@ -427,7 +549,7 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
     only, mu <- the Markov-predicted cbar). Returns xs (T, N, n), the
     combined estimates; with ``return_final`` also (x (K, N, n),
     P (K, N, n, n), mu (N, K)). One launch per ``time_chunk`` frames
-    (0: 64), (x, P, mu) carried between them with the same bits as one
+    (0: 4096), (x, P, mu) carried between them with the same bits as one
     launch. K=1 is the single-model scan with mu passed through."""
     x, P, mu, zs, valid = imm_sequence_inputs(imm, zs, x0, P0, mu0, valid)
     T, N, _ = zs.shape
@@ -531,8 +653,9 @@ def katana_bank_imm(imm: IMMModel, x, P, z):
     mdl0 = imm.models[0]
     lib = build.load("imm_step.cu")
     code = lib.katana_imm_step_run(
-        K, n, m, N, x.data_ptr(), P.data_ptr(), z.data_ptr(),
-        consts.data_ptr(), int(not mdl0.is_linear), float(mdl0.dt),
+        K, n, m, pick_pattern(imm.models).id, N, x.data_ptr(),
+        P.data_ptr(), z.data_ptr(), consts.data_ptr(),
+        int(not mdl0.is_linear), float(mdl0.dt),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), ll.data_ptr(), build.stream_of(dev))
     build.check(lib, code, "katana_bank_imm")

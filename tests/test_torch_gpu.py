@@ -39,7 +39,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import tracker as ttr  # noqa: E402
-from repro_torch.core.filters import as_imm, get_filter, make_imm  # noqa: E402
+from repro_torch.core.filters import IMMModel, as_imm, get_filter  # noqa: E402
+from repro_torch.core.filters import make_ca9_lkf, make_ct9_lkf  # noqa: E402
+from repro_torch.core.filters import make_imm  # noqa: E402
 from repro_torch.data.trajectories import SceneConfig, mot_scene  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -54,7 +56,7 @@ from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
 
-from _torch_inputs import random_frame_inputs, replay_inputs  # noqa: E402
+from _torch_inputs import random_frame_inputs, replay_inputs, spd  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -260,23 +262,55 @@ def test_scan_kernel_matches_plain(cuda, kind, N, T):
         _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("N,T", SCAN_SHAPES)
-def test_imm_scan_kernel_matches_plain(cuda, N, T):
+def _other_imm():
+    """An IMM set whose constants differ from make_imm()'s: another dt
+    and other turn rates, and a CV9 whose acceleration rows are not zero,
+    one of them in a slot every make_imm() member has zero (F[6][0]), so
+    the kernels run their dense instantiation."""
+    cv9 = get_filter("cv9", dt=0.05)
+    F = cv9.F.copy()
+    F[6:9, 6:9] = 0.9 * np.eye(3)
+    F[6, 0] = 0.01
     imm = make_imm()
+    return IMMModel(name="imm-other", models=(
+        dataclasses.replace(cv9, F=F), make_ca9_lkf(dt=0.05),
+        make_ct9_lkf(0.4, dt=0.05), make_ct9_lkf(-0.9, dt=0.05)),
+        trans=imm.trans, mu0=imm.mu0)
+
+
+IMM_SETS = {"imm": (make_imm, "imm9"), "other": (_other_imm, "dense9")}
+# (model set, N, T, valid stream, time_chunk: 0 the default, T one launch)
+IMM_SCAN_CASES = [
+    ("imm", 5, 17, True, 0), ("imm", 1024, 300, True, 0),
+    ("imm", 1, 17, False, 0), ("imm", 31, 40, True, 7),
+    ("imm", 33, 40, False, 40), ("imm", 4097, 20, True, 0),
+    ("imm", 4097, 20, False, 20), ("other", 1, 17, True, 0),
+    ("other", 31, 17, False, 17), ("other", 33, 40, True, 7),
+    ("other", 4097, 20, True, 20)]
+
+
+@pytest.mark.parametrize("kind,N,T,valid,chunk", IMM_SCAN_CASES)
+def test_imm_scan_kernel_matches_plain(cuda, kind, N, T, valid, chunk):
+    make, pattern = IMM_SETS[kind]
+    imm = make()
+    assert ops.pick_pattern(imm.models).name == pattern
     rng = np.random.default_rng(N + T + 1)
-    x0, P0, zs, valid = _dev(replay_inputs(rng, imm, N, T, drop=0.1), cuda)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, imm, N, T,
+                                        drop=0.1 if valid else 0.0), cuda)
+    vs = vs if valid else None
     mu0 = torch.as_tensor(rng.dirichlet(np.ones(4), size=N),
                           dtype=torch.float32, device=cuda)
     ops.reset_launches()
-    xs, fin = ops.katana_imm_sequence(imm, zs, x0, P0, mu0, valid,
-                                      return_final=True)
+    xs, fin = ops.katana_imm_sequence(imm, zs, x0, P0, mu0, vs,
+                                      return_final=True, time_chunk=chunk)
     want = ref.katana_bank_imm_scan_plain(
-        imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, valid))
+        imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, vs))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["katana_imm_sequence"] == -(-T // 64)
+    assert ops.LAUNCHES["katana_imm_sequence"] == -(
+        -T // (chunk or ops.IMM_SCAN_TIME_CHUNK))
     assert bool(torch.isfinite(xs).all())
     for a, b in zip((xs,) + fin, want):
-        _close(a, b, 5e-4)
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
 @pytest.mark.parametrize("kind", ["cv9", "ekf"])
@@ -329,27 +363,40 @@ def test_step_kernel_matches_plain_and_scan(cuda, kind, N, T):
     assert torch.equal(x, xf) and torch.equal(P, Pf)
 
 
-@pytest.mark.parametrize("kind", ["imm", "ekf"])
-@pytest.mark.parametrize("N", [5, 1024])
+@pytest.mark.parametrize("kind", ["imm", "other", "ekf"])
+@pytest.mark.parametrize("N", [1, 5, 31, 33, 1024, 4097])
 def test_imm_step_kernel_matches_plain(cuda, kind, N):
-    imm = make_imm() if kind == "imm" else as_imm(get_filter(kind))
+    """Bit for bit, with a P that is symmetric only to rounding (the
+    mixing's output), every lane count of a ragged last block, each
+    instantiation: make_imm()'s pattern, the dense one, the CTRA-8
+    Jacobian's."""
+    if kind == "ekf":
+        imm, pattern = as_imm(get_filter(kind)), "ctra8"
+    else:
+        make, pattern = IMM_SETS[kind]
+        imm = make()
+    assert ops.pick_pattern(imm.models).name == pattern
     rng = np.random.default_rng(N + 7)
-    x0, P0, zs, _ = replay_inputs(rng, imm, N, 1)
-    K = imm.K
+    x0, _, zs, _ = replay_inputs(rng, imm, N, 1)
+    K, n = imm.K, imm.n
     x = torch.as_tensor(np.tile(x0, (K, 1, 1)) + 0.05 * rng.normal(
-        size=(K, N, imm.n)), dtype=torch.float32, device=cuda)
-    P = torch.as_tensor(np.tile(P0, (K, 1, 1, 1)), device=cuda)
+        size=(K, N, n)), dtype=torch.float32, device=cuda)
+    P = spd(rng, (K, N), n) + 1e-6 * rng.normal(size=(K, N, n, n))
+    P = torch.as_tensor(P.astype(np.float32), device=cuda)
     z = torch.as_tensor(zs[0], device=cuda)
+    ops.reset_launches()
     got = ops.katana_bank_imm(imm, x, P, z)
     want = ref.katana_bank_imm_step_plain(imm, x, P, z)
     torch.cuda.synchronize()
+    assert ops.LAUNCHES["katana_bank_imm"] == 1
     for a, b in zip(got, want):
-        _close(a, b, 1e-4)
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
-def test_imm_bank_sequence_tracks_the_imm_scan(cuda):
+@pytest.mark.parametrize("N", [33, 1024])
+def test_imm_bank_sequence_tracks_the_imm_scan(cuda, N):
     imm = make_imm()
-    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(9), imm, 1024,
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(9), imm, N,
                                        300), cuda)
     ops.reset_launches()
     drv = ops.imm_bank_sequence(imm, zs, x0, P0)
