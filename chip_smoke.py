@@ -9,10 +9,11 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      register/spill lines);
   2. each kernel against its plain PyTorch version on the same CUDA
      tensors: the live-frame kernels at the serving size (C=1024 tracks,
-     M=256 measurements; identical assoc, states within 1e-4, IMM 5e-4),
-     the replay scans and bank steps at (N, T) = (5, 17) and at the replay
-     size (N=131,072, T=300; IMM with 10% of the entries invalid and NaN,
-     K=1 on cv9 and ekf);
+     M=256 measurements; identical assoc, states within 1e-4, IMM 5e-4
+     and bit for bit), the replay scans and bank steps at (N, T) =
+     (5, 17) and at the replay size (N=131,072, T=300; IMM with 10% of
+     the entries invalid and NaN, K=1 on cv9 and ekf; ``katana_bank``
+     and ``katana_bank_soa`` bit for bit);
   3. the submit path: ``TrackingEngine(..., device="cuda").submit`` over a
      300-frame dense-sky scene (200 targets, 20 clutter detections per
      frame) for the lkf, ekf and imm workloads, each frame held against
@@ -23,8 +24,11 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      einsum-route times at this shape (CUDA events), each CUDA kernel's
      device time (torch.profiler, every launch's event counted), the
      greedy's device time inside the frame both ways (CUDA events the
-     kernel records around its launches, and torch.profiler) and the
-     least time the frame's data needs (bound_ms);
+     kernel records around its launches, and torch.profiler), the IMM
+     frame's device time a launch (predict, cost tile, greedy, update:
+     CUDA events it records between them, the device queued behind a
+     spin) with the ptxas register and spill lines of its kernels, and
+     the least time the frame's data needs (bound_ms);
   4. the replay path: ``TrackingEngine(..., device="cuda").replay`` over
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
@@ -33,7 +37,10 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      whole stream in one launch) and bound;
   5. the per-frame twins at that size: T ``katana_bank`` calls equal the
      scan's final state bit for bit; ``imm_bank_sequence`` against
-     ``katana_imm_sequence``; the step kernels' times and bounds;
+     ``katana_imm_sequence``; the step kernels' times (``katana_bank``
+     and ``katana_bank_soa`` by CUDA events with the device queued behind
+     a spin), bounds and the share of them reached, and the ptxas
+     register and spill lines of the single-model step's instantiations;
   6. ``replay_imm_bank`` from the live IMM bank of phase 3 resumes a
      stream bit for bit and leaves the bank unchanged;
   7. LM serving: h2o-danube-1.8b at full width, random bf16 weights, B=4
@@ -164,7 +171,7 @@ SOURCES = {
     "greedy_assign": _CSRC + "greedy.cu",
     "katana_bank_sequence": _CSRC + "scan.cu",
     "katana_imm_sequence": _CSRC + "imm_scan.cu",
-    "katana_bank": _CSRC + "scan.cu",
+    "katana_bank": _CSRC + "imm_step.cu",
     "katana_bank_imm": _CSRC + "imm_step.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
@@ -254,6 +261,32 @@ def event_pairs_ms(call, n: int = 50) -> float:
         call(evs)
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
+IMM_FRAME_LAUNCHES = ("predict", "cost", "greedy", "update")
+
+
+def launch_events_ms(call, n: int = 50):
+    """Mean device ms of each of the IMM frame's launches and of the
+    whole frame, over n calls: ``call(events)`` has the device record five
+    CUDA events, before its predict and after the predict, the cost tile,
+    the greedy and the update. The device first spins for ~50 ms, so the
+    calls queue up behind it and the events time the device's own work."""
+    def five():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+    call(five())
+    sets = [five() for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # clock cycles
+    for evs in sets:
+        call(evs)
+    torch.cuda.synchronize()
+    out = {nm: sum(e[i].elapsed_time(e[i + 1]) for e in sets) / n
+           for i, nm in enumerate(IMM_FRAME_LAUNCHES)}
+    out["frame"] = sum(e[0].elapsed_time(e[4]) for e in sets) / n
+    out["events"] = n
+    return out
 
 
 def max_diff(a, b) -> float:
@@ -465,10 +498,12 @@ def phase_kernels_vs_plain():
     assert torch.equal(got[4], want[4]), "imm: assoc differs"
     d = [max_diff(g, w) for g, w in zip(got[:4], want[:4])]
     assert max(d) <= TOL["imm"], d
+    # the kernel runs the plain version's op stream: bit for bit
+    assert all(torch.equal(g, w) for g, w in zip(got[:4], want[:4])), d
     imm_err = max(d)
     print(f"katana_imm_frame K=4 C={C} M={M}: assoc identical "
-          f"({int((got[4] >= 0).sum())} assigned), max|d| x,P,mu,x_c = "
-          + " ".join(f"{v:.3g}" for v in d))
+          f"({int((got[4] >= 0).sum())} assigned), x, P, mu, x_c bitwise "
+          "equal, max|d| = " + " ".join(f"{v:.3g}" for v in d))
     ekf = filters.get_filter("ekf")
     bk = random_bank(rng, 8, 4, C, M, [0, 1, 2, 4], K=1)
     args = (bk["x"], bk["P"], bk["mu"], bk["z"], bk["z_valid"],
@@ -645,6 +680,23 @@ def phase_main_path(kind):
     greedy_ev = event_pairs_ms(lambda evs: (
         ops.katana_imm_frame if is_imm else ops.katana_frame)(
             model, *kargs, greedy_events=evs))
+    launch_ms = launch_regs = None
+    if is_imm:
+        # each launch's device time from events the frame records
+        # between its launches
+        launch_ms = launch_events_ms(lambda evs: ops.katana_imm_frame(
+            model, *kargs, launch_events=evs))
+        inst = ops.pick_pattern(model.models).name
+        print(f"[imm] katana_imm_frame ({inst}) device ms a launch by CUDA "
+              f"events (mean of {launch_ms['events']} frames, device "
+              "queued): " + ", ".join(
+                  f"{k} {launch_ms[k]:.4f}" for k in IMM_FRAME_LAUNCHES)
+              + f"; the frame {launch_ms['frame']:.4f}")
+        entries = (("imm_predict", f"{len(inst)}{inst}"), ("imm_cost",),
+                   ("imm_update", f"{len(inst)}{inst}"))
+        _print_ptxas_of("imm_frame.cu", *entries)
+        launch_regs = {e[0]: ptxas_registers("imm_frame.cu", *e)
+                       for e in entries}
     with mock.patch.object(tracker, "greedy_assign", greedy_spy):
         step(model, cfg_e, bank, zt, vt)  # the gated pairs of these inputs
     gated = int(frame_pairs[-1])
@@ -662,7 +714,8 @@ def phase_main_path(kind):
                greedy_bound_ms=gb, greedy_bound_by=gby,
                gated_pairs_per_frame=pairs_f, waves_per_frame=waves_f,
                float64_lockstep_frames=lockstep_64, route=route,
-               device_ms=prof)
+               device_ms=prof, launch_device_ms=launch_ms,
+               launch_registers=launch_regs)
     print(f"[{kind}] fps={fps:.1f} ms/frame={1e3 / fps:.3f} "
           f"mean confirmed={confirmed / T_SERVE:.1f} | {name}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, einsum frame {einsum_ms:.3f} ms, "
@@ -871,11 +924,20 @@ def phase_replay_kernels_vs_plain():
             want, ms = timed_once(lambda: ref.katana_bank_step_plain(
                 model, x0, P0, zs[0]))
             d2 = check_equal(kind, step, want, TOL[kind])
+            soa = ops.katana_bank_soa(model, x0.T.contiguous(),
+                                      P0.permute(1, 2, 0).contiguous(),
+                                      zs[0].T.contiguous())
+            # the step runs the plain version's op stream (its pattern,
+            # pruned.cuh), the struct-of-arrays route the same lane code
+            assert all(torch.equal(a, b) for a, b in zip(step, want)), kind
+            assert (torch.equal(soa[0].T, step[0])
+                    and torch.equal(soa[1].permute(2, 0, 1), step[1])), kind
             errs["katana_bank"] = max(errs["katana_bank"], d2)
             if big:
                 plain_ms[f"step_{kind}"] = ms
             print(f"katana_bank_sequence {kind} N={N} T={T}: max|d| vs plain "
-                  f"{d:.3g}; katana_bank: {d2:.3g}")
+                  f"{d:.3g}; katana_bank ({ops.pick_pattern((model,)).name}): "
+                  f"{d2:.3g}, bitwise, katana_bank_soa bitwise equal to it")
         zs_np, x0_np, P0_np = replay_stream("imm", N, T)
         valid_np = rng.random((T, N)) >= DROP
         zs_nan = zs_np.copy()
@@ -1064,15 +1126,35 @@ def phase_per_frame(plain_ms):
         launches = ops.LAUNCHES["katana_bank"]
         assert launches == T
         assert torch.equal(x, xf) and torch.equal(P, Pf), kind
-        ms = cuda_ms(lambda: ops.katana_bank(model, x0, P0, zs[0]), 20)
+        # device time: the calls queued behind a spin
+        ms = cuda_ms(lambda: ops.katana_bank(model, x0, P0, zs[0]), 50,
+                     spin=True)
+        xT, PT, zT = (x0.T.contiguous(), P0.permute(1, 2, 0).contiguous(),
+                      zs[0].T.contiguous())
+        soa_ms = cuda_ms(lambda: ops.katana_bank_soa(model, xT, PT, zT), 50,
+                         spin=True)
         work = step_work(model, N)
         bms, by = bound(*work)
+        inst = ops.pick_pattern((model,)).name
         rows[kind] = dict(kernel_ms=ms, plain_ms=plain_ms[f"step_{kind}"],
-                          bound_ms=bms, bound_by=by, launches=launches)
+                          bound_ms=bms, bound_by=by, launches=launches,
+                          bound_share=bms / ms, soa_ms=soa_ms,
+                          soa_bound_share=bms / soa_ms, instantiation=inst,
+                          registers=ptxas_registers(
+                              "imm_step.cu", "imm_step", f"{len(inst)}{inst}",
+                              "Lb0"),
+                          soa_registers=ptxas_registers(
+                              "imm_step.cu", "bank_step_soa",
+                              f"{len(inst)}{inst}"))
         print(f"[per-frame {kind}] {T} katana_bank calls == the scan's final "
-              f"(x, P) bitwise; {ms:.4f} ms a call (plain "
+              f"(x, P) bitwise; instantiation {inst}: {ms:.4f} ms a call by "
+              f"events (device queued), {bms / ms:.1%} of the bound; "
+              f"katana_bank_soa {soa_ms:.4f} ms, {bms / soa_ms:.1%} (plain "
               f"{rows[kind]['plain_ms']:.2f} ms, bound {bms:.5f} ms by {by}: "
               f"{both_bounds(*work)})")
+        _print_ptxas_of("imm_step.cu", ("imm_step", f"{len(inst)}{inst}",
+                                        "Lb0"),
+                        ("bank_step_soa", f"{len(inst)}{inst}"))
     imm = replay_model("imm")
     zs, x0, P0 = dev_(*replay_stream("imm"))
     T, N, _ = zs.shape
@@ -1122,7 +1204,8 @@ def phase_per_frame(plain_ms):
                        outside_ref_tolerance=int(over.sum()),
                        instantiation=inst, bound_share=bms / ms,
                        registers=ptxas_registers("imm_step.cu", "imm_step",
-                                                 f"{len(inst)}{inst}"))
+                                                 f"{len(inst)}{inst}",
+                                                 "Lb1"))
     print(f"[per-frame imm] katana_bank_imm, instantiation {inst} "
           f"({rows['imm']['registers']} registers): {ms:.4f} ms a launch by "
           f"events (device queued); {launches} launches in "
@@ -1308,6 +1391,18 @@ def ptxas_registers(source, *parts):
         elif entry and "registers" in ln and all(p in entry for p in parts):
             return int(ln.split("Used ")[1].split()[0])
     return None
+
+
+def _print_ptxas_of(source, *entries):
+    """The ptxas spill and register lines of each entry of ``source``
+    whose mangled name holds every part of one of ``entries``."""
+    entry = None
+    for ln in build.BUILD_LOG.get(source, {}).get("ptxas", []):
+        if "Compiling entry" in ln:
+            entry = ln
+        elif entry and any(all(p in entry for p in parts)
+                           for parts in entries):
+            print(f"  {source} {entry.split(chr(39))[1]}: {ln}")
 
 
 def _print_ptxas(source):
@@ -1916,7 +2011,11 @@ def main() -> int:
                   for k in ("lkf", "ekf")})),
         entry("katana_imm_frame", imm["kernel_ms"], imm["plain_ms"],
               imm["bound_ms"], imm["bound_by"], imm["launches"],
-              dict(shape=f"imm K=4 C={C_SERVE} M={M_SERVE}")),
+              dict(shape=f"imm K=4 C={C_SERVE} M={M_SERVE}; ms by events "
+                         "at the host's pace, launch_device_ms by events "
+                         "with the device queued",
+                   launch_device_ms=imm["launch_device_ms"],
+                   registers=imm["launch_registers"])),
         entry("greedy_assign", greedy["kernel_ms"], greedy["plain_ms"],
               greedy["bound_ms"], greedy["bound_by"],
               sum(r["greedy_launches"] for r in rows.values()),
@@ -1949,8 +2048,12 @@ def main() -> int:
               per_frame["lkf"]["plain_ms"], per_frame["lkf"]["bound_ms"],
               per_frame["lkf"]["bound_by"],
               per_frame["lkf"]["launches"] + per_frame["ekf"]["launches"],
-              dict(shape=f"lkf N={N_REPLAY}, one frame", by_model={
-                  k: per_frame[k] for k in ("lkf", "ekf")})),
+              dict(shape=f"lkf N={N_REPLAY}, one frame; ms by events with "
+                         "the device queued; soa_ms: katana_bank_soa",
+                   bound_share=per_frame["lkf"]["bound_share"],
+                   soa_ms=per_frame["lkf"]["soa_ms"],
+                   registers=per_frame["lkf"]["registers"], by_model={
+                       k: per_frame[k] for k in ("lkf", "ekf")})),
         entry("katana_bank_imm", per_frame["imm"]["kernel_ms"],
               per_frame["imm"]["plain_ms"], per_frame["imm"]["bound_ms"],
               per_frame["imm"]["bound_by"], per_frame["imm"]["launches"],

@@ -1,6 +1,6 @@
 """The live tracking frame of one checkout, on one NVIDIA GPU.
 
-    python3 scripts/frame_probe.py --root DIR [--out FILE]
+    python3 scripts/frame_probe.py --root DIR [--out FILE] [--kinds imm]
 
 The submit loop of ``chip_smoke.py`` phase 3 run by the port under
 ``DIR/src``, alone (no route checks between frames):
@@ -11,9 +11,12 @@ Per cell: frames per second and ms a frame (host clock around each
 submit, the engine's own stats), and the fused frame kernel's device
 time per call on the last frame's inputs (CUDA events around 50 calls
 queued behind ~50 ms of device spin, so the events time the device,
-not the host's pace). Run it on two checkouts in one session (A, B, A,
-B) to compare them on one card: the host's speed moves between
-machines.
+not the host's pace); for the IMM frame of a checkout whose
+``katana_imm_frame`` takes ``launch_events``, also each launch's device
+time (predict, cost tile, greedy, update) from events the frame records
+between them. Run it on two checkouts one after the other (A, B,
+A, B) on one machine to compare them on one card: the host's speed
+moves between machines.
 
 The last line is one JSON object with the card's name and power limit;
 ``--out`` gets it too.
@@ -21,6 +24,7 @@ The last line is one JSON object with the card's name and power limit;
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -34,10 +38,33 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def launch_ms(call, torch, n: int = 50):
+    """Mean device ms of each of the IMM frame's launches: ``call(events)``
+    has the device record five events around them (predict, cost, greedy,
+    update), n calls queued behind ~50 ms of device spin."""
+    def five():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+    call(five())
+    sets = [five() for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # clock cycles
+    for evs in sets:
+        call(evs)
+    torch.cuda.synchronize()
+    names = ("predict", "cost", "greedy", "update")
+    out = {nm: sum(e[i].elapsed_time(e[i + 1]) for e in sets) / n
+           for i, nm in enumerate(names)}
+    out["frame"] = sum(e[0].elapsed_time(e[4]) for e in sets) / n
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--out")
+    ap.add_argument("--kinds", default="lkf,ekf,imm",
+                    help="the cells to run, comma-separated")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -53,7 +80,7 @@ def main() -> int:
 
     C, M, T = 1024, 256, 300
     cells = {}
-    for kind in ("lkf", "ekf", "imm"):
+    for kind in args.kinds.split(","):
         is_imm = kind == "imm"
         model = filters.make_imm() if is_imm else filters.get_filter(kind)
         smodel = filters.get_filter("cv9") if is_imm else model
@@ -98,6 +125,15 @@ def main() -> int:
         print(f"[{kind}] {T} frames: {fps:.1f} FPS, {1e3 / fps:.3f} ms a "
               f"frame; the frame kernel {kernel_ms:.4f} device ms a call",
               flush=True)
+        if is_imm and "launch_events" in inspect.signature(
+                ops.katana_imm_frame).parameters:
+            parts = launch_ms(lambda evs: ops.katana_imm_frame(
+                model, bank.x, bank.P, bank.mu, zt, vt, bank.active, gate,
+                rounds, launch_events=evs), torch)
+            cells[kind]["launch_device_ms"] = parts
+            print(f"[{kind}] device ms a launch (events, 50 calls): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()),
+                  flush=True)
     result = dict(root=str(root), card=smi_line(), cells=cells)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -51,9 +51,9 @@ SIGNATURES = {
                              _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "imm_frame.cu": {
-        "katana_imm_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                 _P, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P],
+        "katana_imm_frame_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _F, _I, _F, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P],
     },
     "greedy.cu": {
         "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P, _P, _P,
@@ -62,8 +62,6 @@ SIGNATURES = {
     "scan.cu": {
         "katana_bank_scan_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
                                  _P, _P, _P, _P],
-        "katana_bank_step_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
-                                 _P, _P],
     },
     "imm_scan.cu": {
         "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -72,6 +70,8 @@ SIGNATURES = {
     "imm_step.cu": {
         "katana_imm_step_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F,
                                 _F, _P, _P, _P, _P],
+        "katana_bank_soa_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
+                                _P, _P],
     },
     "flash_attention.cu": {
         "flash_attention_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -1,8 +1,9 @@
 // IMM algebra of one track, shared by the live IMM frame (imm_frame.cu),
 // the IMM replay scan (imm_scan.cu) and the per-frame IMM bank step
-// (imm_step.cu): the Markov prediction of the mode probabilities, the
-// mixing of the K model-conditioned states for one target model, the
-// per-model measurement log-likelihood and the mode posterior.
+// (imm_step.cu): the Markov prediction of the mode probabilities and the
+// mixing weights, the mixing of the K model-conditioned states for one
+// target model, the per-model measurement log-likelihood and the mode
+// posterior.
 //
 // Device-side translation of the reference emit
 // (repro/kernels/katana_bank/kernel.py: _emit_imm_mix,
@@ -22,54 +23,55 @@
 
 namespace katana {
 
-// cbar_j = sum_i Pi_ij mu_i, in index order.
-template <int K>
-__device__ __forceinline__ void markov_predict(const float* __restrict__ Pi,
-                                               const float (&mu)[K],
-                                               float (&cbar)[K]) {
+// cbar_k = sum_i Pi_ik mu_i (in index order) for every model k, and the
+// mixing weights of target model j, w_i = (Pi_ij mu_i) / max(cbar_j,
+// FLT_MIN). Pi(i, k) reads the Markov matrix. Returns cbar_j.
+template <int K, class PI>
+__device__ __forceinline__ float mix_weights(const PI& Pi,
+                                             const float (&mu)[K], int j,
+                                             float (&cbar)[K],
+                                             float (&w)[K]) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    float acc = __ldg(Pi + j) * mu[0];
+  for (int k = 0; k < K; ++k) {
+    float acc = Pi(0, k) * mu[0];
 #pragma unroll
-    for (int i = 1; i < K; ++i) acc = acc + __ldg(Pi + i * K + j) * mu[i];
-    cbar[j] = acc;
+    for (int i = 1; i < K; ++i) acc = acc + Pi(i, k) * mu[i];
+    cbar[k] = acc;
   }
+  float cbar_j = cbar[0];  // cbar[j] without a runtime register index
+#pragma unroll
+  for (int k = 1; k < K; ++k) cbar_j = k == j ? cbar[k] : cbar_j;
+  const float rden = 1.0f / fmaxf(cbar_j, FLT_MIN);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = (Pi(i, j) * mu[i]) * rden;
+  return cbar_j;
 }
 
-// The mixed state of target model j (cbar_j its predicted mode
-// probability). x0v is model 0's mean, xt[d][i] =
-// x_i[d] - x0v[d] (xt[d][0] = 0), Pat(i, r, q) reads P_i[r][q] for r <= q.
-template <int N, int K, class PAt>
-__device__ __forceinline__ void imm_mix_model(const float* __restrict__ Pi,
-                                              const float (&mu)[K],
-                                              float cbar_j, int j,
-                                              const float (&x0v)[N],
-                                              const float (&xt)[N][K],
-                                              PAt Pat, float (&xm)[N],
-                                              float (&Pm)[N][N]) {
-  const float rden = 1.0f / fmaxf(cbar_j, FLT_MIN);
-  float w[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) w[i] = (__ldg(Pi + i * K + j) * mu[i]) * rden;
+// The mixed state of a target model from its weights w, the terms of
+// xt_0 = 0 pruned as ref._imm_mix prunes them: mt = sum_{i>=1} w_i xt_i,
+// x_mix = mt + x_0, P_mix = sum_i w_i A_i - mt mt^T. xt(i, d) reads
+// xt_i[d] (i >= 1), A(i, r, q) reads A_i[r][q] (r <= q), x0(d) model 0's
+// mean.
+template <int N, int K, class XT, class AT, class X0>
+__device__ __forceinline__ void mix_target(const float (&w)[K], const XT& xt,
+                                           const AT& A, const X0& x0,
+                                           float (&xm)[N], float (&Pm)[N][N]) {
   float mt[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) {
-    float acc = w[0] * xt[d][0];
+    float acc = w[1] * xt(1, d);
 #pragma unroll
-    for (int i = 1; i < K; ++i) acc = acc + w[i] * xt[d][i];
+    for (int i = 2; i < K; ++i) acc = acc + w[i] * xt(i, d);
     mt[d] = acc;
-    xm[d] = mt[d] + x0v[d];
+    xm[d] = acc + x0(d);
   }
 #pragma unroll
   for (int r = 0; r < N; ++r)
 #pragma unroll
     for (int q = r; q < N; ++q) {
-      float acc = w[0] * Pat(0, r, q);
+      float acc = w[0] * A(0, r, q);
 #pragma unroll
-      for (int i = 1; i < K; ++i) {
-        const float A = Pat(i, r, q) + xt[r][i] * xt[q][i];
-        acc = acc + w[i] * A;
-      }
+      for (int i = 1; i < K; ++i) acc = acc + w[i] * A(i, r, q);
       acc = acc - mt[r] * mt[q];
       Pm[r][q] = acc;
       Pm[q][r] = acc;

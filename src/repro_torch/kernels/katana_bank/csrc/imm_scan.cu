@@ -183,44 +183,15 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
       for (int q = r; q < N; ++q) own[N + tri<N>(r, q)] = Ps_own[r][q];
     __syncthreads();
 
-    // 2. the mixed state of target model j (imm.cuh's order, the terms of
-    // xt_0 = 0 pruned as ref._imm_mix prunes them)
-    float cbar[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float acc = tab.Pi[k] * mu_i[0];
-#pragma unroll
-      for (int i = 1; i < K; ++i) acc = acc + tab.Pi[i * K + k] * mu_i[i];
-      cbar[k] = acc;
-    }
-    float cbar_j = cbar[0];  // cbar[j] without a runtime register index
-#pragma unroll
-    for (int k = 1; k < K; ++k) cbar_j = k == j ? cbar[k] : cbar_j;
-    const float rden = 1.0f / fmaxf(cbar_j, FLT_MIN);
-    float w[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) w[i] = (tab.Pi[i * K + j] * mu_i[i]) * rden;
-    float xm[N], mt[N], Pm[N][N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      float acc = w[1] * sm.xt[0][cl][d];
-#pragma unroll
-      for (int i = 2; i < K; ++i) acc = acc + w[i] * sm.xt[i - 1][cl][d];
-      mt[d] = acc;
-      xm[d] = acc + x0s[d];
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-#pragma unroll
-      for (int q = r; q < N; ++q) {
-        const int e = N + tri<N>(r, q);
-        float acc = w[0] * sm.slab[0][cl][e];
-#pragma unroll
-        for (int i = 1; i < K; ++i) acc = acc + w[i] * sm.slab[i][cl][e];
-        acc = acc - mt[r] * mt[q];
-        Pm[r][q] = acc;
-        Pm[q][r] = acc;
-      }
+    // 2. the mixed state of target model j from the K slabs of its track
+    // (imm.cuh)
+    float cbar[K], w[K], xm[N], Pm[N][N];
+    mix_weights<K>([&](int i, int k) { return tab.Pi[i * K + k]; }, mu_i, j,
+                   cbar, w);
+    mix_target<N, K>(
+        w, [&](int i, int d) { return sm.xt[i - 1][cl][d]; },
+        [&](int i, int r, int q) { return sm.slab[i][cl][N + tri<N>(r, q)]; },
+        [&](int d) { return x0s[d]; }, xm, Pm);
     __syncthreads();  // every slab read before any is overwritten
 
     // 3. predict and update model j

@@ -1,30 +1,39 @@
-// katana_bank_imm: one multi-model bank step on Hopper.
+// katana_bank_imm / katana_bank / katana_bank_soa: one bank step on Hopper.
 //
 // Replaces repro/kernels/katana_bank/kernel.py:katana_bank_imm_step (body
-// make_imm_kernel / make_imm_step_fn): each of the K*N (model, track)
-// lanes, model-major, takes one predict+update of its model with its
-// track's measurement and emits the measurement log-likelihood from the
-// same S^-1. The per-frame IMM driver (ops.imm_bank_sequence) runs it
-// once per frame between the mixing and the mode posterior.
+// make_imm_kernel / make_imm_step_fn) and kernel.py:katana_bank_step (body
+// make_kernel). Each of the K*N (model, track) lanes, model-major, takes
+// one predict+update of its model with its track's measurement; the IMM
+// step also emits the measurement log-likelihood from the same S^-1. The
+// per-frame IMM loop (ops.imm_bank_sequence) runs it once per frame
+// between the mixing and the mode posterior; katana_bank and
+// katana_bank_soa are the same step with K = 1 and no log-likelihood.
 //
 // What bounds it: (n + n^2)*4 bytes per lane in and again out, against
-// ~1 k float32 operations per lane: the bytes, at any N (K=4, n=9,
-// N=131,072: 377 MB, 0.114 ms at 3.35 TB/s).
+// ~0.3-1 k float32 operations per lane: the bytes, at any N (K=4, n=9,
+// N=131,072: 377 MB, 0.114 ms at 3.35 TB/s; K=1 CV6: 45.6 MB, 0.0136 ms).
 //
-// Design: one thread per lane, kLanes lanes a block. The block's lanes of
-// x and P are one contiguous span of device memory (41 KB of P at n=9):
-// the block stages both spans into shared memory with coalesced 16-byte
-// cp.async, each thread computes its lane from there, writes x' and P'
-// over its own slots, and the block stores both spans back with 16-byte
-// stores. A lane's slots sit at an odd stride in shared memory (n^2 = 81
-// is odd; an even n^2 or n is padded by one, staged 4 bytes at a time),
-// so a warp's reads of one entry fall in 32 different banks. Lane l's
-// model is l / N: F, Q, R are that model's rows of the float32 constant
-// table (ops._consts), read where they are used. The predict follows the
-// compile-time Pattern of the model set (pruned.cuh): the plain version's
-// op stream, F's shared zeros skipped. K = 1 also serves a nonlinear
-// member (the CTRA-8 EKF): its Jacobian is built at the lane's state and
-// pruned by the same Pattern. Layouts are canonical: x (K, N, n),
+// Design: one thread per lane, kLanes lanes a block. In the canonical
+// layout the block's lanes of x and P are one contiguous span of device
+// memory (41 KB of P at n=9, 18 KB at n=6): the block stages both spans
+// into shared memory with coalesced copies, each thread computes its lane
+// from there, writes x' and P' over its own slots, and the block stores
+// both spans back. A lane's slots sit at an odd stride in shared memory,
+// so a warp's reads of one entry fall in 32 different banks: an odd width
+// (n = 9, n^2 = 81) is copied flat with 16-byte cp.async and float4
+// stores; an even one (x of 6 or 8, P of 36 or 64) is padded by one and
+// copied with 4-byte cp.async and 4-byte stores (on an H100, 16-byte
+// cp.async into rows padded to an odd count of float4 took the same time,
+// synchronous 4-byte copies 1.15-1.3 times as long). The struct-of-arrays
+// layout (katana_bank_soa: x (n, N), P (n, n, N), z (m, N)) is coalesced
+// as it lies: a thread reads and writes its lane in place, no staging.
+// Lane l's model is l / N: F, Q, R are that model's rows of the float32
+// constant table (ops._consts), read where they are used. The predict
+// follows the compile-time Pattern of the model set (pruned.cuh): the
+// plain version's op stream, F's shared zeros skipped (cv6 for the CV6
+// LKF, ctra8 for the CTRA-8 EKF, imm9 for make_imm()). K = 1 also serves
+// a nonlinear member (the CTRA-8 EKF): its Jacobian is built at the lane's
+// state and pruned by the same Pattern. Layouts are canonical: x (K, N, n),
 // P (K, N, n, n), z (N, m), loglik (K, N). P is read whole (the mixed P
 // need not be symmetric to the bit); P' is the upper triangle, mirrored.
 //
@@ -37,14 +46,22 @@ namespace katana {
 
 constexpr int kLanes = 128;
 
-// Lanes' rows of width W through shared memory at the odd stride W | 1.
+// Lanes' rows of width W, contiguous in device memory, into shared memory
+// at the odd stride W | 1 (and back out).
 template <int W>
 __device__ __forceinline__ void lanes_in(float* s, const float* g, int nl,
                                          int tid) {
   if constexpr (W % 2 == 1) {
     stage_in(s, g, nl * W, tid, kLanes);
   } else {
-    for (int e = tid; e < nl * W; e += kLanes) s[(e / W) * (W | 1) + e % W] = g[e];
+    for (int e = tid; e < nl * W; e += kLanes) {
+      const uint32_t dst = static_cast<uint32_t>(
+          __cvta_generic_to_shared(s + (e / W) * (W | 1) + e % W));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                   "l"(g + e)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
   }
 }
 
@@ -58,7 +75,53 @@ __device__ __forceinline__ void lanes_out(float* g, const float* s, int nl,
   }
 }
 
-template <class Pat>
+// One predict+update of a lane of the model whose constants start at Fc
+// (F, Q, R): state xv, P through Pa(r, q), measurement zv. Writes x' and
+// P' (upper triangle, mirrored), and S, S^-1 and the innovation y that
+// the log-likelihood takes.
+template <class Pat, class PA>
+__device__ __forceinline__ void step_lane(
+    const float* __restrict__ Fc, bool nonlinear, float dt,
+    const float (&xv)[Pat::N], const PA& Pa, const float (&zv)[Pat::M],
+    float (&xn)[Pat::N], float (&Pn)[Pat::N][Pat::N],
+    float (&S)[Pat::M][Pat::M], float (&Si)[Pat::M][Pat::M],
+    float (&y)[Pat::M]) {
+  constexpr int N = Pat::N, M = Pat::M, NN = N * N;
+  const float* Qc = Fc + NN;
+  const float* Rc = Qc + NN;
+  auto Qv = [&](int i, int j) { return __ldg(Qc + i * N + j); };
+  auto Rv = [&](int r, int q) { return __ldg(Rc + r * M + q); };
+  float xp[N], Pp[N][N];
+  bool linear = true;
+  if constexpr (N == 8) {
+    if (nonlinear) {
+      linear = false;
+      const float px = xv[0], py = xv[1], pz = xv[2], v = xv[3], th = xv[4],
+                  om = xv[5], a = xv[6], vz = xv[7];
+      const CtraJacobian J{cosf(th), sinf(th), v, dt};
+      xp[0] = px + (v * J.c) * dt;
+      xp[1] = py + (v * J.s) * dt;
+      xp[2] = pz + vz * dt;
+      xp[3] = v + a * dt;
+      xp[4] = th + om * dt;
+      xp[5] = om;
+      xp[6] = a;
+      xp[7] = vz;
+      predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
+    }
+  }
+  if (linear) {
+    auto Fv = [&](int i, int j) { return __ldg(Fc + i * N + j); };
+    predict_mean<Pat>(Fv, xv, xp);
+    predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
+  }
+  innovation_pruned<Pat>(Pp, Rv, S, Si);
+  kalman_update<N, M>(xp, Pp, Si, zv, y, xn, Pn);
+}
+
+// Canonical layout, staged through shared memory; LL: write the
+// log-likelihood (the IMM step) or not (katana_bank).
+template <class Pat, bool LL>
 __global__ void __launch_bounds__(kLanes)
 imm_step(int Ntr, int K, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ z,
@@ -81,46 +144,17 @@ imm_step(int Ntr, int K, const float* __restrict__ x,
     const int l = l0 + tid;
     const int k = l / Ntr;
     const int c = l - k * Ntr;
-    const float* Fc = consts + k * model_stride<N, M>();
-    const float* Qc = Fc + NN;
-    const float* Rc = Qc + NN;
     float* xl = sx + tid * SX;
     float* Pl = sP + tid * SP;
-    auto Qv = [&](int i, int j) { return __ldg(Qc + i * N + j); };
-    auto Rv = [&](int r, int q) { return __ldg(Rc + r * M + q); };
     auto Pa = [&](int r, int q) { return Pl[r * N + q]; };
-    float xv[N], zv[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N],
-        Pn[N][N];
+    float xv[N], zv[M], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) xv[i] = xl[i];
 #pragma unroll
     for (int r = 0; r < M; ++r) zv[r] = z[(size_t)c * M + r];
-    bool linear = true;
-    if constexpr (N == 8) {
-      if (nonlinear) {
-        linear = false;
-        const float px = xv[0], py = xv[1], pz = xv[2], v = xv[3],
-                    th = xv[4], om = xv[5], a = xv[6], vz = xv[7];
-        const CtraJacobian J{cosf(th), sinf(th), v, dt};
-        xp[0] = px + (v * J.c) * dt;
-        xp[1] = py + (v * J.s) * dt;
-        xp[2] = pz + vz * dt;
-        xp[3] = v + a * dt;
-        xp[4] = th + om * dt;
-        xp[5] = om;
-        xp[6] = a;
-        xp[7] = vz;
-        predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
-      }
-    }
-    if (linear) {
-      auto Fv = [&](int i, int j) { return __ldg(Fc + i * N + j); };
-      predict_mean<Pat>(Fv, xv, xp);
-      predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
-    }
-    innovation_pruned<Pat>(Pp, Rv, S, Si);
-    kalman_update<N, M>(xp, Pp, Si, zv, y, xn, Pn);
-    ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
+    step_lane<Pat>(consts + k * model_stride<N, M>(), nonlinear != 0, dt, xv,
+                   Pa, zv, xn, Pn, S, Si, y);
+    if constexpr (LL) ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
 #pragma unroll
     for (int i = 0; i < N; ++i) xl[i] = xn[i];
 #pragma unroll
@@ -133,15 +167,58 @@ imm_step(int Ntr, int K, const float* __restrict__ x,
   lanes_out<NN>(P_out + (size_t)l0 * NN, sP, nl, tid);
 }
 
+// Struct-of-arrays layout, one model: element e of lane c at e * Ntr + c.
+template <class Pat>
+__global__ void __launch_bounds__(kLanes)
+bank_step_soa(int Ntr, const float* __restrict__ x,
+              const float* __restrict__ P, const float* __restrict__ z,
+              const float* __restrict__ consts, int nonlinear, float dt,
+              float* __restrict__ x_out, float* __restrict__ P_out) {
+  constexpr int N = Pat::N, M = Pat::M;
+  const int c = blockIdx.x * kLanes + threadIdx.x;
+  if (c >= Ntr) return;
+  auto at = [&](int e) { return (size_t)e * Ntr + c; };
+  auto Pa = [&](int r, int q) { return P[at(r * N + q)]; };
+  float xv[N], zv[M], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) xv[i] = x[at(i)];
+#pragma unroll
+  for (int r = 0; r < M; ++r) zv[r] = z[at(r)];
+  step_lane<Pat>(consts, nonlinear != 0, dt, xv, Pa, zv, xn, Pn, S, Si, y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x_out[at(i)] = xn[i];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) P_out[at(i * N + j)] = Pn[i][j];
+}
+
 template <class Pat>
 int launch_step(int K, int Ntr, const void* x, const void* P, const void* z,
                 const void* consts, int nonlinear, float dt, float log2pi_m,
                 void* x_out, void* P_out, void* ll, cudaStream_t s) {
   const int blocks = (K * Ntr + kLanes - 1) / kLanes;
-  imm_step<Pat><<<blocks, kLanes, 0, s>>>(
-      Ntr, K, (const float*)x, (const float*)P, (const float*)z,
-      (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
-      (float*)P_out, (float*)ll);
+  if (ll != nullptr) {
+    imm_step<Pat, true><<<blocks, kLanes, 0, s>>>(
+        Ntr, K, (const float*)x, (const float*)P, (const float*)z,
+        (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
+        (float*)P_out, (float*)ll);
+  } else {
+    imm_step<Pat, false><<<blocks, kLanes, 0, s>>>(
+        Ntr, K, (const float*)x, (const float*)P, (const float*)z,
+        (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
+        (float*)P_out, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class Pat>
+int launch_soa(int Ntr, const void* x, const void* P, const void* z,
+               const void* consts, int nonlinear, float dt, void* x_out,
+               void* P_out, cudaStream_t s) {
+  bank_step_soa<Pat><<<(Ntr + kLanes - 1) / kLanes, kLanes, 0, s>>>(
+      Ntr, (const float*)x, (const float*)P, (const float*)z,
+      (const float*)consts, nonlinear, dt, (float*)x_out, (float*)P_out);
   return (int)cudaGetLastError();
 }
 
@@ -149,9 +226,11 @@ int launch_step(int K, int Ntr, const void* x, const void* P, const void* z,
 
 extern "C" {
 
-// One frame for K models x Ntr tracks. `pattern` is the id of an
-// instantiated Pattern of shape (n, m) (pruned.cuh, KATANA_IMM_PATTERNS);
-// any other combination returns cudaErrorInvalidValue without launching.
+// One frame for K models x Ntr tracks, canonical layout. `pattern` is the
+// id of an instantiated Pattern of shape (n, m) (pruned.cuh,
+// KATANA_IMM_PATTERNS); any other combination returns
+// cudaErrorInvalidValue without launching. ll null: no log-likelihood
+// (katana_bank, K = 1).
 int katana_imm_step_run(int K, int n, int m, int pattern, int Ntr,
                         const void* x, const void* P, const void* z,
                         const void* consts, int nonlinear, float dt,
@@ -165,6 +244,23 @@ int katana_imm_step_run(int K, int n, int m, int pattern, int Ntr,
                              log2pi_m, x_out, P_out, ll, s);
   KATANA_IMM_PATTERNS(KATANA_IMM_STEP_CASE)
 #undef KATANA_IMM_STEP_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// One frame for Ntr tracks of one model, struct-of-arrays layout: x (n, N),
+// P (n, n, N), z (m, N). Same patterns as katana_imm_step_run.
+int katana_bank_soa_run(int n, int m, int pattern, int Ntr, const void* x,
+                        const void* P, const void* z, const void* consts,
+                        int nonlinear, float dt, void* x_out, void* P_out,
+                        void* stream) {
+  using namespace katana;
+  auto s = static_cast<cudaStream_t>(stream);
+#define KATANA_SOA_CASE(id, name, n_, m_, ...)                               \
+  if (pattern == id && n == n_ && m == m_)                                  \
+    return launch_soa<name>(Ntr, x, P, z, consts, nonlinear, dt, x_out,     \
+                            P_out, s);
+  KATANA_IMM_PATTERNS(KATANA_SOA_CASE)
+#undef KATANA_SOA_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // The plain version's pruned op stream for a model set whose constant
-// pattern is known at compile time, shared by the IMM bank step
-// (imm_step.cu) and the IMM replay scan (imm_scan.cu).
+// pattern is known at compile time, shared by the bank steps (imm_step.cu:
+// the IMM step and the single-model katana_bank), the IMM replay scan
+// (imm_scan.cu) and the IMM live frame (imm_frame.cu).
 //
 // ref.py folds the model constants on the host (ref.plan_imm_tables): an
 // entry of F, Q or R that every member model agrees on stays a Python
@@ -8,9 +9,9 @@
 // it is 1.0 (ref._dot, ref._predict_cov, ref._innovation). A kernel that
 // skips exactly the entries its Pattern names issues that op stream
 // itself, so it rounds as the plain version does, signed zeros included,
-// and multiplies none of F's zeros. kalman.cuh's dense loops (the frames
-// and scan.cu) add the pruned terms instead, which is exact only where
-// they are not a signed zero.
+// and multiplies none of F's zeros. kalman.cuh's dense loops (frame.cu,
+// scan.cu's bank_scan) add the pruned terms instead, which is exact only
+// where they are not a signed zero.
 //
 // KATANA_IMM_PATTERNS lists the instantiated patterns; ops.py reads this
 // list from this file and gives each launch the id of the pattern whose
@@ -63,6 +64,8 @@ struct Pattern {
 // high), R zeros. imm9 is make_imm() (CV9 + CA9 + CT9(+-w)): 22 of F's 81
 // entries kept, 27 of Q's, R's diagonal. ctra8 is the CTRA-8 Jacobian
 // (ref._predict_single: the identity and seven slots) with a diagonal Q.
+// cv6 is the CV6 LKF: the identity and dt at (0,3), (1,4), (2,5), Q's
+// diagonal and its (i, i+3) pairs, R's diagonal.
 #define KATANA_IMM_PATTERNS(X)                                               \
   X(0, dense6, 6, 3, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
   X(1, dense8, 8, 4, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
@@ -70,7 +73,9 @@ struct Pattern {
     0x0ull, 0x7fbfdfeff7fbfdfeull, 0x0ull, 0x7bdeu)                          \
   X(3, dense9, 9, 3, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0ull, 0x0u)   \
   X(4, imm9, 9, 3, 0xefdbf67d3b6ecba6ull, 0xffbfull, 0x4000000100401ull,     \
-    0x0ull, 0xed9b76ddb36edbb6ull, 0xdbb6ull, 0xeeu)
+    0x0ull, 0xed9b76ddb36edbb6ull, 0xdbb6ull, 0xeeu)                         \
+  X(5, cv6, 6, 3, 0x7efddbb76ull, 0x0ull, 0x810204081ull, 0x0ull,           \
+    0x6edd9bb76ull, 0x0ull, 0xeeu)
 
 #define KATANA_DECLARE_PATTERN(id, name, n, m, ...)                          \
   struct name : Pattern<n, m, __VA_ARGS__> {};                              \

@@ -4,7 +4,9 @@
         Mahalanobis cost, greedy assignment, update (csrc/frame.cu).
   ``katana_imm_frame``      the IMM live frame: + mixing, per-model
         log-likelihoods, mode posterior and combined estimate
-        (csrc/imm_frame.cu; K=1 runs frame.cu with mu passed through).
+        (csrc/imm_frame.cu: a thread per (model, track) for the predict
+        and the update, a 2-D grid for the cost tile; K=1 runs frame.cu
+        with mu passed through).
   ``katana_greedy_assign``  the frames' greedy assignment on its own
         (csrc/greedy.cu), the test surface against
         ``tracker.greedy_assign``.
@@ -15,7 +17,10 @@
         mode posterior and combined estimate inside the time loop, with
         an optional validity mask (csrc/imm_scan.cu; K=1 runs scan.cu).
   ``katana_bank`` / ``katana_bank_soa``  one predict+update per track,
-        canonical or struct-of-arrays layout (csrc/scan.cu's step).
+        canonical or struct-of-arrays layout: csrc/imm_step.cu's step at
+        K = 1 without the log-likelihood, on the model's own pattern (the
+        canonical lanes staged through shared memory, the SoA ones read
+        in place).
   ``katana_bank_imm``       one predict+update + loglik per (model,
         track) lane (csrc/imm_step.cu).
   ``imm_bank_sequence``     the per-frame IMM driver: ``rewrites.imm_mix``
@@ -31,15 +36,17 @@ each wrapper (the frames also count their greedy launch under
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
 
-The two IMM bank kernels (imm_step.cu, imm_scan.cu) are instantiated
-for compile-time constant patterns (csrc/pruned.cuh): which entries of
-F, Q and R every member model shares as 0 (pruned) or 1.0 (elided).
+The bank steps (imm_step.cu), the IMM scan (imm_scan.cu) and the IMM
+frame (imm_frame.cu) are instantiated for compile-time constant patterns
+(csrc/pruned.cuh): which entries of F, Q and R every member model (or the
+one model) shares as 0 (pruned) or 1.0 (elided).
 ``pick_pattern`` gives each launch the instantiation that prunes the
 most among those the model set's shared constants cover; the dense one
 covers every set.
 """
 from __future__ import annotations
 
+import ctypes
 import re
 from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
@@ -253,14 +260,14 @@ def _greedy_scratch(C: int, M: int, device) -> torch.Tensor:
 
 
 def _event_handles(events):
-    """(start, end) ``torch.cuda.Event`` handles for the kernel to record
-    around the greedy's launches, or (None, None)."""
+    """The handles of ``torch.cuda.Event``s for the kernel to record (a
+    (start, end) pair around the greedy's launches, say), or (None, None)."""
     if events is None:
         return None, None
     for ev in events:
         if not ev.cuda_event:
             ev.record()  # the event is created at its first record
-    return events[0].cuda_event, events[1].cuda_event
+    return tuple(ev.cuda_event for ev in events)
 
 
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
@@ -318,13 +325,16 @@ def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
 
 def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
                      gate: float, rounds: int, return_waves: bool = False,
-                     greedy_events=None):
+                     greedy_events=None, launch_events=None):
     """The fused live IMM frame. x (K, C, n); P (K, C, n, n); mu (C, K);
     z (M, m); z_valid (M,) bool; active (C,) bool. Returns
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
     coasting slots keep x̂/P̂ and take mu <- cbar. K=1 is the
     single-model frame with mu passed through. ``greedy_events`` as in
-    ``katana_frame``."""
+    ``katana_frame``. ``launch_events`` (K > 1, CUDA tensors only): five
+    ``torch.cuda.Event(enable_timing=True)`` that the kernel records
+    before its predict, after it, after the cost tile, after the greedy
+    and after the update, for each launch's device time."""
     if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
@@ -361,17 +371,25 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     xc = torch.empty((C, n), dtype=f32, device=dev)
     assoc = torch.empty((C,), dtype=torch.int32, device=dev)
     cost = torch.empty((M, C), dtype=f32, device=dev)
+    # S^-1, z_pred and cbar of every (model, track), from the predict to
+    # the cost tile and the update
+    inno = torch.empty((m * m + m + 1, K, C), dtype=f32, device=dev)
     scratch = _greedy_scratch(C, M, dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
+    events = ([None] * 5 if launch_events is None
+              else list(_event_handles(launch_events)))
+    if greedy_events is not None:
+        events[2:4] = _event_handles(greedy_events)
     lib = build.load("imm_frame.cu")
     code = lib.katana_imm_frame_run(
-        K, n, m, C, M, x.data_ptr(), P.data_ptr(), mu.data_ptr(),
-        z.data_ptr(), z_valid.data_ptr(), active.data_ptr(),
-        consts.data_ptr(), float(gate), int(rounds),
+        K, n, m, pick_pattern(imm.models).id, C, M, x.data_ptr(),
+        P.data_ptr(), mu.data_ptr(), z.data_ptr(), z_valid.data_ptr(),
+        active.data_ptr(), consts.data_ptr(), float(gate), int(rounds),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), scratch.data_ptr(), waves.data_ptr(),
-        build.stream_of(dev), *_event_handles(greedy_events))
+        cost.data_ptr(), inno.data_ptr(), scratch.data_ptr(),
+        waves.data_ptr(), build.stream_of(dev),
+        (ctypes.c_void_p * 5)(*events))
     build.check(lib, code, "katana_imm_frame")
     LAUNCHES["katana_imm_frame"] += 1
     LAUNCHES["greedy_assign"] += 1
@@ -595,11 +613,18 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool):
     if N == 0:
         return x_out, P_out
     consts = _consts((model,), np.ones((1, 1)), dev)
-    lib = build.load("scan.cu")
-    code = lib.katana_bank_step_run(
-        n, m, N, int(soa), x.data_ptr(), P.data_ptr(), z.data_ptr(),
-        consts.data_ptr(), int(not model.is_linear), float(model.dt),
-        x_out.data_ptr(), P_out.data_ptr(), build.stream_of(dev))
+    pattern = pick_pattern((model,)).id
+    lib = build.load("imm_step.cu")
+    common = (x.data_ptr(), P.data_ptr(), z.data_ptr(), consts.data_ptr(),
+              int(not model.is_linear), float(model.dt))
+    if soa:
+        code = lib.katana_bank_soa_run(n, m, pattern, N, *common,
+                                       x_out.data_ptr(), P_out.data_ptr(),
+                                       build.stream_of(dev))
+    else:
+        code = lib.katana_imm_step_run(1, n, m, pattern, N, *common, 0.0,
+                                       x_out.data_ptr(), P_out.data_ptr(),
+                                       None, build.stream_of(dev))
     build.check(lib, code, "katana_bank_soa" if soa else "katana_bank")
     return x_out, P_out
 

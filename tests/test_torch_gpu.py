@@ -1,11 +1,14 @@
 """The CUDA kernels against their plain PyTorch versions on the card, on
 the same CUDA tensors: identical assoc (and greedy wave count, also on
 tiles with C > 1024, M = 0, nothing gated, dense, sparse, signed zeros
-and NaN, and a rounds cut), states
-within 1e-4 (IMM 5e-4), at small shapes and at the serving size
-C=1024, M=256; the engine's fused route on the card against its einsum
+and NaN, and a rounds cut), single-model frame states within 1e-4, at
+small shapes and at the serving size C=1024, M=256; the IMM frame bit
+for bit (also C not a multiple of a block's tracks, every track
+inactive, no valid measurement, one measurement, the dense
+instantiation); the engine's fused route on the card against its einsum
 route. The replay scans and the per-frame bank steps against their plain
-versions at (N, T) = (5, 17) and (1024, 300), the properties that hold
+versions at (N, T) = (5, 17) and (1024, 300) (the steps bit for bit in
+both layouts, also at ragged N), the properties that hold
 bit for bit (K=1 IMM = single-model scan, time chunks = one launch, T
 steps = the scan), and ``TrackingEngine.replay`` on the card against the
 CPU. The LM kernels (flash_attention, flash_decode) against their plain
@@ -178,19 +181,55 @@ def test_frame_kernel_matches_plain(cuda, kind, C, M):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("C,M", SHAPES)
-def test_imm_frame_kernel_matches_plain(cuda, C, M):
-    imm = make_imm()
-    rng = np.random.default_rng(C + 1)
+# (C, M, case): the serving shapes; C not a multiple of a block's tracks;
+# every track inactive; no valid measurement; one measurement; a model set
+# that runs the dense instantiation
+IMM_FRAME_CASES = [(C, M, "") for C, M in SHAPES] + [
+    (37, 12, ""), (1029, 256, ""), (200, 64, "inactive"),
+    (200, 64, "no_valid_z"), (200, 1, ""), (1029, 1, ""), (200, 64, "other")]
+
+
+@pytest.mark.parametrize("C,M,case", IMM_FRAME_CASES)
+def test_imm_frame_kernel_matches_plain(cuda, C, M, case):
+    """assoc, the wave count, x', P', mu' and x_c bit for bit."""
+    imm = _other_imm() if case == "other" else make_imm()
+    assert ops.pick_pattern(imm.models).name == (
+        "dense9" if case == "other" else "imm9")
+    rng = np.random.default_rng(C + M + 1)
     x, P, mu, z, zv, act = _dev(random_frame_inputs(
         rng, 9, 3, C, M, [0, 1, 2], K=4, spread=20.0), cuda)
-    got = ops.katana_imm_frame(imm, x, P, mu, z, zv, act, 11.34, min(C, M))
-    want = ref.katana_imm_frame_plain(imm, x, P, mu, z, zv, act, 11.34,
-                                      min(C, M))
+    if case == "inactive":
+        act = torch.zeros_like(act)
+    if case == "no_valid_z":
+        zv = torch.zeros_like(zv)
+    args = (imm, x, P, mu, z, zv, act, 11.34, min(C, M))
+    got = ops.katana_imm_frame(*args, return_waves=True)
+    want = ref.katana_imm_frame_plain(*args, return_waves=True)
     torch.cuda.synchronize()
-    assert torch.equal(got[4], want[4])
+    assert torch.equal(got[4], want[4]) and int(got[5]) == want[5]
+    if case in ("inactive", "no_valid_z"):
+        assert bool((got[4] == -1).all())
+    elif M > 1:
+        assert int((got[4] >= 0).sum()) > 0
     for a, b in zip(got[:4], want[:4]):
-        torch.testing.assert_close(a, b, atol=5e-4, rtol=0)
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def test_imm_frame_launch_events_time_each_launch(cuda):
+    """The five events the IMM frame records around its launches: the
+    same result as without them, and a positive device time for each of
+    the predict, the cost tile, the greedy and the update."""
+    imm = make_imm()
+    rng = np.random.default_rng(13)
+    x, P, mu, z, zv, act = _dev(random_frame_inputs(
+        rng, 9, 3, 1024, 256, [0, 1, 2], K=4, spread=20.0), cuda)
+    args = (imm, x, P, mu, z, zv, act, 11.34, 256)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    got = ops.katana_imm_frame(*args, launch_events=evs)
+    want = ops.katana_imm_frame(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(evs[i].elapsed_time(evs[i + 1]) > 0 for i in range(4))
 
 
 def test_imm_k1_kernel_is_the_frame_kernel(cuda):
@@ -342,17 +381,29 @@ def test_chunked_scans_equal_one_launch(cuda):
     assert all(torch.equal(a, b) for a, b in zip(one[1], many[1]))
 
 
+# the scan's shapes, then ragged last blocks of the step's 128 lanes
+STEP_SHAPES = SCAN_SHAPES + [(N, 3) for N in (1, 31, 33, 127, 129, 4097)]
+
+
 @pytest.mark.parametrize("kind", ["lkf", "ekf"])
-@pytest.mark.parametrize("N,T", SCAN_SHAPES)
+@pytest.mark.parametrize("N,T", STEP_SHAPES)
 def test_step_kernel_matches_plain_and_scan(cuda, kind, N, T):
+    """Both layouts bit for bit against the plain version (each on its
+    model's pattern: cv6, ctra8), and T steps equal the scan's final
+    state."""
     model = get_filter(kind)
+    assert ops.pick_pattern((model,)).name == {"lkf": "cv6",
+                                               "ekf": "ctra8"}[kind]
     x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(N), model, N,
                                        T), cuda)
+    ops.reset_launches()
     a = ops.katana_bank(model, x0, P0, zs[0])
-    _close(a[0], ref.katana_bank_step_plain(model, x0, P0, zs[0])[0], 1e-4)
+    want = ref.katana_bank_step_plain(model, x0, P0, zs[0])
+    assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
     soa = ops.katana_bank_soa(model, x0.T.contiguous(),
                               P0.permute(1, 2, 0).contiguous(),
                               zs[0].T.contiguous())
+    assert ops.LAUNCHES["katana_bank"] == ops.LAUNCHES["katana_bank_soa"] == 1
     assert torch.equal(soa[0].T, a[0])
     assert torch.equal(soa[1].permute(2, 0, 1), a[1])
     _, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,

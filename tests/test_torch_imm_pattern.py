@@ -1,7 +1,8 @@
 """The compile-time constant patterns of the IMM bank kernels, on the host.
 
-``ops.instantiated_patterns`` reads the patterns that imm_step.cu and
-imm_scan.cu are built for from csrc/pruned.cuh; ``ops.imm_pattern``
+``ops.instantiated_patterns`` reads the patterns that imm_step.cu (the
+IMM and single-model bank steps), imm_scan.cu and imm_frame.cu are built
+for from csrc/pruned.cuh; ``ops.imm_pattern``
 derives a model set's pattern as the plain version folds its constants
 (``ref.plan_imm_tables``); ``ops.pick_pattern`` chooses the
 instantiation a launch runs. The kernel may skip only terms the plain
@@ -141,7 +142,39 @@ def test_single_linear_models_map_to_their_own_pattern(kind):
     pick = ops.pick_pattern((mdl,))
     for k in ops.MASKS:
         assert np.all(pick.masks[k] <= want[k]), (kind, k)
-    assert pick.name == {"lkf": "dense6", "cv9": "imm9", "ca9": "imm9"}[kind]
+    assert pick.name == {"lkf": "cv6", "cv9": "imm9", "ca9": "imm9"}[kind]
+
+
+def test_cv6_parses():
+    """The CV6 LKF's pattern: the identity and dt at (0,3), (1,4), (2,5)
+    kept, the six 1.0s elided, Q's diagonal and (i, i+3) pairs, R's
+    diagonal."""
+    cv6 = _by_name()["cv6"]
+    assert (cv6.n, cv6.m) == (6, 3)
+    kept = np.eye(6, dtype=bool)
+    for i in range(3):
+        kept[i, i + 3] = True
+    np.testing.assert_array_equal(cv6.masks["fz"], ~kept)
+    np.testing.assert_array_equal(cv6.masks["f1"], np.eye(6, dtype=bool))
+    np.testing.assert_array_equal(cv6.masks["qz"], ~(kept | kept.T))
+    np.testing.assert_array_equal(cv6.masks["rz"], ~np.eye(3, dtype=bool))
+
+
+def test_the_cv6_lkf_runs_its_own_pattern():
+    """pick_pattern((lkf,)) is cv6, whose masks are CV6's F == 0, F == 1,
+    Q == 0 and R == 0, and the JAX reference's folding of its lkf."""
+    lkf = filters.get_filter("lkf")
+    pick = ops.pick_pattern((lkf,))
+    assert pick.name == "cv6"
+    F, Q, R = (np.asarray(getattr(lkf, nm)) for nm in ("F", "Q", "R"))
+    for mask, want in (("fz", F == 0), ("f1", F == 1), ("qz", Q == 0),
+                       ("rz", R == 0)):
+        np.testing.assert_array_equal(pick.masks[mask], want)
+    entries, _ = jkernel.plan_imm_tables((jfilters.get_filter("lkf"),))
+    for mask, name, value in (("fz", "F", 0.0), ("f1", "F", 1.0),
+                              ("qz", "Q", 0.0), ("rz", "R", 0.0)):
+        np.testing.assert_array_equal(pick.masks[mask],
+                                      _shared(entries, name, value))
 
 
 def test_the_ctra8_ekf_maps_to_its_jacobians_pattern():
