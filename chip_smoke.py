@@ -9,10 +9,10 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      register/spill lines);
   2. each kernel against its plain PyTorch version on the same CUDA
      tensors: the live-frame kernels at the serving size (C=1024 tracks,
-     M=256 measurements; identical assoc, states within 1e-4, IMM 5e-4
-     and bit for bit), the replay scans and bank steps at (N, T) =
-     (5, 17) and at the replay size (N=131,072, T=300; IMM with 10% of
-     the entries invalid and NaN, K=1 on cv9 and ekf; ``katana_bank``
+     M=256 measurements; assoc, waves and states bit for bit), the
+     replay scans and bank steps at (N, T) = (5, 17) and at the replay
+     size (N=131,072, T=300; IMM with 10% of the entries invalid and
+     NaN, K=1 on cv9 and ekf; the single-model scan, ``katana_bank``
      and ``katana_bank_soa`` bit for bit);
   3. the submit path: ``TrackingEngine(..., device="cuda").submit`` over a
      300-frame dense-sky scene (200 targets, 20 clutter detections per
@@ -24,7 +24,7 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      einsum-route times at this shape (CUDA events), each CUDA kernel's
      device time (torch.profiler, every launch's event counted), the
      greedy's device time inside the frame both ways (CUDA events the
-     kernel records around its launches, and torch.profiler), the IMM
+     kernel records around its launches, and torch.profiler), each
      frame's device time a launch (predict, cost tile, greedy, update:
      CUDA events it records between them, the device queued behind a
      spin) with the ptxas register and spill lines of its kernels, and
@@ -33,8 +33,10 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
      sample tracks against the float64 oracle (core/ref.py), replay FPS,
-     the host<->card copies, the scan's times (CUDA events; also with the
-     whole stream in one launch) and bound;
+     the host<->card copies, the scan's times (CUDA events, the device
+     queued behind a spin; also with the whole stream in one launch),
+     bound and the share of it reached, and (lkf, ekf) its registers,
+     waves and ptxas lines;
   5. the per-frame twins at that size: T ``katana_bank`` calls equal the
      scan's final state bit for bit; ``imm_bank_sequence`` against
      ``katana_imm_sequence``; the step kernels' times (``katana_bank``
@@ -263,11 +265,11 @@ def event_pairs_ms(call, n: int = 50) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
-IMM_FRAME_LAUNCHES = ("predict", "cost", "greedy", "update")
+FRAME_LAUNCHES = ("predict", "cost", "greedy", "update")
 
 
 def launch_events_ms(call, n: int = 50):
-    """Mean device ms of each of the IMM frame's launches and of the
+    """Mean device ms of each of a live frame's launches and of the
     whole frame, over n calls: ``call(events)`` has the device record five
     CUDA events, before its predict and after the predict, the cost tile,
     the greedy and the update. The device first spins for ~50 ms, so the
@@ -283,7 +285,7 @@ def launch_events_ms(call, n: int = 50):
         call(evs)
     torch.cuda.synchronize()
     out = {nm: sum(e[i].elapsed_time(e[i + 1]) for e in sets) / n
-           for i, nm in enumerate(IMM_FRAME_LAUNCHES)}
+           for i, nm in enumerate(FRAME_LAUNCHES)}
     out["frame"] = sum(e[0].elapsed_time(e[4]) for e in sets) / n
     out["events"] = n
     return out
@@ -477,15 +479,19 @@ def phase_kernels_vs_plain():
         bk = random_bank(rng, model.n, model.m, C, M, obs)
         args = (bk["x"], bk["P"], bk["z"], bk["z_valid"], bk["active"],
                 11.34 if model.m == 3 else 13.28, M)
-        got = ops.katana_frame(model, *args)
-        want = ref.katana_frame_plain(model, *args)
+        got = ops.katana_frame(model, *args, return_waves=True)
+        want = ref.katana_frame_plain(model, *args, return_waves=True)
         assert torch.equal(got[2], want[2]), f"{kind}: assoc differs"
+        assert int(got[3]) == want[3], (kind, int(got[3]), want[3])
         dx, dP = max_diff(got[0], want[0]), max_diff(got[1], want[1])
-        assert max(dx, dP) <= TOL[kind], (kind, dx, dP)
+        # the kernel runs the plain version's op stream: bit for bit
+        assert torch.equal(got[0], want[0]), (kind, dx)
+        assert torch.equal(got[1], want[1]), (kind, dP)
         frame_err = max(frame_err, dx, dP)
-        print(f"katana_frame {kind} C={C} M={M}: assoc identical "
-              f"({int((got[2] >= 0).sum())} assigned), max|dx|={dx:.3g} "
-              f"max|dP|={dP:.3g}")
+        inst = ops.pick_pattern((model,)).name
+        print(f"katana_frame {kind} ({inst}) C={C} M={M}: assoc and "
+              f"{want[3]} waves identical ({int((got[2] >= 0).sum())} "
+              "assigned), x', P' bitwise equal")
     errs["katana_frame"] = frame_err
 
     imm_err = 0.0
@@ -680,23 +686,30 @@ def phase_main_path(kind):
     greedy_ev = event_pairs_ms(lambda evs: (
         ops.katana_imm_frame if is_imm else ops.katana_frame)(
             model, *kargs, greedy_events=evs))
-    launch_ms = launch_regs = None
+    # each launch's device time from events the frame records between its
+    # launches, and its registers
     if is_imm:
-        # each launch's device time from events the frame records
-        # between its launches
         launch_ms = launch_events_ms(lambda evs: ops.katana_imm_frame(
             model, *kargs, launch_events=evs))
         inst = ops.pick_pattern(model.models).name
-        print(f"[imm] katana_imm_frame ({inst}) device ms a launch by CUDA "
-              f"events (mean of {launch_ms['events']} frames, device "
-              "queued): " + ", ".join(
-                  f"{k} {launch_ms[k]:.4f}" for k in IMM_FRAME_LAUNCHES)
-              + f"; the frame {launch_ms['frame']:.4f}")
+        source = "imm_frame.cu"
         entries = (("imm_predict", f"{len(inst)}{inst}"), ("imm_cost",),
                    ("imm_update", f"{len(inst)}{inst}"))
-        _print_ptxas_of("imm_frame.cu", *entries)
-        launch_regs = {e[0]: ptxas_registers("imm_frame.cu", *e)
-                       for e in entries}
+    else:
+        launch_ms = launch_events_ms(lambda evs: ops.katana_frame(
+            model, *kargs, launch_events=evs))
+        inst = ops.pick_pattern((model,)).name
+        source = "frame.cu"
+        nl = "Lb0" if model.is_linear else "Lb1"
+        entries = (("frame_predict", f"{len(inst)}{inst}E{nl}"),
+                   ("frame_cost", f"ILi{model.m}E"),
+                   ("frame_update", f"ILi{model.n}ELi{model.m}E"))
+    print(f"[{kind}] {name} ({inst}) device ms a launch by CUDA events "
+          f"(mean of {launch_ms['events']} frames, device queued): "
+          + ", ".join(f"{k} {launch_ms[k]:.4f}" for k in FRAME_LAUNCHES)
+          + f"; the frame {launch_ms['frame']:.4f}")
+    _print_ptxas_of(source, *entries)
+    launch_regs = {e[0]: ptxas_registers(source, *e) for e in entries}
     with mock.patch.object(tracker, "greedy_assign", greedy_spy):
         step(model, cfg_e, bank, zt, vt)  # the gated pairs of these inputs
     gated = int(frame_pairs[-1])
@@ -916,6 +929,10 @@ def phase_replay_kernels_vs_plain():
             want, ms = timed_once(lambda: ref.katana_bank_scan_plain(
                 model, x0, P0, zs))
             d = check_equal(kind, (got[0],) + got[1], want, TOL[kind])
+            # the scan runs katana_bank's lane code on the plain version's
+            # op stream: bit for bit
+            assert all(torch.equal(a, b) for a, b in zip(
+                (got[0],) + got[1], want)), (kind, d)
             errs["katana_bank_sequence"] = max(errs["katana_bank_sequence"],
                                                d)
             if big:
@@ -935,9 +952,10 @@ def phase_replay_kernels_vs_plain():
             errs["katana_bank"] = max(errs["katana_bank"], d2)
             if big:
                 plain_ms[f"step_{kind}"] = ms
-            print(f"katana_bank_sequence {kind} N={N} T={T}: max|d| vs plain "
-                  f"{d:.3g}; katana_bank ({ops.pick_pattern((model,)).name}): "
-                  f"{d2:.3g}, bitwise, katana_bank_soa bitwise equal to it")
+            print(f"katana_bank_sequence {kind} N={N} T={T} "
+                  f"({ops.pick_pattern((model,)).name}): bitwise equal to "
+                  "plain; katana_bank: bitwise, katana_bank_soa bitwise "
+                  "equal to it")
         zs_np, x0_np, P0_np = replay_stream("imm", N, T)
         valid_np = rng.random((T, N)) >= DROP
         zs_nan = zs_np.copy()
@@ -969,9 +987,12 @@ def phase_replay_kernels_vs_plain():
                 a1, *ops.imm_sequence_inputs(a1, zs1, x1, P1, None, valid))
             d = check_equal(kind, (got[0],) + got[1], want, TOL[
                 "ekf" if kind == "ekf" else "lkf"])
+            # K = 1 runs the single-model scan with the valid stream
+            assert all(torch.equal(a, b) for a, b in zip(
+                (got[0],) + got[1], want)), (kind, d)
             errs["katana_bank_sequence"] = max(errs["katana_bank_sequence"],
                                                d)
-            line += f"; K=1 {kind}: {d:.3g}"
+            line += f"; K=1 {kind} (the scan, valid stream): bitwise"
         print(line)
         K = imm.K
         xK = (x0[None] + torch.as_tensor(0.05 * rng.normal(
@@ -1028,14 +1049,14 @@ def phase_replay(kind, plain_ms):
     assert np.array_equal(xs_t.cpu().numpy(), out), kind
     h2d_ms = host_ms(lambda: torch.from_numpy(zs).to(DEV))
     d2h_ms = host_ms(lambda: xs_t.cpu())
-    # CUDA events only: torch.profiler sessions this late in the run have
-    # recorded none or part of the scans' launches; the IMM scan's with
-    # the device queued behind a spin
-    ms = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t), 10, spin=is_imm)
+    # CUDA events only, the device queued behind a spin: torch.profiler
+    # sessions this late in the run have recorded none or part of the
+    # scans' launches
+    ms = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t), 10, spin=True)
     # the whole stream in one launch, and (IMM) in the reference's chunks
     # of 64 frames, beside the time_chunk default
     ms_one = cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t, time_chunk=T), 10,
-                     spin=is_imm)
+                     spin=True)
     ms_64 = (cuda_ms(lambda: seq(model, zs_t, x0_t, P0_t, time_chunk=64), 10,
                      spin=True) if is_imm else None)
     nb, nops = scan_work(model, N, T)
@@ -1094,6 +1115,25 @@ def phase_replay(kind, plain_ms):
               f"(device queued) in {launches[name]} launch(es) of up to "
               f"{chunk} frames; in chunks of 64: {ms_64:.3f} ms; bound "
               f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it reached")
+    else:
+        inst = ops.pick_pattern((model,)).name
+        nl = "Lb0" if model.is_linear else "Lb1"
+        entry = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0E")
+        regs = ptxas_registers("scan.cu", *entry)
+        # resident blocks of 128 threads an SM at these registers, and the
+        # waves of the launch's blocks on the card's SMs
+        per_sm = min(16, 65536 // (128 * regs)) if regs else None
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        waves = -(-N // 128) / (per_sm * sms) if per_sm else None
+        row.update(instantiation=inst, bound_share=bms / ms,
+                   registers=regs, blocks_per_sm=per_sm, waves=waves)
+        waves_s = "?" if waves is None else f"{waves:.2f}"
+        print(f"[replay {kind}] katana_bank_sequence, instantiation {inst} "
+              f"({regs} registers, {per_sm} blocks of 128 an SM, {waves_s} "
+              f"waves on {sms} SMs): {ms:.3f} ms by events (device queued) "
+              f"in {launches[name]} launch(es); bound {bms:.4f} ms by {by}, "
+              f"{bms / ms:.1%} of it reached")
+        _print_ptxas_of("scan.cu", entry, ("first_frame",) + entry[1:])
     print(f"[replay {kind}] N={N} T={T}: {fps:.1f} frames/s, "
           f"{fps * N:.4g} track-frames/s (engine, host clock incl. the copies "
           f"of zs in and xs out: {eng.stats.replay_latency_s * 1e3:.1f} ms; "
@@ -2004,10 +2044,14 @@ def main() -> int:
         entry("katana_frame", lkf["kernel_ms"], lkf["plain_ms"],
               lkf["bound_ms"], lkf["bound_by"],
               lkf["launches"] + ekf["launches"],
-              dict(shape=f"lkf C={C_SERVE} M={M_SERVE}", by_model={
-                  k: {f: rows[k][f] for f in ("kernel_ms", "plain_ms",
-                                               "bound_ms", "bound_by",
-                                               "launches")}
+              dict(shape=f"lkf C={C_SERVE} M={M_SERVE}; ms by events at "
+                         "the host's pace, launch_device_ms by events with "
+                         "the device queued",
+                   launch_device_ms=lkf["launch_device_ms"],
+                   registers=lkf["launch_registers"], by_model={
+                  k: {f: rows[k][f] for f in (
+                      "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                      "launches", "launch_device_ms", "launch_registers")}
                   for k in ("lkf", "ekf")})),
         entry("katana_imm_frame", imm["kernel_ms"], imm["plain_ms"],
               imm["bound_ms"], imm["bound_by"], imm["launches"],
@@ -2029,10 +2073,13 @@ def main() -> int:
               replay["lkf"]["plain_ms"], replay["lkf"]["bound_ms"],
               replay["lkf"]["bound_by"],
               replay["lkf"]["launches"] + replay["ekf"]["launches"],
-              dict(shape=f"lkf N={N_REPLAY} T={T_REPLAY}", by_model={
-                  k: {f: replay[k][f] for f in ("kernel_ms", "plain_ms",
-                                                 "bound_ms", "bound_by",
-                                                 "launches", "replay_fps")}
+              dict(shape=f"lkf N={N_REPLAY} T={T_REPLAY}; ms by events "
+                         "with the device queued",
+                   bound_share=replay["lkf"]["bound_share"], by_model={
+                  k: {f: replay[k][f] for f in (
+                      "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                      "bound_share", "launches", "replay_fps",
+                      "instantiation", "registers", "waves")}
                   for k in ("lkf", "ekf")})),
         entry("katana_imm_sequence", replay["imm"]["kernel_ms"],
               replay["imm"]["plain_ms"], replay["imm"]["bound_ms"],

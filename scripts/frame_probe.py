@@ -11,12 +11,14 @@ Per cell: frames per second and ms a frame (host clock around each
 submit, the engine's own stats), and the fused frame kernel's device
 time per call on the last frame's inputs (CUDA events around 50 calls
 queued behind ~50 ms of device spin, so the events time the device,
-not the host's pace); for the IMM frame of a checkout whose
-``katana_imm_frame`` takes ``launch_events``, also each launch's device
+not the host's pace); for a frame whose wrapper (``katana_frame``,
+``katana_imm_frame``) takes ``launch_events``, also each launch's device
 time (predict, cost tile, greedy, update) from events the frame records
-between them. Run it on two checkouts one after the other (A, B,
-A, B) on one machine to compare them on one card: the host's speed
-moves between machines.
+between them; and every kernel's device time a call by torch.profiler's
+kernel durations (20 calls, one session a cell, printed with the events
+it recorded). Run it on two checkouts one after the other (A, B, B, A)
+on one machine to compare them on one card: the host's speed moves
+between machines.
 
 The last line is one JSON object with the card's name and power limit;
 ``--out`` gets it too.
@@ -57,6 +59,26 @@ def launch_ms(call, torch, n: int = 50):
            for i, nm in enumerate(names)}
     out["frame"] = sum(e[0].elapsed_time(e[4]) for e in sets) / n
     return out
+
+
+def profiled_ms(call, torch, n: int = 20):
+    """({kernel name: device ms a call}, {kernel name: events}) from the
+    kernel durations of one torch.profiler session over n calls."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    ms, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] = (ms.get(e.name, 0.0)
+                          + e.time_range.elapsed_us() / 1e3 / n)
+            count[e.name] = count.get(e.name, 0) + 1
+    return ms, count
 
 
 def main() -> int:
@@ -125,15 +147,28 @@ def main() -> int:
         print(f"[{kind}] {T} frames: {fps:.1f} FPS, {1e3 / fps:.3f} ms a "
               f"frame; the frame kernel {kernel_ms:.4f} device ms a call",
               flush=True)
-        if is_imm and "launch_events" in inspect.signature(
-                ops.katana_imm_frame).parameters:
-            parts = launch_ms(lambda evs: ops.katana_imm_frame(
-                model, bank.x, bank.P, bank.mu, zt, vt, bank.active, gate,
-                rounds, launch_events=evs), torch)
+        wrapper = ops.katana_imm_frame if is_imm else ops.katana_frame
+        if "launch_events" in inspect.signature(wrapper).parameters:
+            if is_imm:
+                parts = launch_ms(lambda evs: ops.katana_imm_frame(
+                    model, bank.x, bank.P, bank.mu, zt, vt, bank.active,
+                    gate, rounds, launch_events=evs), torch)
+            else:
+                parts = launch_ms(lambda evs: ops.katana_frame(
+                    model, bank.x, bank.P, zt, vt, bank.active, gate,
+                    rounds, launch_events=evs), torch)
             cells[kind]["launch_device_ms"] = parts
             print(f"[{kind}] device ms a launch (events, 50 calls): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()),
                   flush=True)
+        prof, count = profiled_ms(call, torch)
+        cells[kind]["profiler_ms"] = prof
+        cells[kind]["profiler_events"] = count
+        print(f"[{kind}] device ms a call by torch.profiler (events of 20 "
+              "calls): " + ", ".join(
+                  f"{k[:48]} {v:.4f} ({count[k]})"
+                  for k, v in sorted(prof.items(), key=lambda kv: -kv[1])),
+              flush=True)
     result = dict(root=str(root), card=smi_line(), cells=cells)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))

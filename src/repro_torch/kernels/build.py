@@ -47,8 +47,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "frame.cu": {
-        "katana_frame_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
-                             _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "katana_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                             _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P],
     },
     "imm_frame.cu": {
         "katana_imm_frame_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -60,8 +61,8 @@ SIGNATURES = {
                               _P],
     },
     "scan.cu": {
-        "katana_bank_scan_run": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
-                                 _P, _P, _P, _P],
+        "katana_bank_scan_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _I, _F, _P, _P, _P, _P, _P],
     },
     "imm_scan.cu": {
         "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -200,6 +200,13 @@ __global__ void greedy_candidate_waves(int C, int M, int rounds,
   if (tid == 0) *waves_out = r;
 }
 
+// Record events[i] on the stream, where events and events[i] are not
+// null (a frame's per-launch events).
+inline cudaError_t record(void* const* events, int i, cudaStream_t stream) {
+  if (events == nullptr || events[i] == nullptr) return cudaSuccess;
+  return cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
+}
+
 // The greedy's launches on `stream`: the count reset, the candidate list,
 // the waves. `scratch` holds greedy_scratch_bytes(C, M). ev_start / ev_end,
 // when not null, are CUDA events recorded just before and after (the

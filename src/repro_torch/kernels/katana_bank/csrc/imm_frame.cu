@@ -167,17 +167,12 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
     for (int r = 0; r < N; ++r)
 #pragma unroll
       for (int q = 0; q < N; ++q) Po[r * N + q] = Pm[r][q];
-    const float* Fc = consts + j * model_stride<N, M>();
-    const float* Qc = Fc + NN;
-    const float* Rc = Qc + NN;
-    auto Fv = [&](int i, int k) { return __ldg(Fc + i * N + k); };
-    auto Qv = [&](int i, int k) { return __ldg(Qc + i * N + k); };
-    auto Rv = [&](int r, int q) { return __ldg(Rc + r * M + q); };
+    const ConstsIn<N, M> cs{consts + j * model_stride<N, M>()};
     float xp[N], Pp[N][N], S[M][M], Si[M][M];
-    predict_mean<Pat>(Fv, xm, xp);
-    predict_cov_pruned<Pat>(Fv, Qv, [&](int r, int q) { return Po[r * N + q]; },
-                            Pp);
-    innovation_pruned<Pat>(Pp, Rv, S, Si);
+    predict_pruned<Pat>(cs, false, 0.0f, xm,
+                        [&](int r, int q) { return Po[r * N + q]; }, xp, Pp);
+    innovation_pruned<Pat>(Pp, [&](int r, int q) { return cs.R(r, q); }, S,
+                           Si);
 #pragma unroll
     for (int d = 0; d < N; ++d) xo[d] = xp[d];
 #pragma unroll
@@ -318,11 +313,6 @@ imm_update(int C, const float* __restrict__ z,
     }
   }
   if (any) spans_out(x_out, P_out, sm, C, c0, nt, tid);
-}
-
-inline cudaError_t record(void* const* events, int i, cudaStream_t stream) {
-  if (events == nullptr || events[i] == nullptr) return cudaSuccess;
-  return cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
 }
 
 template <class Pat, int K>

@@ -66,11 +66,6 @@ constexpr int kTracks = 32;
 constexpr int kMinBlocks = 4;
 
 template <int N>
-__host__ __device__ constexpr int tri(int r, int q) {  // r <= q
-  return r * N - r * (r - 1) / 2 + (q - r);
-}
-
-template <int N>
 __host__ __device__ constexpr int slab_stride() {
   return (N + N * (N + 1) / 2) | 1;
 }

@@ -28,9 +28,10 @@
 // layout (katana_bank_soa: x (n, N), P (n, n, N), z (m, N)) is coalesced
 // as it lies: a thread reads and writes its lane in place, no staging.
 // Lane l's model is l / N: F, Q, R are that model's rows of the float32
-// constant table (ops._consts), read where they are used. The predict
-// follows the compile-time Pattern of the model set (pruned.cuh): the
-// plain version's op stream, F's shared zeros skipped (cv6 for the CV6
+// constant table (ops._consts), read where they are used. A lane runs
+// pruned.cuh's step_lane, which the replay scan (scan.cu) runs too, on
+// the compile-time Pattern of the model set: the plain version's op
+// stream, F's shared zeros skipped (cv6 for the CV6
 // LKF, ctra8 for the CTRA-8 EKF, imm9 for make_imm()). K = 1 also serves
 // a nonlinear member (the CTRA-8 EKF): its Jacobian is built at the lane's
 // state and pruned by the same Pattern. Layouts are canonical: x (K, N, n),
@@ -75,50 +76,6 @@ __device__ __forceinline__ void lanes_out(float* g, const float* s, int nl,
   }
 }
 
-// One predict+update of a lane of the model whose constants start at Fc
-// (F, Q, R): state xv, P through Pa(r, q), measurement zv. Writes x' and
-// P' (upper triangle, mirrored), and S, S^-1 and the innovation y that
-// the log-likelihood takes.
-template <class Pat, class PA>
-__device__ __forceinline__ void step_lane(
-    const float* __restrict__ Fc, bool nonlinear, float dt,
-    const float (&xv)[Pat::N], const PA& Pa, const float (&zv)[Pat::M],
-    float (&xn)[Pat::N], float (&Pn)[Pat::N][Pat::N],
-    float (&S)[Pat::M][Pat::M], float (&Si)[Pat::M][Pat::M],
-    float (&y)[Pat::M]) {
-  constexpr int N = Pat::N, M = Pat::M, NN = N * N;
-  const float* Qc = Fc + NN;
-  const float* Rc = Qc + NN;
-  auto Qv = [&](int i, int j) { return __ldg(Qc + i * N + j); };
-  auto Rv = [&](int r, int q) { return __ldg(Rc + r * M + q); };
-  float xp[N], Pp[N][N];
-  bool linear = true;
-  if constexpr (N == 8) {
-    if (nonlinear) {
-      linear = false;
-      const float px = xv[0], py = xv[1], pz = xv[2], v = xv[3], th = xv[4],
-                  om = xv[5], a = xv[6], vz = xv[7];
-      const CtraJacobian J{cosf(th), sinf(th), v, dt};
-      xp[0] = px + (v * J.c) * dt;
-      xp[1] = py + (v * J.s) * dt;
-      xp[2] = pz + vz * dt;
-      xp[3] = v + a * dt;
-      xp[4] = th + om * dt;
-      xp[5] = om;
-      xp[6] = a;
-      xp[7] = vz;
-      predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
-    }
-  }
-  if (linear) {
-    auto Fv = [&](int i, int j) { return __ldg(Fc + i * N + j); };
-    predict_mean<Pat>(Fv, xv, xp);
-    predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
-  }
-  innovation_pruned<Pat>(Pp, Rv, S, Si);
-  kalman_update<N, M>(xp, Pp, Si, zv, y, xn, Pn);
-}
-
 // Canonical layout, staged through shared memory; LL: write the
 // log-likelihood (the IMM step) or not (katana_bank).
 template <class Pat, bool LL>
@@ -147,13 +104,14 @@ imm_step(int Ntr, int K, const float* __restrict__ x,
     float* xl = sx + tid * SX;
     float* Pl = sP + tid * SP;
     auto Pa = [&](int r, int q) { return Pl[r * N + q]; };
-    float xv[N], zv[M], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
+    float xv[N], zv[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N],
+        Pn[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) xv[i] = xl[i];
 #pragma unroll
     for (int r = 0; r < M; ++r) zv[r] = z[(size_t)c * M + r];
-    step_lane<Pat>(consts + k * model_stride<N, M>(), nonlinear != 0, dt, xv,
-                   Pa, zv, xn, Pn, S, Si, y);
+    step_lane<Pat>(ConstsIn<N, M>{consts + k * model_stride<N, M>()},
+                   nonlinear != 0, dt, xv, Pa, zv, xp, Pp, xn, Pn, S, Si, y);
     if constexpr (LL) ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
 #pragma unroll
     for (int i = 0; i < N; ++i) xl[i] = xn[i];
@@ -179,12 +137,14 @@ bank_step_soa(int Ntr, const float* __restrict__ x,
   if (c >= Ntr) return;
   auto at = [&](int e) { return (size_t)e * Ntr + c; };
   auto Pa = [&](int r, int q) { return P[at(r * N + q)]; };
-  float xv[N], zv[M], S[M][M], Si[M][M], y[M], xn[N], Pn[N][N];
+  float xv[N], zv[M], xp[N], Pp[N][N], S[M][M], Si[M][M], y[M], xn[N],
+      Pn[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i) xv[i] = x[at(i)];
 #pragma unroll
   for (int r = 0; r < M; ++r) zv[r] = z[at(r)];
-  step_lane<Pat>(consts, nonlinear != 0, dt, xv, Pa, zv, xn, Pn, S, Si, y);
+  step_lane<Pat>(ConstsIn<N, M>{consts}, nonlinear != 0, dt, xv, Pa, zv, xp,
+                 Pp, xn, Pn, S, Si, y);
 #pragma unroll
   for (int i = 0; i < N; ++i) x_out[at(i)] = xn[i];
 #pragma unroll

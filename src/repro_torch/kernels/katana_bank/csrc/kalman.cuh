@@ -1,14 +1,14 @@
-// Per-track Kalman algebra of the live frame, one track per thread.
+// Per-track Kalman algebra shared by the tracking kernels, one track per
+// thread: the observed rows of the selector H, the closed-form S^-1 and
+// det S, the Mahalanobis distance of the cost tile and the Kalman update.
 //
 // Device-side translation of the reference Pallas emit
-// (repro/kernels/katana_bank/kernel.py: make_predict_fn, _emit_predict_cov,
-// _emit_innovation, _emit_small_inv, _emit_det, _emit_cost_tile,
-// _emit_update). The emit prunes zero constants and folds every sum left
-// in index order; these loops are dense over the model constants (read
-// from a float32 table) and fold in the same order. Adding a pruned zero
-// term is exact, so with --fmad=false (no multiply-add contraction) the
-// results are the same float32 bits as the emitted op stream and as the
-// plain PyTorch version in ref.py.
+// (repro/kernels/katana_bank/kernel.py: _emit_small_inv, _emit_det,
+// _emit_cost_tile, _emit_update). Sums fold left in the emit's index
+// order, so with --fmad=false (no multiply-add contraction) the results
+// are the same float32 bits as the emitted op stream and as the plain
+// PyTorch version in ref.py. The predict and S = P'[obs][obs] + R follow
+// the model set's compile-time pattern (pruned.cuh).
 //
 // Model constant table, per model k: F (N*N), Q (N*N), R (M*M), row
 // major; after the K models, the Markov matrix trans (K*K).
@@ -30,91 +30,6 @@ __host__ __device__ constexpr int obs(int r) {
 template <int N, int M>
 __host__ __device__ constexpr int model_stride() {
   return 2 * N * N + M * M;
-}
-
-// P' = upper triangle of F P F^T + Q, mirrored.
-template <int N>
-__device__ __forceinline__ void predict_cov(const float (&F)[N][N],
-                                            const float (&P)[N][N],
-                                            const float* __restrict__ Q,
-                                            float (&Pp)[N][N]) {
-  float FP[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float acc = F[i][0] * P[0][j];
-#pragma unroll
-      for (int k = 1; k < N; ++k) acc = acc + F[i][k] * P[k][j];
-      FP[i][j] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      float acc = F[j][0] * FP[i][0];
-#pragma unroll
-      for (int k = 1; k < N; ++k) acc = acc + F[j][k] * FP[i][k];
-      acc = acc + Q[i * N + j];
-      Pp[i][j] = acc;
-      Pp[j][i] = acc;
-    }
-  }
-}
-
-// Time update of one model. Linear: x' = F x with the constant F.
-// Nonlinear (the caller passes it only for N=8): the hard-coded CTRA-8
-// dynamics and Jacobian, as the reference frame kernel does.
-template <int N>
-__device__ __forceinline__ void predict_lane(const float* __restrict__ Fc,
-                                             const float* __restrict__ Qc,
-                                             bool nonlinear, float dt,
-                                             const float (&x)[N],
-                                             const float (&P)[N][N],
-                                             float (&xp)[N],
-                                             float (&Pp)[N][N]) {
-  float F[N][N];
-  if constexpr (N == 8) {
-    if (nonlinear) {
-      const float px = x[0], py = x[1], pz = x[2], v = x[3], th = x[4],
-                  om = x[5], a = x[6], vz = x[7];
-      const float c = cosf(th), s = sinf(th);
-      xp[0] = px + (v * c) * dt;
-      xp[1] = py + (v * s) * dt;
-      xp[2] = pz + vz * dt;
-      xp[3] = v + a * dt;
-      xp[4] = th + om * dt;
-      xp[5] = om;
-      xp[6] = a;
-      xp[7] = vz;
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) F[i][j] = (i == j) ? 1.0f : 0.0f;
-      F[0][3] = c * dt;
-      F[0][4] = ((-v) * s) * dt;
-      F[1][3] = s * dt;
-      F[1][4] = (v * c) * dt;
-      F[2][7] = dt;
-      F[3][6] = dt;
-      F[4][5] = dt;
-      predict_cov<N>(F, P, Qc, Pp);
-      return;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) F[i][j] = __ldg(Fc + i * N + j);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float acc = F[i][0] * x[0];
-#pragma unroll
-    for (int k = 1; k < N; ++k) acc = acc + F[i][k] * x[k];
-    xp[i] = acc;
-  }
-  predict_cov<N>(F, P, Qc, Pp);
 }
 
 __device__ __forceinline__ void inv2(const float (&S)[2][2], float (&Si)[2][2]) {
@@ -239,20 +154,6 @@ __device__ __forceinline__ float small_det(const float (&S)[M][M]) {
   }
 }
 
-// S = P'[obs][obs] + R and its inverse.
-template <int N, int M>
-__device__ __forceinline__ void innovation(const float (&Pp)[N][N],
-                                           const float* __restrict__ Rc,
-                                           float (&S)[M][M],
-                                           float (&Si)[M][M]) {
-#pragma unroll
-  for (int r = 0; r < M; ++r)
-#pragma unroll
-    for (int c = 0; c < M; ++c)
-      S[r][c] = Pp[obs<N, M>(r)][obs<N, M>(c)] + __ldg(Rc + r * M + c);
-  small_inv<M>(S, Si);
-}
-
 // y^T S^-1 y with y = z - z_pred: S^-1 y first, then y.
 template <int M>
 __device__ __forceinline__ float mahalanobis(const float (&Si)[M][M],
@@ -312,31 +213,6 @@ __device__ __forceinline__ void kalman_update(const float (&xp)[N],
       Pn[i][j] = acc;
       Pn[j][i] = acc;
     }
-}
-
-template <int N>
-__device__ __forceinline__ void load_lane(const float* __restrict__ x,
-                                          const float* __restrict__ P,
-                                          float (&xv)[N], float (&Pv)[N][N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) xv[i] = x[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) Pv[i][j] = P[i * N + j];
-}
-
-template <int N>
-__device__ __forceinline__ void store_lane(float* __restrict__ x,
-                                           float* __restrict__ P,
-                                           const float (&xv)[N],
-                                           const float (&Pv)[N][N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = xv[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) P[i * N + j] = Pv[i][j];
 }
 
 }  // namespace katana

@@ -1,7 +1,8 @@
 // The plain version's pruned op stream for a model set whose constant
-// pattern is known at compile time, shared by the bank steps (imm_step.cu:
-// the IMM step and the single-model katana_bank), the IMM replay scan
-// (imm_scan.cu) and the IMM live frame (imm_frame.cu).
+// pattern is known at compile time, shared by every tracking kernel that
+// predicts: the bank steps (imm_step.cu: the IMM step and the
+// single-model katana_bank), the replay scans (scan.cu, imm_scan.cu) and
+// the live frames (frame.cu, imm_frame.cu).
 //
 // ref.py folds the model constants on the host (ref.plan_imm_tables): an
 // entry of F, Q or R that every member model agrees on stays a Python
@@ -9,9 +10,7 @@
 // it is 1.0 (ref._dot, ref._predict_cov, ref._innovation). A kernel that
 // skips exactly the entries its Pattern names issues that op stream
 // itself, so it rounds as the plain version does, signed zeros included,
-// and multiplies none of F's zeros. kalman.cuh's dense loops (frame.cu,
-// scan.cu's bank_scan) add the pruned terms instead, which is exact only
-// where they are not a signed zero.
+// and multiplies none of F's zeros.
 //
 // KATANA_IMM_PATTERNS lists the instantiated patterns; ops.py reads this
 // list from this file and gives each launch the id of the pattern whose
@@ -82,6 +81,46 @@ struct Pattern {
   static_assert(name::rows_kept(), #name ": a row of F is all pruned");
 KATANA_IMM_PATTERNS(KATANA_DECLARE_PATTERN)
 #undef KATANA_DECLARE_PATTERN
+
+// Index of (r, q), r <= q, in a row-major upper triangle of N x N.
+template <int N>
+__host__ __device__ constexpr int tri(int r, int q) {
+  return r * N - r * (r - 1) / 2 + (q - r);
+}
+
+// One model's constants F, Q, R as ops._consts lays them out (row major),
+// read where they are used: from device memory (ConstsIn) or from a
+// kernel's parameters (ModelTable, passed __grid_constant__: a multiply
+// then takes the constant bank as its operand, no load).
+template <int N, int M>
+struct ConstsIn {
+  const float* p;
+  __device__ __forceinline__ float F(int i, int j) const {
+    return __ldg(p + i * N + j);
+  }
+  __device__ __forceinline__ float Q(int i, int j) const {
+    return __ldg(p + N * N + i * N + j);
+  }
+  __device__ __forceinline__ float R(int r, int q) const {
+    return __ldg(p + 2 * N * N + r * M + q);
+  }
+};
+
+template <int N, int M>
+struct ModelTable {
+  float f[N * N];
+  float q[N * N];
+  float r[M * M];
+  __device__ __forceinline__ float F(int i, int j) const {
+    return f[i * N + j];
+  }
+  __device__ __forceinline__ float Q(int i, int j) const {
+    return q[i * N + j];
+  }
+  __device__ __forceinline__ float R(int a, int b) const {
+    return r[a * M + b];
+  }
+};
 
 // sum_k F[i][k] * v(k) over the kept terms of row i, folded left in index
 // order, the shared 1.0s elided (ref._dot). Fv(i, k) is read only for the
@@ -167,10 +206,122 @@ struct CtraJacobian {
   }
 };
 
+// Time update of one lane on the Pattern: x' = F x and P' = F P F^T + Q
+// with the constant F, or, for a nonlinear model (CTRA-8, N = 8 only),
+// the hard-coded dynamics and their Jacobian at the lane's state
+// (ref._predict_single). Pa(r, q) reads P[r][q]; every entry is read, so
+// P need not be symmetric to the bit.
+template <class Pat, class CS, class PA>
+__device__ __forceinline__ void predict_pruned(const CS& cs, bool nonlinear,
+                                               float dt,
+                                               const float (&xv)[Pat::N],
+                                               const PA& Pa,
+                                               float (&xp)[Pat::N],
+                                               float (&Pp)[Pat::N][Pat::N]) {
+  auto Qv = [&](int i, int j) { return cs.Q(i, j); };
+  if constexpr (Pat::N == 8) {
+    if (nonlinear) {
+      const float px = xv[0], py = xv[1], pz = xv[2], v = xv[3], th = xv[4],
+                  om = xv[5], a = xv[6], vz = xv[7];
+      const CtraJacobian J{cosf(th), sinf(th), v, dt};
+      xp[0] = px + (v * J.c) * dt;
+      xp[1] = py + (v * J.s) * dt;
+      xp[2] = pz + vz * dt;
+      xp[3] = v + a * dt;
+      xp[4] = th + om * dt;
+      xp[5] = om;
+      xp[6] = a;
+      xp[7] = vz;
+      predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
+      return;
+    }
+  }
+  auto Fv = [&](int i, int j) { return cs.F(i, j); };
+  predict_mean<Pat>(Fv, xv, xp);
+  predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
+}
+
+// One predict+update of a lane: the prediction x', P', then S, S^-1, the
+// innovation y and the updated x, P (upper triangle, mirrored) from the
+// measurement zv. The bank steps, the replay scan and (predict and update
+// in two launches) the live frame all run this code, so T katana_bank
+// calls give the scan's state by construction.
+template <class Pat, class CS, class PA>
+__device__ __forceinline__ void step_lane(
+    const CS& cs, bool nonlinear, float dt, const float (&xv)[Pat::N],
+    const PA& Pa, const float (&zv)[Pat::M], float (&xp)[Pat::N],
+    float (&Pp)[Pat::N][Pat::N], float (&xn)[Pat::N],
+    float (&Pn)[Pat::N][Pat::N], float (&S)[Pat::M][Pat::M],
+    float (&Si)[Pat::M][Pat::M], float (&y)[Pat::M]) {
+  predict_pruned<Pat>(cs, nonlinear, dt, xv, Pa, xp, Pp);
+  innovation_pruned<Pat>(Pp, [&](int r, int q) { return cs.R(r, q); }, S,
+                         Si);
+  kalman_update<Pat::N, Pat::M>(xp, Pp, Si, zv, y, xn, Pn);
+}
+
+// W floats of one lane between device memory and registers: 16-byte (or
+// 8-byte) accesses where the address allows, 4-byte ones otherwise.
+template <int W>
+__device__ __forceinline__ void load_vec(const float* __restrict__ g,
+                                         float (&v)[W]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  if constexpr (W % 4 == 0) {
+    if ((a & 15u) == 0) {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k) {
+        const float4 u = __ldg(reinterpret_cast<const float4*>(g) + k);
+        v[4 * k] = u.x;
+        v[4 * k + 1] = u.y;
+        v[4 * k + 2] = u.z;
+        v[4 * k + 3] = u.w;
+      }
+      return;
+    }
+  }
+  if constexpr (W % 2 == 0) {
+    if ((a & 7u) == 0) {
+#pragma unroll
+      for (int k = 0; k < W / 2; ++k) {
+        const float2 u = __ldg(reinterpret_cast<const float2*>(g) + k);
+        v[2 * k] = u.x;
+        v[2 * k + 1] = u.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) v[i] = __ldg(g + i);
+}
+
+template <int W>
+__device__ __forceinline__ void store_vec(float* __restrict__ g,
+                                          const float (&v)[W]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  if constexpr (W % 4 == 0) {
+    if ((a & 15u) == 0) {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k)
+        reinterpret_cast<float4*>(g)[k] =
+            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+      return;
+    }
+  }
+  if constexpr (W % 2 == 0) {
+    if ((a & 7u) == 0) {
+#pragma unroll
+      for (int k = 0; k < W / 2; ++k)
+        reinterpret_cast<float2*>(g)[k] = make_float2(v[2 * k], v[2 * k + 1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) g[i] = v[i];
+}
+
 // Copy `count` floats from device memory to shared memory with the
-// block's threads: 16-byte cp.async when the source is 16-byte aligned
-// and count a multiple of 4, 4-byte loads otherwise. `s` is 16-byte
-// aligned. Call stage_wait() and sync before reading.
+// block's threads, asynchronously: 16-byte cp.async when the source is
+// 16-byte aligned and count a multiple of 4, 4-byte cp.async otherwise.
+// `s` is 16-byte aligned. Call stage_wait() and sync before reading.
 __device__ __forceinline__ void stage_in(float* s, const float* g, int count,
                                          int tid, int nthreads) {
   if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0 && (count & 3) == 0) {
@@ -181,10 +332,16 @@ __device__ __forceinline__ void stage_in(float* s, const float* g, int count,
                    "l"(g + 4 * e)
                    : "memory");
     }
-    asm volatile("cp.async.commit_group;" ::: "memory");
   } else {
-    for (int e = tid; e < count; e += nthreads) s[e] = g[e];
+    for (int e = tid; e < count; e += nthreads) {
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(s + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                   "l"(g + e)
+                   : "memory");
+    }
   }
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 __device__ __forceinline__ void stage_wait() {

@@ -3,127 +3,272 @@
 //
 // Replaces repro/kernels/katana_bank/kernel.py:katana_bank_scan_step
 // (body make_scan_kernel: a fori_loop over T with x/P resident in VMEM).
-// The per-frame step of the same filter (kernel.py:katana_bank_step,
-// ops.katana_bank / katana_bank_soa) is imm_step.cu's kernel at K = 1 on
-// the model's compile-time Pattern (pruned.cuh). This scan keeps
-// kalman.cuh's dense loops, which add the terms that pattern prunes:
-// adding a product with a zero of F or Q is exact up to the sign of a
-// zero, so T step launches still give the scan's final state, equal
-// under a float compare (torch.equal).
-//
-// Design: one thread per track. The scan keeps the track's x (n) and P
-// (n x n) in registers for the whole stream; per frame it reads the
-// track's z (m floats) and writes its filtered x (n floats). Layouts are
-// canonical, zs (T, N, m) and xs (T, N, n): a thread's floats are
-// contiguous, so a warp's loads and stores of a frame cover one
-// contiguous span of 32*m*4 and 32*n*4 bytes (all sectors used, at a
-// stride of m*4 / n*4 bytes per instruction).
 // An optional valid stream (T, N) makes a False frame keep the
 // prediction, by the reference's mul/add select v*x' + (1-v)*x^: the K=1
 // IMM replay runs this kernel.
 //
 // What bounds it: the scan moves (m + n)*4 bytes per track-frame (plus x/P
-// once) and does ~0.5-1.5 k float32 operations per track-frame (the
-// operation count of ref.py's pruned op stream; the dense loops here do
-// more, on zeros of F). At N = 131,072 both bounds are a fraction of a
-// millisecond per 300 frames; the per-thread dependency chain through T
-// frames and the register footprint (n^2 carried floats plus the update's
-// working set) bound what one SM can overlap: on an H100 the lkf scan
-// takes 1.62 ms against its 0.436 ms byte bound. Its redesign is later
-// work.
+// once): 0.436 ms (lkf) / 0.586 ms (ekf) at N = 131,072, T = 300, over
+// 3.35 TB/s. Its pruned op stream is ~0.4 k (CV6) / ~0.9 k (CTRA-8)
+// float32 operations per track-frame; built with --fmad=false every one
+// is an instruction of its own, so the issue rate (one warp instruction a
+// cycle per SM quarter) sets a floor of the same order as the bytes.
+//
+// Design: one thread per track, kThreads tracks a block. Per frame a
+// thread runs pruned.cuh's step_lane on the model's compile-time Pattern
+// (cv6, ctra8, imm9 or a dense one: ops.pick_pattern): the plain
+// version's op stream, F's and Q's zeros skipped, the code of the
+// per-frame step katana_bank (imm_step.cu), so T katana_bank calls give
+// this scan's final state by construction. The state stays in registers
+// across the frames: x and P's upper triangle (n(n+1)/2 floats; P is
+// mirrored after every update). A seed P that is not symmetric to the
+// bit is read whole by first_frame, a launch of its own ahead of the
+// scan, which runs frame 0 for that lane's block (a second copy of the
+// step for frame 0 in the scan kernel, inlined or called, cost the time
+// loop registers: 24-76 bytes of spill for lkf, 112 for ekf, 3-8% of the
+// scan's time on an H100; a per-lane branch around frame 0, 3%). F, Q
+// and R are the
+// launch's parameters (ModelTable), read from the constant bank where
+// they are used, so none holds a register. Launch bounds cap the
+// registers so that the lkf scan's 1,024 blocks of 128 fit one wave of
+// 8 blocks an SM on 132 SMs.
+// Memory: the block's z of frame t + 1 (one contiguous span of zs (T, N,
+// m)) comes into shared memory with cp.async while frame t computes
+// (double-buffered); each thread writes its x of frame t into a shared
+// span, which the block stores during frame t + 1 with 16-byte stores
+// (also double-buffered): one barrier a frame. Layouts are canonical,
+// zs (T, N, m) and xs (T, N, n).
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
 
-#include "kalman.cuh"
+#include <string.h>
+#include <type_traits>
+
+#include "pruned.cuh"
 
 namespace katana {
 
 constexpr int kThreads = 128;
 
-// One predict+update of the track's model.
-template <int N, int M>
-__device__ __forceinline__ void bank_update_lane(
-    const float* __restrict__ consts, bool nonlinear, float dt,
-    const float (&x)[N], const float (&P)[N][N], const float (&z)[M],
-    float (&xp)[N], float (&Pp)[N][N], float (&xn)[N], float (&Pn)[N][N]) {
-  float S[M][M], Si[M][M], y[M];
-  predict_lane<N>(consts, consts + N * N, nonlinear, dt, x, P, xp, Pp);
-  innovation<N, M>(Pp, consts + 2 * N * N, S, Si);
-  kalman_update<N, M>(xp, Pp, Si, z, y, xn, Pn);
+// resident blocks an SM: the register cap (65,536 / (128 * blocks))
+template <int N>
+constexpr int scan_min_blocks() {
+  return N <= 6 ? 8 : 5;
 }
 
-template <int N, int M>
+struct ScanArgs {
+  int Ntr, T;
+  const float* x;
+  const float* P;
+  const float* zs;
+  const uint8_t* vs;
+  float dt;
+  float* xs;
+  float* x_fin;
+  float* P_fin;
+  uint8_t* first;  // a block's frame 0 done by first_frame
+};
+
+// Frame 0 of every lane of a block in which some lane's seed P is not
+// symmetric to the bit, ahead of bank_scan (whose time loop reads P's
+// upper triangle): step_lane with P read whole, the valid select, x into
+// xs[0], x and P (mirrored) into x_fin and P_fin, where bank_scan takes
+// them up, and the block's mark in `first`, so that bank_scan starts
+// that block at frame 1. The blocks of bank_scan; its own launch, so
+// bank_scan's loop holds one copy of the step and no per-lane branch.
+template <class Pat, bool NL, bool VS>
 __global__ void __launch_bounds__(kThreads)
-bank_scan(int Ntr, int T, const float* __restrict__ x,
-          const float* __restrict__ P, const float* __restrict__ zs,
-          const uint8_t* __restrict__ vs, const float* __restrict__ consts,
-          int nonlinear, float dt, float* __restrict__ xs,
-          float* __restrict__ x_fin, float* __restrict__ P_fin) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Ntr) return;
-  float xv[N], Pv[N][N];
-  load_lane<N>(x + (size_t)c * N, P + (size_t)c * N * N, xv, Pv);
-  for (int t = 0; t < T; ++t) {
-    const size_t tc = (size_t)t * Ntr + c;
-    float z[M], xp[N], Pp[N][N], xn[N], Pn[N][N];
+first_frame(const __grid_constant__ ScanArgs a,
+            const __grid_constant__ ModelTable<Pat::N, Pat::M> tab) {
+  constexpr int N = Pat::N, M = Pat::M, NN = N * N;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = c < a.Ntr;
+  float Pv[NN];
+  bool sym = true;
+  if (live) {
+    load_vec<NN>(a.P + (size_t)c * NN, Pv);
 #pragma unroll
-    for (int r = 0; r < M; ++r) z[r] = zs[tc * M + r];
-    bank_update_lane<N, M>(consts, nonlinear != 0, dt, xv, Pv, z, xp, Pp, xn,
-                           Pn);
-    if (vs != nullptr) {
-      const float v = vs[tc] ? 1.0f : 0.0f;
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int q = r + 1; q < N; ++q)
+        sym = sym && __float_as_uint(Pv[r * N + q]) ==
+                         __float_as_uint(Pv[q * N + r]);
+  }
+  const bool any = __syncthreads_or(!sym) != 0;
+  if (threadIdx.x == 0) a.first[blockIdx.x] = any ? 1 : 0;
+  if (!any || !live) return;
+  float xv[N], zv[M], xp[N], Pp[N][N], xn[N], Pn[N][N], S[M][M], Si[M][M],
+      y[M];
+  load_vec<N>(a.x + (size_t)c * N, xv);
+#pragma unroll
+  for (int r = 0; r < M; ++r) zv[r] = __ldg(a.zs + (size_t)c * M + r);
+  step_lane<Pat>(tab, NL, a.dt, xv,
+                 [&](int r, int q) { return Pv[r * N + q]; }, zv, xp, Pp, xn,
+                 Pn, S, Si, y);
+  const float v = VS ? (a.vs[c] ? 1.0f : 0.0f) : 1.0f;
+  const float nv = 1.0f - v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) xv[i] = VS ? v * xn[i] + nv * xp[i] : xn[i];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i; j < N; ++j) {
+      const float u = VS ? v * Pn[i][j] + nv * Pp[i][j] : Pn[i][j];
+      Pv[i * N + j] = u;
+      Pv[j * N + i] = u;
+    }
+  store_vec<N>(a.xs + (size_t)c * N, xv);
+  store_vec<N>(a.x_fin + (size_t)c * N, xv);
+  store_vec<NN>(a.P_fin + (size_t)c * NN, Pv);
+}
+
+// NL: the CTRA-8 dynamics; VS: a valid stream.
+template <class Pat, bool NL, bool VS>
+__global__ void __launch_bounds__(kThreads, scan_min_blocks<Pat::N>())
+bank_scan(const __grid_constant__ ScanArgs a,
+          const __grid_constant__ ModelTable<Pat::N, Pat::M> tab) {
+  constexpr int N = Pat::N, M = Pat::M, NN = N * N, NT = N * (N + 1) / 2;
+  __shared__ __align__(16) float zb[2][kThreads * M];
+  __shared__ __align__(16) float xb[2][kThreads * N];
+  const int Ntr = a.Ntr, T = a.T, tid = threadIdx.x;
+  const int c0 = blockIdx.x * kThreads;
+  const int nc = min(kThreads, Ntr - c0);
+  // threads past the last track compute on a copy of it and store
+  // nothing: every thread must reach the block's barriers
+  const int slot = min(tid, nc - 1);
+  const size_t c = (size_t)c0 + slot;
+  auto stage_z = [&](int t) {
+    stage_in(zb[t & 1], a.zs + ((size_t)t * Ntr + c0) * M, nc * M, tid,
+             kThreads);
+  };
+  auto store_xs = [&](int t) {
+    stage_out(a.xs + ((size_t)t * Ntr + c0) * N, xb[t & 1], nc * N, tid,
+              kThreads);
+  };
+
+  // the seed: x and P's upper triangle, which is all of P (a block with a
+  // lane whose seed P is not symmetric to the bit had frame 0 from
+  // first_frame: it starts at frame 1 from x_fin and P_fin)
+  const int t0 = a.first[blockIdx.x];
+  float xv[N], Pt[NT];
+  if (t0 < T) stage_z(t0);
+  bool valid = VS && t0 < T ? a.vs[(size_t)t0 * Ntr + c] != 0 : true;
+  {
+    const float* x0 = (t0 ? a.x_fin : a.x) + c * N;
+    const float* P0 = (t0 ? a.P_fin : a.P) + c * NN;
+    load_vec<N>(x0, xv);
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int q = r; q < N; ++q) Pt[tri<N>(r, q)] = P0[r * N + q];
+  }
+
+  // frame t: its z staged, the next frame's z and the last frame's xs on
+  // their way, one predict+update on P's triangle, the valid select, x
+  // into the xs span
+  for (int t = t0; t < T; ++t) {
+    stage_wait();
+    __syncthreads();
+    if (t + 1 < T) stage_z(t + 1);
+    if (t > t0) store_xs(t - 1);
+    float z[M];
+#pragma unroll
+    for (int r = 0; r < M; ++r) z[r] = zb[t & 1][slot * M + r];
+    float xp[N], Pp[N][N], xn[N], Pn[N][N], S[M][M], Si[M][M], y[M];
+    step_lane<Pat>(tab, NL, a.dt, xv,
+                   [&](int r, int q) {
+                     return Pt[r <= q ? tri<N>(r, q) : tri<N>(q, r)];
+                   },
+                   z, xp, Pp, xn, Pn, S, Si, y);
+    if constexpr (VS) {
+      const float v = valid ? 1.0f : 0.0f;
+      if (t + 1 < T) valid = a.vs[(size_t)(t + 1) * Ntr + c] != 0;
       const float nv = 1.0f - v;
 #pragma unroll
       for (int i = 0; i < N; ++i) xv[i] = v * xn[i] + nv * xp[i];
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = i; j < N; ++j) {
-          const float p = v * Pn[i][j] + nv * Pp[i][j];
-          Pv[i][j] = p;
-          Pv[j][i] = p;
-        }
+        for (int j = i; j < N; ++j)
+          Pt[tri<N>(i, j)] = v * Pn[i][j] + nv * Pp[i][j];
     } else {
 #pragma unroll
       for (int i = 0; i < N; ++i) xv[i] = xn[i];
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = 0; j < N; ++j) Pv[i][j] = Pn[i][j];
+        for (int j = i; j < N; ++j) Pt[tri<N>(i, j)] = Pn[i][j];
     }
 #pragma unroll
-    for (int i = 0; i < N; ++i) xs[tc * N + i] = xv[i];
+    for (int i = 0; i < N; ++i) xb[t & 1][tid * N + i] = xv[i];
   }
-  store_lane<N>(x_fin + (size_t)c * N, P_fin + (size_t)c * N * N, xv, Pv);
+  __syncthreads();
+  if (t0 < T) store_xs(T - 1);
+  if (tid >= nc) return;
+  float Pf[NN];
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      Pf[r * N + q] = Pt[r <= q ? tri<N>(r, q) : tri<N>(q, r)];
+  store_vec<N>(a.x_fin + c * N, xv);
+  store_vec<NN>(a.P_fin + c * NN, Pf);
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+// The scan of an instantiated Pattern: first_frame, then bank_scan;
+// `consts` is the model's F, Q, R in host memory, copied into the
+// launches' parameters. A nonlinear model is the CTRA-8 (N = 8) only.
+template <class Pat>
+cudaError_t launch_scan(const ScanArgs& a, const void* consts, int nonlinear,
+                        cudaStream_t s) {
+  ModelTable<Pat::N, Pat::M> tab;
+  memcpy(&tab, consts, sizeof tab);
+  const int blocks = (a.Ntr + kThreads - 1) / kThreads;
+  auto run = [&](auto nl, auto vs) {
+    constexpr bool NL = decltype(nl)::value, VS = decltype(vs)::value;
+    first_frame<Pat, NL, VS><<<blocks, kThreads, 0, s>>>(a, tab);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    bank_scan<Pat, NL, VS><<<blocks, kThreads, 0, s>>>(a, tab);
+    return cudaGetLastError();
+  };
+  auto with_vs = [&](auto nl) {
+    return a.vs != nullptr ? run(nl, std::true_type{})
+                           : run(nl, std::false_type{});
+  };
+  if constexpr (Pat::N == 8) {
+    if (nonlinear) return with_vs(std::true_type{});
+  }
+  if (nonlinear) return cudaErrorInvalidValue;
+  return with_vs(std::false_type{});
+}
 
 }  // namespace katana
 
 extern "C" {
 
-// The whole stream of T frames for Ntr tracks. Shapes (n, m) in
-// {(6, 3), (8, 4), (9, 3)}; any other shape returns cudaErrorInvalidValue
-// without launching. vs may be null (every frame valid).
-int katana_bank_scan_run(int n, int m, int Ntr, int T, const void* x,
-                         const void* P, const void* zs, const void* vs,
-                         const void* consts, int nonlinear, float dt,
-                         void* xs, void* x_fin, void* P_fin, void* stream) {
+// The whole stream of T >= 1 frames for Ntr >= 1 tracks: first_frame,
+// then bank_scan. `pattern` is the id of an instantiated Pattern of shape
+// (n, m) (pruned.cuh, KATANA_IMM_PATTERNS); any other combination returns
+// cudaErrorInvalidValue without launching. `consts` is the model's F, Q,
+// R in HOST memory (ops._host_consts). vs may be null (every frame
+// valid). `first` holds a byte of scratch for every 128 tracks.
+int katana_bank_scan_run(int n, int m, int pattern, int Ntr, int T,
+                         const void* x, const void* P, const void* zs,
+                         const void* vs, const void* consts, int nonlinear,
+                         float dt, void* xs, void* x_fin, void* P_fin,
+                         void* first, void* stream) {
   using namespace katana;
+  if (Ntr < 1 || T < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-#define KATANA_SCAN_CASE(N_, M_)                                            \
-  if (n == N_ && m == M_) {                                                 \
-    bank_scan<N_, M_><<<blocks_for(Ntr), kThreads, 0, s>>>(                 \
-        Ntr, T, (const float*)x, (const float*)P, (const float*)zs,         \
-        (const uint8_t*)vs, (const float*)consts, nonlinear, dt,            \
-        (float*)xs, (float*)x_fin, (float*)P_fin);                          \
-    return (int)cudaGetLastError();                                         \
-  }
-  KATANA_SCAN_CASE(6, 3)
-  KATANA_SCAN_CASE(8, 4)
-  KATANA_SCAN_CASE(9, 3)
+  const ScanArgs a{Ntr, T, (const float*)x, (const float*)P,
+                   (const float*)zs, (const uint8_t*)vs, dt, (float*)xs,
+                   (float*)x_fin, (float*)P_fin, (uint8_t*)first};
+#define KATANA_SCAN_CASE(id, name, n_, m_, ...)                              \
+  if (pattern == id && n == n_ && m == m_)                                  \
+    return (int)launch_scan<name>(a, consts, nonlinear, s);
+  KATANA_IMM_PATTERNS(KATANA_SCAN_CASE)
 #undef KATANA_SCAN_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 """Wrappers of the katana_bank kernels, canonical layouts in and out.
 
   ``katana_frame``          the single-model live frame: predict, gated
-        Mahalanobis cost, greedy assignment, update (csrc/frame.cu).
+        Mahalanobis cost, greedy assignment, update (csrc/frame.cu: a
+        thread per track for the predict and the update, a 2-D grid for
+        the cost tile).
   ``katana_imm_frame``      the IMM live frame: + mixing, per-model
         log-likelihoods, mode posterior and combined estimate
         (csrc/imm_frame.cu: a thread per (model, track) for the predict
@@ -11,8 +13,9 @@
         (csrc/greedy.cu), the test surface against
         ``tracker.greedy_assign``.
   ``katana_bank_sequence``  offline replay of a pre-associated (T, N, m)
-        stream, one launch per time chunk with x/P resident
-        (csrc/scan.cu).
+        stream, one launch per time chunk with x and P's triangle resident
+        (csrc/scan.cu: katana_bank's lane code, z and xs staged through
+        shared memory).
   ``katana_imm_sequence``   the IMM replay: mixing, K predict+updates,
         mode posterior and combined estimate inside the time loop, with
         an optional validity mask (csrc/imm_scan.cu; K=1 runs scan.cu).
@@ -36,8 +39,8 @@ each wrapper (the frames also count their greedy launch under
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
 
-The bank steps (imm_step.cu), the IMM scan (imm_scan.cu) and the IMM
-frame (imm_frame.cu) are instantiated for compile-time constant patterns
+Every tracking kernel that predicts (the frames, the scans, the bank
+steps) is instantiated for compile-time constant patterns
 (csrc/pruned.cuh): which entries of F, Q and R every member model (or the
 one model) shares as 0 (pruned) or 1.0 (elided).
 ``pick_pattern`` gives each launch the instantiation that prunes the
@@ -260,10 +263,7 @@ def _greedy_scratch(C: int, M: int, device) -> torch.Tensor:
 
 
 def _event_handles(events):
-    """The handles of ``torch.cuda.Event``s for the kernel to record (a
-    (start, end) pair around the greedy's launches, say), or (None, None)."""
-    if events is None:
-        return None, None
+    """The handles of ``torch.cuda.Event``s for the kernel to record."""
     for ev in events:
         if not ev.cuda_event:
             ev.record()  # the event is created at its first record
@@ -271,8 +271,9 @@ def _event_handles(events):
 
 
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
-                  rounds: int, greedy_events=None):
-    """The launches of the single-model frame (csrc/frame.cu)."""
+                  rounds: int, greedy_events=None, launch_events=None):
+    """The launches of the single-model frame (csrc/frame.cu), on the
+    model's compile-time pattern."""
     _check_model(model)
     dev = x.device
     C, n = x.shape
@@ -283,27 +284,44 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     _require(z, "z", f32, (M, m), dev)
     _require(z_valid, "z_valid", torch.bool, (M,), dev)
     _require(active, "active", torch.bool, (C,), dev)
-    consts = _consts((model,), np.ones((1, 1)), dev)
+    consts = _host_consts((model,), np.ones((1, 1)))
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
     assoc = torch.empty((C,), dtype=torch.int32, device=dev)
     cost = torch.empty((M, C), dtype=f32, device=dev)
+    # S^-1 and z_pred of every track, from the predict to the cost tile
+    # and the update
+    inno = torch.empty((m * m + m, C), dtype=f32, device=dev)
     scratch = _greedy_scratch(C, M, dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
+    events = _frame_events(greedy_events, launch_events)
     lib = build.load("frame.cu")
     code = lib.katana_frame_run(
-        n, m, C, M, x.data_ptr(), P.data_ptr(), z.data_ptr(),
-        z_valid.data_ptr(), active.data_ptr(), consts.data_ptr(),
-        int(not model.is_linear), float(model.dt), float(gate), int(rounds),
-        x_out.data_ptr(), P_out.data_ptr(), assoc.data_ptr(),
-        cost.data_ptr(), scratch.data_ptr(), waves.data_ptr(),
-        build.stream_of(dev), *_event_handles(greedy_events))
+        n, m, pick_pattern((model,)).id, C, M, x.data_ptr(), P.data_ptr(),
+        z.data_ptr(), z_valid.data_ptr(), active.data_ptr(),
+        consts.ctypes.data, int(not model.is_linear), float(model.dt),
+        float(gate), int(rounds), x_out.data_ptr(), P_out.data_ptr(),
+        assoc.data_ptr(), cost.data_ptr(), inno.data_ptr(),
+        scratch.data_ptr(), waves.data_ptr(), build.stream_of(dev), events)
     build.check(lib, code, "katana_frame")
     LAUNCHES["greedy_assign"] += 1
     return x_out, P_out, assoc, waves
 
 
+def _frame_events(greedy_events, launch_events):
+    """The five event handles a frame records (before its predict, after
+    it, after the cost tile, after the greedy, after the update) as a C
+    array: ``launch_events`` fills all five, ``greedy_events`` the
+    greedy's pair."""
+    events = ([None] * 5 if launch_events is None
+              else list(_event_handles(launch_events)))
+    if greedy_events is not None:
+        events[2:4] = _event_handles(greedy_events)
+    return (ctypes.c_void_p * 5)(*events)
+
+
 def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
-                 rounds: int, return_waves: bool = False, greedy_events=None):
+                 rounds: int, return_waves: bool = False, greedy_events=None,
+                 launch_events=None):
     """The fused live tracking frame. x (C, n); P (C, n, n); z (M, m);
     z_valid (M,) bool; active (C,) bool; ``gate``/``rounds`` are the
     tracker's chi-square gate and assignment-round bound. Returns
@@ -313,12 +331,16 @@ def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     int32 tensor on CUDA, an int on the CPU). ``greedy_events``: a
     (start, end) pair of ``torch.cuda.Event(enable_timing=True)`` that
     the kernel records just before and after the greedy's launches, for
-    its device time inside the frame (CUDA tensors only)."""
+    its device time inside the frame; ``launch_events``: five such
+    events that it records before its predict, after it, after the cost
+    tile, after the greedy and after the update, for each launch's
+    device time (CUDA tensors only)."""
     if not build.on_cuda(x):
         return ref.katana_frame_plain(model, x, P, z, z_valid, active, gate,
                                       rounds, return_waves=return_waves)
     x2, P2, assoc, waves = _launch_frame(model, x, P, z, z_valid, active,
-                                         gate, rounds, greedy_events)
+                                         gate, rounds, greedy_events,
+                                         launch_events)
     LAUNCHES["katana_frame"] += 1
     return (x2, P2, assoc, waves) if return_waves else (x2, P2, assoc)
 
@@ -330,11 +352,8 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     z (M, m); z_valid (M,) bool; active (C,) bool. Returns
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
     coasting slots keep x̂/P̂ and take mu <- cbar. K=1 is the
-    single-model frame with mu passed through. ``greedy_events`` as in
-    ``katana_frame``. ``launch_events`` (K > 1, CUDA tensors only): five
-    ``torch.cuda.Event(enable_timing=True)`` that the kernel records
-    before its predict, after it, after the cost tile, after the greedy
-    and after the update, for each launch's device time."""
+    single-model frame with mu passed through. ``greedy_events`` and
+    ``launch_events`` as in ``katana_frame``."""
     if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
@@ -346,7 +365,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     if K == 1:
         x2, P2, assoc, waves = _launch_frame(imm.models[0], x[0], P[0], z,
                                              z_valid, active, gate, rounds,
-                                             greedy_events)
+                                             greedy_events, launch_events)
         LAUNCHES["katana_imm_frame"] += 1
         out = (x2[None], P2[None], mu.clone(), x2.clone(), assoc)
         return out + (waves,) if return_waves else out
@@ -376,10 +395,6 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     inno = torch.empty((m * m + m + 1, K, C), dtype=f32, device=dev)
     scratch = _greedy_scratch(C, M, dev)
     waves = torch.empty((1,), dtype=torch.int32, device=dev)
-    events = ([None] * 5 if launch_events is None
-              else list(_event_handles(launch_events)))
-    if greedy_events is not None:
-        events[2:4] = _event_handles(greedy_events)
     lib = build.load("imm_frame.cu")
     code = lib.katana_imm_frame_run(
         K, n, m, pick_pattern(imm.models).id, C, M, x.data_ptr(),
@@ -389,7 +404,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
         cost.data_ptr(), inno.data_ptr(), scratch.data_ptr(),
         waves.data_ptr(), build.stream_of(dev),
-        (ctypes.c_void_p * 5)(*events))
+        _frame_events(greedy_events, launch_events))
     build.check(lib, code, "katana_imm_frame")
     LAUNCHES["katana_imm_frame"] += 1
     LAUNCHES["greedy_assign"] += 1
@@ -448,8 +463,9 @@ def _check_imm_scan(imm: IMMModel):
 
 
 def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
-    """One chunk of the single-model scan (csrc/scan.cu): xs (T, N, n) is
-    written in place; returns (x_T, P_T)."""
+    """One chunk of the single-model scan (csrc/scan.cu), on the model's
+    compile-time pattern: xs (T, N, n) is written in place; returns
+    (x_T, P_T)."""
     _check_model(model)
     dev = x.device
     N, n = x.shape
@@ -464,13 +480,17 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
     x_fin, P_fin = torch.empty_like(x), torch.empty_like(P)
     if N == 0:
         return x_fin, P_fin
-    consts = _consts((model,), np.ones((1, 1)), dev)
+    consts = _host_consts((model,), np.ones((1, 1)))
+    # the blocks whose first frame runs ahead of the scan (a seed P that
+    # is not symmetric to the bit): a byte for each 128 tracks
+    first = torch.empty((N,), dtype=torch.uint8, device=dev)
     lib = build.load("scan.cu")
     code = lib.katana_bank_scan_run(
-        n, m, N, T, x.data_ptr(), P.data_ptr(), zs.data_ptr(),
-        None if valid is None else valid.data_ptr(), consts.data_ptr(),
-        int(not model.is_linear), float(model.dt), xs.data_ptr(),
-        x_fin.data_ptr(), P_fin.data_ptr(), build.stream_of(dev))
+        n, m, pick_pattern((model,)).id, N, T, x.data_ptr(), P.data_ptr(),
+        zs.data_ptr(), None if valid is None else valid.data_ptr(),
+        consts.ctypes.data, int(not model.is_linear), float(model.dt),
+        xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), first.data_ptr(),
+        build.stream_of(dev))
     build.check(lib, code, "katana_bank_sequence")
     return x_fin, P_fin
 

@@ -7,10 +7,11 @@ Pallas emit (``repro/kernels/katana_bank/kernel.py``): every state entry
 is one (C,) lane tensor, float constants multiply lane tensors, zero
 constants are pruned, sums fold left in index order, and the greedy
 assignment is a Python ``while`` loop of waves over the gated pairs.
-Adding a pruned zero term is exact, so the kernels' dense loops over
-F/Q/R give the same float32 bits as this stream when neither side
-contracts a multiply-add into an FMA (the kernels build with
-``--fmad=false``; PyTorch runs each elementwise op as its own kernel).
+The kernels issue this op stream themselves, from the model set's
+compile-time pattern of shared zeros and ones (csrc/pruned.cuh), so they
+give its float32 bits when neither side contracts a multiply-add into
+an FMA (the kernels build with ``--fmad=false``; PyTorch runs each
+elementwise op as its own kernel).
 
 The ops wrappers (``ops.py``) take these only for tensors on the CPU;
 ``chip_smoke.py`` and the GPU tests call them directly on the card to

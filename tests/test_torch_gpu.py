@@ -1,17 +1,17 @@
 """The CUDA kernels against their plain PyTorch versions on the card, on
 the same CUDA tensors: identical assoc (and greedy wave count, also on
 tiles with C > 1024, M = 0, nothing gated, dense, sparse, signed zeros
-and NaN, and a rounds cut), single-model frame states within 1e-4, at
-small shapes and at the serving size C=1024, M=256; the IMM frame bit
-for bit (also C not a multiple of a block's tracks, every track
-inactive, no valid measurement, one measurement, the dense
-instantiation); the engine's fused route on the card against its einsum
-route. The replay scans and the per-frame bank steps against their plain
-versions at (N, T) = (5, 17) and (1024, 300) (the steps bit for bit in
-both layouts, also at ragged N), the properties that hold
-bit for bit (K=1 IMM = single-model scan, time chunks = one launch, T
-steps = the scan), and ``TrackingEngine.replay`` on the card against the
-CPU. The LM kernels (flash_attention, flash_decode) against their plain
+and NaN, and a rounds cut); the single-model and the IMM frames bit for
+bit, at small shapes and at the serving size C=1024, M=256 (also C not
+a multiple of a block's tracks, every track inactive, no valid
+measurement, one measurement, the IMM frame's dense instantiation), and
+the events they record around each launch; the engine's fused route on
+the card against its einsum route. The replay scans and the per-frame
+bank steps against their plain versions bit for bit at (N, T) = (5, 17)
+and (1024, 300), at ragged N and with a valid stream (the steps in both
+layouts), the properties that hold bit for bit (K=1 IMM = single-model
+scan, time chunks = one launch, T steps = the scan), and
+``TrackingEngine.replay`` on the card against the CPU. The LM kernels (flash_attention, flash_decode) against their plain
 versions in float32 (2e-5; 1e-5/1e-4) and bfloat16 (one bf16 ulp of the
 output), and a reduced h2o-danube-1.8b served on the card through both
 kernels against the torch-op routes; the bf16 tensor-core attention at
@@ -163,30 +163,65 @@ def test_greedy_events_time_the_frames_greedy(cuda):
     assert evs[0].elapsed_time(evs[1]) > 0
 
 
+# (C, M, case): the serving shapes; C not a multiple of a block's tracks;
+# every track inactive; no valid measurement; one measurement
+FRAME_CASES = [(C, M, "") for C, M in SHAPES] + [
+    (37, 12, ""), (1029, 256, ""), (200, 64, "inactive"),
+    (200, 64, "no_valid_z"), (200, 1, ""), (1029, 1, "")]
+
+
 @pytest.mark.parametrize("kind", ["lkf", "ekf"])
-@pytest.mark.parametrize("C,M", SHAPES)
-def test_frame_kernel_matches_plain(cuda, kind, C, M):
+@pytest.mark.parametrize("C,M,case", FRAME_CASES)
+def test_frame_kernel_matches_plain(cuda, kind, C, M, case):
+    """assoc, the wave count, x' and P' bit for bit, on the model's own
+    pattern (cv6, ctra8)."""
     model = get_filter(kind)
+    assert ops.pick_pattern((model,)).name == {"lkf": "cv6",
+                                               "ekf": "ctra8"}[kind]
     obs = [0, 1, 2, 4] if kind == "ekf" else [0, 1, 2]
-    rng = np.random.default_rng(C)
+    rng = np.random.default_rng(C + M)
     x, P, z, zv, act = _dev(random_frame_inputs(rng, model.n, model.m, C, M,
                                                 obs, spread=20.0), cuda)
+    if case == "inactive":
+        act = torch.zeros_like(act)
+    if case == "no_valid_z":
+        zv = torch.zeros_like(zv)
     gate = ttr.CHI2_99[model.m]
-    got = ops.katana_frame(model, x, P, z, zv, act, gate, min(C, M))
-    want = ref.katana_frame_plain(model, x, P, z, zv, act, gate, min(C, M))
+    args = (model, x, P, z, zv, act, gate, min(C, M))
+    got = ops.katana_frame(*args, return_waves=True)
+    want = ref.katana_frame_plain(*args, return_waves=True)
     torch.cuda.synchronize()
-    assert torch.equal(got[2], want[2])
-    assert int((got[2] >= 0).sum()) > 0
+    assert torch.equal(got[2], want[2]) and int(got[3]) == want[3]
+    if case in ("inactive", "no_valid_z"):
+        assert bool((got[2] == -1).all())
+    elif M > 1:
+        assert int((got[2] >= 0).sum()) > 0
     for a, b in zip(got[:2], want[:2]):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
-# (C, M, case): the serving shapes; C not a multiple of a block's tracks;
-# every track inactive; no valid measurement; one measurement; a model set
-# that runs the dense instantiation
-IMM_FRAME_CASES = [(C, M, "") for C, M in SHAPES] + [
-    (37, 12, ""), (1029, 256, ""), (200, 64, "inactive"),
-    (200, 64, "no_valid_z"), (200, 1, ""), (1029, 1, ""), (200, 64, "other")]
+@pytest.mark.parametrize("kind", ["lkf", "ekf"])
+def test_frame_launch_events_time_each_launch(cuda, kind):
+    """The five events the single-model frame records around its
+    launches: the same result as without them, and a positive device time
+    for each of the predict, the cost tile, the greedy and the update."""
+    model = get_filter(kind)
+    obs = [0, 1, 2, 4] if kind == "ekf" else [0, 1, 2]
+    rng = np.random.default_rng(17)
+    x, P, z, zv, act = _dev(random_frame_inputs(rng, model.n, model.m, 1024,
+                                                256, obs, spread=20.0), cuda)
+    args = (model, x, P, z, zv, act, ttr.CHI2_99[model.m], 256)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    got = ops.katana_frame(*args, launch_events=evs)
+    want = ops.katana_frame(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(evs[i].elapsed_time(evs[i + 1]) > 0 for i in range(4))
+
+
+# the single-model frame's cases, and a model set that runs the dense
+# instantiation
+IMM_FRAME_CASES = FRAME_CASES + [(200, 64, "other")]
 
 
 @pytest.mark.parametrize("C,M,case", IMM_FRAME_CASES)
@@ -285,20 +320,86 @@ def _close(a, b, tol):
     assert float(d.max()) <= tol, float(d.max())
 
 
+# (N, T, valid stream): the scan's shapes, ragged last blocks of its 128
+# tracks, and the K = 1 IMM replay's valid stream
+SCAN_CASES = [(N, T, False) for N, T in SCAN_SHAPES] + [
+    (1, 17, True), (31, 40, False), (33, 40, True), (129, 20, False),
+    (4097, 20, True), (1024, 300, True)]
+
+
 @pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
-@pytest.mark.parametrize("N,T", SCAN_SHAPES)
-def test_scan_kernel_matches_plain(cuda, kind, N, T):
+@pytest.mark.parametrize("N,T,valid", SCAN_CASES)
+def test_scan_kernel_matches_plain(cuda, kind, N, T, valid):
+    """xs, x_T and P_T bit for bit, on the model's own pattern; with a
+    valid stream through the K = 1 IMM replay, whose False frames keep
+    the prediction."""
     model = get_filter(kind)
-    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(N + T), model,
-                                       N, T), cuda)
+    assert ops.pick_pattern((model,)).name == {
+        "lkf": "cv6", "ekf": "ctra8", "cv9": "imm9"}[kind]
+    x0, P0, zs, vs = _dev(replay_inputs(np.random.default_rng(N + T), model,
+                                        N, T, drop=0.1 if valid else 0.0),
+                          cuda)
     ops.reset_launches()
-    xs, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,
-                                            return_final=True)
-    want = ref.katana_bank_scan_plain(model, x0, P0, zs)
+    if valid:
+        one = as_imm(model)
+        xs, (xf, Pf, _) = ops.katana_imm_sequence(one, zs, x0, P0, valid=vs,
+                                                  return_final=True)
+        _, _, _, zz, vv = ops.imm_sequence_inputs(one, zs, x0, P0, None, vs)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zz, vv)
+        xf, Pf = xf[0], Pf[0]
+        launches = ops.LAUNCHES["katana_imm_sequence"]
+    else:
+        xs, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,
+                                                return_final=True)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zs)
+        launches = ops.LAUNCHES["katana_bank_sequence"]
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["katana_bank_sequence"] == 1
+    assert launches == 1
+    assert bool(torch.isfinite(xs).all())
     for a, b in zip((xs, xf, Pf), want):
-        _close(a, b, 1e-4)
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf"])
+@pytest.mark.parametrize("valid", [False, True])
+def test_scan_kernel_reads_an_asymmetric_seed_whole(cuda, kind, valid):
+    """A seed P that is symmetric only to rounding on some lanes: the
+    scan's first frame reads those lanes' P whole (first_frame, for their
+    blocks of 128), as the plain version and katana_bank do; bit for bit,
+    also in time chunks of one frame, and T katana_bank calls (no valid
+    stream) equal the scan's final state."""
+    model = get_filter(kind)
+    rng = np.random.default_rng(23)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, model, 300, 9,
+                                        drop=0.2 if valid else 0.0), cuda)
+    noise = torch.as_tensor(1e-3 * rng.normal(size=tuple(P0.shape)),
+                            dtype=torch.float32, device=cuda)
+    P0 = (P0 + noise).contiguous()
+    # symmetric: every other lane and the first block of 128 lanes
+    P0[::2] = (P0[::2] + P0[::2].transpose(1, 2)) / 2
+    P0[:128] = (P0[:128] + P0[:128].transpose(1, 2)) / 2
+    if valid:
+        one = as_imm(model)
+        xs, (xf, Pf, _) = ops.katana_imm_sequence(one, zs, x0, P0, valid=vs,
+                                                  return_final=True)
+        _, _, _, zz, vv = ops.imm_sequence_inputs(one, zs, x0, P0, None, vs)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zz, vv)
+        xf, Pf = xf[0], Pf[0]
+    else:
+        xs, (xf, Pf) = ops.katana_bank_sequence(model, zs, x0, P0,
+                                                return_final=True)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zs)
+        x, P = x0, P0
+        for t in range(zs.shape[0]):
+            x, P = ops.katana_bank(model, x, P, zs[t])
+        assert torch.equal(x, xf) and torch.equal(P, Pf)
+        one = ops.katana_bank_sequence(model, zs, x0, P0, return_final=True,
+                                       time_chunk=1)
+        assert torch.equal(one[0], xs)
+        assert torch.equal(one[1][0], xf) and torch.equal(one[1][1], Pf)
+    torch.cuda.synchronize()
+    for a, b in zip((xs, xf, Pf), want):
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
 def _other_imm():

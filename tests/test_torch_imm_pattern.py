@@ -1,22 +1,25 @@
-"""The compile-time constant patterns of the IMM bank kernels, on the host.
+"""The compile-time constant patterns of the tracking kernels, on the host.
 
 ``ops.instantiated_patterns`` reads the patterns that imm_step.cu (the
-IMM and single-model bank steps), imm_scan.cu and imm_frame.cu are built
-for from csrc/pruned.cuh; ``ops.imm_pattern``
+IMM and single-model bank steps), scan.cu, imm_scan.cu, frame.cu and
+imm_frame.cu are built for from csrc/pruned.cuh; ``ops.imm_pattern``
 derives a model set's pattern as the plain version folds its constants
 (``ref.plan_imm_tables``); ``ops.pick_pattern`` chooses the
 instantiation a launch runs. The kernel may skip only terms the plain
 version skips, so the chosen pattern's pruned zeros and elided 1.0s must
 lie inside the model set's. All numpy: no card needed.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import filters as jfilters
 from repro.kernels.katana_bank import kernel as jkernel
 from repro_torch.core import filters
+from repro_torch.kernels import build
 from repro_torch.kernels.katana_bank import ops, ref
 
 
@@ -224,3 +227,52 @@ def test_an_unbuilt_shape_raises():
                               H=np.eye(3, 7), x0=np.zeros(7), P0=np.eye(7))
     with pytest.raises(NotImplementedError):
         ops.pick_pattern((big,))
+
+
+class _RecordingLib:
+    """Stands in for a kernel library: records each C entry's arguments
+    and returns success without launching."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
+def test_the_frame_and_the_scan_launch_their_models_pattern(kind,
+                                                            monkeypatch):
+    """katana_frame and katana_bank_sequence hand their C entries (csrc/
+    frame.cu, scan.cu) the id of ``pick_pattern((model,))``, the model's
+    F, Q, R as float32 in host memory (copied into the launches'
+    parameters) and its nonlinear flag and dt: the wrappers' host side,
+    against a library that records its arguments."""
+    mdl = filters.get_filter(kind)
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda source: lib)
+    monkeypatch.setattr(build, "on_cuda", lambda t: True)
+    monkeypatch.setattr(build, "stream_of", lambda device: 0)
+    n, m, C, M, T = mdl.n, mdl.m, 5, 3, 4
+    ops.katana_frame(mdl, torch.zeros(C, n), torch.zeros(C, n, n),
+                     torch.zeros(M, m), torch.ones(M, dtype=torch.bool),
+                     torch.ones(C, dtype=torch.bool), 9.0, 3)
+    ops.katana_bank_sequence(mdl, torch.zeros(T, C, m), torch.zeros(C, n),
+                             torch.zeros(C, n, n))
+    pattern = ops.pick_pattern((mdl,))
+    assert (pattern.n, pattern.m) == (n, m)
+    frame = lib.calls["katana_frame_run"]
+    scan = lib.calls["katana_bank_scan_run"]
+    assert frame[:5] == (n, m, pattern.id, C, M)
+    assert scan[:5] == (n, m, pattern.id, C, T)
+    want = np.concatenate([np.asarray(getattr(mdl, nm), np.float32).ravel()
+                           for nm in ("F", "Q", "R")])
+    for consts, flags in ((frame[10], frame[11:13]),
+                          (scan[9], scan[10:12])):
+        got = np.ctypeslib.as_array(
+            (ctypes.c_float * want.size).from_address(consts))
+        np.testing.assert_array_equal(got, want)
+        assert flags == (int(not mdl.is_linear), float(mdl.dt))
