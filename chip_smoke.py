@@ -32,7 +32,8 @@ Phases (no phase's exception is caught; any failure exits non-zero):
   4. the replay path: ``TrackingEngine(..., device="cuda").replay`` over
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
-     sample tracks against the float64 oracle (core/ref.py), replay FPS,
+     sample tracks against the float64 oracle (core/ref.py), replay FPS
+     (host clock from numpy in to numpy out; the engine's own span too),
      the host<->card copies, the scan's times (CUDA events, the device
      queued behind a spin; also with the whole stream in one launch),
      bound and the share of it reached, and (lkf, ekf) its registers,
@@ -43,6 +44,17 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      and ``katana_bank_soa`` by CUDA events with the device queued behind
      a spin), bounds and the share of them reached, and the ptxas
      register and spill lines of the single-model step's instantiations;
+  5b. the stage ladder (``core/rewrites.py``) at the batches of
+     ``configs/katana.py``, T=300: baseline, opt1, opt2 at N=1,
+     batched_blockdiag and batched_lanes at N=200, batched_lanes,
+     fused_scan, imm_bank and imm_scan at N=131,072, each through
+     ``run_sequence`` at its default symmetrize=False against the float64
+     oracle, with µs a step and steps/s (a Table I row); the kernel
+     stages' launch counts; the timed run's own xs of those stages bit
+     for bit with their plain versions over all 300 frames, and so again
+     over 60 frames at symmetrize False and True on a seed P that is not
+     symmetric to the bit; the symmetrize=False kernels' times, bounds,
+     registers and spill beside the True ones;
   6. ``replay_imm_bank`` from the live IMM bank of phase 3 resumes a
      stream bit for bit and leaves the bank unchanged;
   7. LM serving: h2o-danube-1.8b at full width, random bf16 weights, B=4
@@ -106,9 +118,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import katana as kcfg  # noqa: E402
 from repro_torch.core import bank as bank_lib  # noqa: E402
 from repro_torch.core import filters, tracker  # noqa: E402
 from repro_torch.core import ref as oracle  # noqa: E402
+from repro_torch.core import rewrites  # noqa: E402
 from repro_torch.data import trajectories as traj  # noqa: E402
 from repro_torch.data.lm import LMDataPipeline  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -778,11 +792,11 @@ def phase_main_path(kind):
 # ---------------------------------------------------------------------------
 # Offline replay (TrackingEngine.replay -> the replay scans) and the
 # per-frame bank steps, at the pod batch of katana-lkf-pod / katana-ekf-pod
-# (src/repro/configs/katana.py: N = 131,072) over T = 300 frames (10 s at
+# (the port's configs/katana.py: N = 131,072) over T = 300 frames (10 s at
 # 30 FPS).
 # ---------------------------------------------------------------------------
 
-N_REPLAY, T_REPLAY = 131_072, 300
+N_REPLAY, T_REPLAY = kcfg.LKF_POD.batch, 300
 N_BASE = 1024      # targets the generators draw; lanes tile them
 N_SAMPLE = 64      # tracks held against the float64 oracle every frame
 SMALL = (5, 17)    # (N, T) of the small-shape kernel checks
@@ -838,11 +852,11 @@ def ops_of(fn) -> int:
     return c.ops
 
 
-def scan_work(model, N, T):
+def scan_work(model, N, T, symmetrize=True):
     """(bytes, operations) of one replay of T frames for N tracks: zs in,
     the seeds in, xs and the finals out (IMM: x and P per model, mu in
     and out); operations per track-frame counted on the plain op stream
-    at one track."""
+    at one track (``symmetrize=False``: the full square's)."""
     n, m, f = model.n, model.m, 4
     imm = isinstance(model, filters.IMMModel)
     K = model.K if imm else 1
@@ -858,13 +872,13 @@ def scan_work(model, N, T):
             model, x1.expand(K, 1, n), P1.expand(K, 1, n, n), mu1, z1))
     else:
         per = ops_of(lambda: ref.katana_bank_scan_plain(
-            model, x1[None], P1[None], z1))
+            model, x1[None], P1[None], z1, symmetrize=symmetrize))
     return nbytes, per * N * T
 
 
-def step_work(model, N):
+def step_work(model, N, symmetrize=True):
     """(bytes, operations) of one bank step (IMM: K lanes a track, loglik
-    out)."""
+    out; ``symmetrize=False``: the full square's operations)."""
     n, m, f = model.n, model.m, 4
     imm = isinstance(model, filters.IMMModel)
     K = model.K if imm else 1
@@ -874,20 +888,22 @@ def step_work(model, N):
     z1 = torch.zeros((1, m))
     if imm:
         per = ops_of(lambda: ref.katana_bank_imm_step_plain(
-            model, x1.expand(K, 1, n), P1.expand(K, 1, n, n), z1))
+            model, x1.expand(K, 1, n), P1.expand(K, 1, n, n), z1,
+            symmetrize))
     else:
         per = ops_of(lambda: ref.katana_bank_step_plain(model, x1[None],
-                                                        P1[None], z1))
+                                                        P1[None], z1,
+                                                        symmetrize))
     return nbytes, per * N
 
 
-def host_ms(fn) -> float:
-    """Host milliseconds of one call, the card idle before and after."""
+def timed_host(fn):
+    """(result, host ms of one call), the card idle before and after."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def timed_once(fn):
@@ -1035,20 +1051,26 @@ def phase_replay(kind, plain_ms):
                                                       max_meas=M_SERVE),
                          device=DEV)
     ops.reset_launches()
+    # PERF.md's replay metric: host clock from the numpy stream in to the
+    # numpy states out; the engine's own span ends when the stream is done
+    # on the card, before the copy back
+    t0 = time.perf_counter()
     out = eng.replay(zs)
+    host_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     assert launches[name] == -(-T // chunk), (kind, launches)
     assert eng.stats.frames == 0 and eng.stats.replay_frames == T
     assert out.shape == (T, N, model.n) and np.isfinite(out).all()
-    fps = eng.stats.replay_fps
+    fps = T / host_s
+    assert eng.stats.replay_latency_s < host_s
 
     # the finals of the same stream, and the kernel's times
     zs_t, x0_t, P0_t = dev_(zs, x0, P0)
     seq = ops.katana_imm_sequence if is_imm else ops.katana_bank_sequence
     xs_t, fin = seq(model, zs_t, x0_t, P0_t, return_final=True)
     assert np.array_equal(xs_t.cpu().numpy(), out), kind
-    h2d_ms = host_ms(lambda: torch.from_numpy(zs).to(DEV))
-    d2h_ms = host_ms(lambda: xs_t.cpu())
+    h2d_ms = timed_host(lambda: torch.from_numpy(zs).to(DEV))[1]
+    d2h_ms = timed_host(lambda: xs_t.cpu())[1]
     # CUDA events only, the device queued behind a spin: torch.profiler
     # sessions this late in the run have recorded none or part of the
     # scans' launches
@@ -1099,7 +1121,8 @@ def phase_replay(kind, plain_ms):
         assert err <= max(TOL[kind], ROUTE_SLACK * err32), (kind, f, err,
                                                             err32)
     row = dict(N=N, T=T, replay_fps=fps, track_frames_per_s=fps * N,
-               replay_s=eng.stats.replay_latency_s, h2d_zs_ms=h2d_ms,
+               replay_s=host_s, engine_replay_s=eng.stats.replay_latency_s,
+               engine_replay_fps=eng.stats.replay_fps, h2d_zs_ms=h2d_ms,
                d2h_xs_ms=d2h_ms, kernel_ms=ms, one_launch_ms=ms_one,
                plain_ms=plain_ms[f"scan_{kind}"], bound_ms=bms, bound_by=by,
                bytes=nb, operations=nops, launches=launches[name],
@@ -1118,7 +1141,7 @@ def phase_replay(kind, plain_ms):
     else:
         inst = ops.pick_pattern((model,)).name
         nl = "Lb0" if model.is_linear else "Lb1"
-        entry = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0E")
+        entry = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0ELb1E")
         regs = ptxas_registers("scan.cu", *entry)
         # resident blocks of 128 threads an SM at these registers, and the
         # waves of the launch's blocks on the card's SMs
@@ -1133,11 +1156,14 @@ def phase_replay(kind, plain_ms):
               f"waves on {sms} SMs): {ms:.3f} ms by events (device queued) "
               f"in {launches[name]} launch(es); bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of it reached")
-        _print_ptxas_of("scan.cu", entry, ("first_frame",) + entry[1:])
+        _print_ptxas_of("scan.cu", entry,
+                        ("first_frame", f"{len(inst)}{inst}E{nl}ELb0EE"))
     print(f"[replay {kind}] N={N} T={T}: {fps:.1f} frames/s, "
-          f"{fps * N:.4g} track-frames/s (engine, host clock incl. the copies "
-          f"of zs in and xs out: {eng.stats.replay_latency_s * 1e3:.1f} ms; "
-          f"the copies alone {h2d_ms:.1f} ms in, {d2h_ms:.1f} ms out) | "
+          f"{fps * N:.4g} track-frames/s (host clock from numpy in to numpy "
+          f"out: {host_s * 1e3:.1f} ms; the engine's span, zs in to the "
+          f"stream done: {eng.stats.replay_latency_s * 1e3:.1f} ms, "
+          f"{eng.stats.replay_fps:.1f} frames/s; the copies alone "
+          f"{h2d_ms:.1f} ms in, {d2h_ms:.1f} ms out) | "
           f"{name}: {ms:.3f} ms (plain {row['plain_ms']:.1f} ms, bound "
           f"{bms:.4f} ms by {by}: {both_bounds(nb, nops)}), "
           f"{launches[name]} launches; the stream in one launch "
@@ -1181,20 +1207,20 @@ def phase_per_frame(plain_ms):
                           bound_share=bms / ms, soa_ms=soa_ms,
                           soa_bound_share=bms / soa_ms, instantiation=inst,
                           registers=ptxas_registers(
-                              "imm_step.cu", "imm_step", f"{len(inst)}{inst}",
-                              "Lb0"),
+                              "imm_step.cu", "imm_step",
+                              f"{len(inst)}{inst}ELb0ELb1E"),
                           soa_registers=ptxas_registers(
                               "imm_step.cu", "bank_step_soa",
-                              f"{len(inst)}{inst}"))
+                              f"{len(inst)}{inst}ELb1E"))
         print(f"[per-frame {kind}] {T} katana_bank calls == the scan's final "
               f"(x, P) bitwise; instantiation {inst}: {ms:.4f} ms a call by "
               f"events (device queued), {bms / ms:.1%} of the bound; "
               f"katana_bank_soa {soa_ms:.4f} ms, {bms / soa_ms:.1%} (plain "
               f"{rows[kind]['plain_ms']:.2f} ms, bound {bms:.5f} ms by {by}: "
               f"{both_bounds(*work)})")
-        _print_ptxas_of("imm_step.cu", ("imm_step", f"{len(inst)}{inst}",
-                                        "Lb0"),
-                        ("bank_step_soa", f"{len(inst)}{inst}"))
+        _print_ptxas_of("imm_step.cu",
+                        ("imm_step", f"{len(inst)}{inst}ELb0ELb1E"),
+                        ("bank_step_soa", f"{len(inst)}{inst}ELb1E"))
     imm = replay_model("imm")
     zs, x0, P0 = dev_(*replay_stream("imm"))
     T, N, _ = zs.shape
@@ -1244,8 +1270,8 @@ def phase_per_frame(plain_ms):
                        outside_ref_tolerance=int(over.sum()),
                        instantiation=inst, bound_share=bms / ms,
                        registers=ptxas_registers("imm_step.cu", "imm_step",
-                                                 f"{len(inst)}{inst}",
-                                                 "Lb1"))
+                                                 f"{len(inst)}{inst}"
+                                                 "ELb1ELb1E"))
     print(f"[per-frame imm] katana_bank_imm, instantiation {inst} "
           f"({rows['imm']['registers']} registers): {ms:.4f} ms a launch by "
           f"events (device queued); {launches} launches in "
@@ -1285,6 +1311,289 @@ def phase_resumed_bank(eng):
     print(f"[resumed bank] replay_imm_bank C={C} T={T_REPLAY} from the live "
           f"bank ({int(bank.active.sum())} active): resumed half == whole "
           "stream's second half bitwise; live bank unchanged")
+
+
+# ---------------------------------------------------------------------------
+# The paper's stage ladder (core/rewrites.py) at the batches of the port's
+# configs/katana.py, T = 300 frames at the configs' 30 FPS dt: the
+# single-filter stages at N = 1, the batched ones at the paper's N = 200
+# (Table I), the lanes and kernel stages at the pod's N = 131,072. Each
+# stage runs at its default symmetrize=False, as the reference's do.
+# ---------------------------------------------------------------------------
+
+STAGE_T = 300
+# frames of the asymmetric-seed cases of the pod-size kernel stages (the
+# timed run's own xs are held over all STAGE_T): the plain ekf imm_bank
+# takes ~6 s for 300 frames on the H100
+STAGE_ASYM_T = 60
+STAGE_TIERS = (("single", ("baseline", "opt1", "opt2")),
+               ("batched", ("batched_blockdiag", "batched_lanes")),
+               ("pod", ("batched_lanes", "fused_scan", "imm_bank",
+                        "imm_scan")))
+_TIER_SUFFIX = {"single": "", "batched": "-batched", "pod": "-pod"}
+# the kernels of the ladder's main path: stage -> (the wrapper ops.LAUNCHES
+# counts, its launches a run, the kernels row of the kernel it launches):
+# imm_scan's K = 1 katana_imm_sequence launches scan.cu's bank_scan
+STAGE_KERNELS = {"fused_scan": ("katana_bank_sequence", 1,
+                                "katana_bank_sequence"),
+                 "imm_bank": ("katana_bank_imm", STAGE_T, "katana_bank_imm"),
+                 "imm_scan": ("katana_imm_sequence", 1,
+                              "katana_bank_sequence")}
+
+
+def stage_inputs(kind, tier, N):
+    """(zs (T, N, m), x0, P0) numpy: N = 1 one ``single_target`` track;
+    otherwise the first N lanes of the replay phase's stream (lane k
+    follows target k % N_BASE of ``batched_targets``, its own noise),
+    seeded at the model's prior."""
+    model = replay_model(kind)
+    if tier == "single":
+        _, z = traj.single_target(model, STAGE_T, seed=0)
+        return (z[:, None].astype(np.float32), model.x0[None].astype(
+            np.float32), model.P0[None].astype(np.float32))
+    zs, x0, P0 = replay_stream(kind, max(N, N_REPLAY), STAGE_T)
+    return zs[:, :N], x0[:N], P0[:N]
+
+
+def stage_oracle(kind, zs, x0, P0):
+    """(sample lanes, float64 xs) of the oracle (core/ref.py): every lane
+    up to N_SAMPLE of them, else a seeded sample of N_SAMPLE (at the
+    replay size the replay phase's)."""
+    N = zs.shape[1]
+    if (N, STAGE_T) == (N_REPLAY, T_REPLAY) and kind in _ORACLE:
+        return _ORACLE[kind][:2]
+    pick = (np.arange(N) if N <= N_SAMPLE else np.sort(
+        np.random.default_rng(3).choice(N, N_SAMPLE, replace=False)))
+    exact = oracle.run_batched(replay_model(kind),
+                               zs[:, pick].astype(np.float64), x0[pick],
+                               P0[pick])[0]
+    return pick, exact
+
+
+def ptxas_spill(source, *parts):
+    """Bytes of spill stores ptxas reported for the entry of ``source``
+    whose mangled name holds every one of ``parts``, or None."""
+    entry = None
+    for ln in build.BUILD_LOG.get(source, {}).get("ptxas", []):
+        if "Compiling entry" in ln:
+            entry = ln
+        elif entry and "spill stores" in ln and all(p in entry
+                                                    for p in parts):
+            return int(ln.split("bytes spill stores")[0].split(",")[-1])
+    return None
+
+
+def phase_stages():
+    """The stage ladder through ``rewrites.run_sequence`` / ``build_stage``
+    on the card: every (filter, stage, N) within TOL of the float64
+    oracle by |d| / max(1, |ref|), with its host ms a run (steady state:
+    after a warm-up run, the whole stream for the one-launch stages), µs
+    a step and steps/s (a Table I row); the launch counts of the kernel
+    stages at the pod size; those stages bit for bit with their plain
+    versions on the card (``stage_kernels_bitwise``); the
+    symmetrize=False kernels' times, bounds, registers and spill beside
+    the True ones. Returns (the rows, the ladder's launches by kernels
+    row and stage, the symmetrize=False rows)."""
+    t_phase = time.perf_counter()
+    # the dense block-diagonal GEMMs of batched_blockdiag hold the oracle's
+    # band only in full float32 (TF32 keeps ~3 decimal digits)
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows, launches, full = [], {}, {}
+    for kind in ("lkf", "ekf"):
+        model = replay_model(kind)
+        for tier, stages in STAGE_TIERS:
+            cfg = kcfg.ALL[f"katana-{kind}{_TIER_SUFFIX[tier]}"]
+            assert (cfg.filter_kind, cfg.state_dim, cfg.meas_dim) == (
+                kind, model.n, model.m) and cfg.dt == model.dt
+            N = cfg.batch
+            host = stage_inputs(kind, tier, N)
+            zs, x0, P0 = dev_(*host)
+            pick, exact = stage_oracle(kind, *host)
+            timed = {}  # the kernel stages' xs, held against plain below
+            for stage in stages:
+                # warm-up: the one-launch stages allocate the whole
+                # stream's xs, the others a frame's temporaries
+                warm = zs if stage in ("fused_scan", "imm_scan") else zs[:2]
+                rewrites.run_sequence(model, stage, warm, x0, P0, device=DEV)
+                ops.reset_launches()
+                xs, ms = timed_host(lambda: rewrites.run_sequence(
+                    model, stage, zs, x0, P0, device=DEV))
+                counts = dict(ops.LAUNCHES)
+                if stage in STAGE_KERNELS:
+                    name, want, kernel = STAGE_KERNELS[stage]
+                    assert counts[name] == want, (stage, counts)
+                    by_stage = launches.setdefault(kernel, {})
+                    by_stage[stage] = by_stage.get(stage, 0) + counts[name]
+                    timed[stage] = xs
+                assert sum(counts.values()) == (
+                    STAGE_KERNELS[stage][1] if stage in STAGE_KERNELS
+                    else 0), (stage, counts)
+                err = max_rel(xs[:, torch.as_tensor(pick, device=DEV)].cpu(),
+                              torch.as_tensor(exact))
+                assert err <= TOL[kind], (kind, stage, N, err)
+                row = dict(filter=kind, stage=stage, N=N, T=STAGE_T,
+                           config=cfg.name, ms=ms,
+                           us_per_step=ms * 1e3 / STAGE_T,
+                           steps_per_s=STAGE_T / ms * 1e3,
+                           max_rel_vs_f64=err, oracle_lanes=len(pick))
+                rows.append(row)
+                print(f"[stages] {kind} {stage:17s} N={N:<6d} "
+                      f"{row['us_per_step']:10.1f} µs/step "
+                      f"{row['steps_per_s']:10.1f} steps/s  vs float64 "
+                      f"{err:.3g} ({len(pick)} lanes)")
+            if tier == "pod":
+                # one build_stage("fused_scan") step: one katana_bank
+                step, _ = rewrites.build_stage(model, "fused_scan", N=N,
+                                               device=DEV)
+                ops.reset_launches()
+                step(x0, P0, zs[0])
+                assert ops.LAUNCHES["katana_bank"] == 1 and sum(
+                    ops.LAUNCHES.values()) == 1
+                by_stage = launches.setdefault("katana_bank", {})
+                by_stage["fused_scan step"] = by_stage.get(
+                    "fused_scan step", 0) + 1
+                full[kind] = stage_kernels_bitwise(model, zs, x0, P0, timed)
+                del timed
+    full["imm"] = imm_step_full_square()
+    print(f"[stages] launches of the kernel stages: {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, full
+
+
+def _plain_bank_imm(imm, x, P, z, symmetrize=True):
+    return ref.katana_bank_imm_step_plain(imm, x, P, z, symmetrize)
+
+
+def stage_kernels_bitwise(model, zs, x0, P0, timed):
+    """The pod-size kernel stages bit for bit with their plain versions
+    on the card. First the timed run's own xs over all T frames of zs
+    (``timed``: run_sequence's default symmetrize=False, the model's
+    prior P0): fused_scan and imm_scan (K = 1: the same scan) against
+    ``katana_bank_scan_plain``, imm_bank against ``imm_bank_sequence`` on
+    the plain step. Then so again over STAGE_ASYM_T frames at symmetrize
+    False and True from a seed P that is symmetric only to rounding, and
+    fused_scan's step against ``katana_bank_step_plain``. Then the
+    symmetrize=False times of the scan and the step (CUDA events, the
+    device queued), their bounds, registers and spill, beside the True
+    ones. Returns them."""
+    kind = "ekf" if not model.is_linear else "lkf"
+    t_check = time.perf_counter()
+    N, n = x0.shape
+
+    def plain_imm_bank(z, P, sym):
+        with mock.patch.object(ops, "katana_bank_imm", _plain_bank_imm):
+            return ops.imm_bank_sequence(filters.as_imm(model), z, x0, P,
+                                         symmetrize=sym)
+
+    want = ref.katana_bank_scan_plain(model, x0, P0, zs, symmetrize=False)[0]
+    for stage in ("fused_scan", "imm_scan"):
+        assert torch.equal(timed[stage], want), (kind, stage, "timed run")
+    del want
+    assert torch.equal(timed["imm_bank"], plain_imm_bank(zs, P0, False)), (
+        kind, "imm_bank", "timed run")
+    zb = zs[:STAGE_ASYM_T].contiguous()
+    rng = np.random.default_rng(41)
+    P0a = (P0 + torch.as_tensor(1e-3 * rng.standard_normal(
+        (N, n, n), dtype=np.float32), device=DEV)).contiguous()
+    xs_by = {}
+    for sym in (False, True):
+        want = ref.katana_bank_scan_plain(model, x0, P0a, zb, symmetrize=sym)
+        for stage in ("fused_scan", "imm_scan"):
+            got = rewrites.run_sequence(model, stage, zb, x0, P0a,
+                                        symmetrize=sym, device=DEV)
+            assert torch.equal(got, want[0]), (kind, stage, sym)
+        xs_by[sym] = want[0]
+        got = rewrites.run_sequence(model, "imm_bank", zb, x0, P0a,
+                                    symmetrize=sym, device=DEV)
+        assert torch.equal(got, plain_imm_bank(zb, P0a, sym)), (
+            kind, "imm_bank", sym)
+        step, _ = rewrites.build_stage(model, "fused_scan", N=N,
+                                       symmetrize=sym, device=DEV)
+        got = step(x0, P0a, zb[0])
+        want = ref.katana_bank_step_plain(model, x0, P0a, zb[0], sym)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (kind, sym)
+        assert not torch.equal(got[1], got[1].transpose(1, 2)) or sym
+    gap = max_diff(xs_by[False], xs_by[True])
+    assert gap > 0, kind  # the two contracts part on this seed
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t_check
+    inst = ops.pick_pattern((model,)).name
+    nl = "Lb0" if model.is_linear else "Lb1"
+    out = {}
+    for sym in (False, True):
+        b = f"Lb{int(sym)}E"
+        scan_ms = cuda_ms(lambda: ops.katana_bank_sequence(
+            model, zs, x0, P0, symmetrize=sym), 10, spin=True)
+        step_ms = cuda_ms(lambda: ops.katana_bank(
+            model, x0, P0, zs[0], symmetrize=sym), 50, spin=True)
+        scan_b = bound(*scan_work(model, N, zs.shape[0], sym))
+        step_b = bound(*step_work(model, N, sym))
+        scan_e = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0E{b}")
+        step_e = ("imm_step", f"{len(inst)}{inst}ELb0E{b}")
+        out["sym" if sym else "full_square"] = dict(
+            scan_ms=scan_ms, scan_bound_ms=scan_b[0], scan_bound_by=scan_b[1],
+            scan_registers=ptxas_registers("scan.cu", *scan_e),
+            scan_spill=ptxas_spill("scan.cu", *scan_e),
+            step_ms=step_ms, step_bound_ms=step_b[0],
+            step_bound_by=step_b[1],
+            step_registers=ptxas_registers("imm_step.cu", *step_e),
+            step_spill=ptxas_spill("imm_step.cu", *step_e))
+        _print_ptxas_of("scan.cu", scan_e)
+        _print_ptxas_of("imm_step.cu", step_e,
+                        ("bank_step_soa", f"{len(inst)}{inst}E{b}"))
+    for key, r in out.items():
+        print(f"[stages] {kind} {key} (instantiation {inst}): "
+              f"katana_bank_sequence {r['scan_ms']:.3f} ms (bound "
+              f"{r['scan_bound_ms']:.4f} by {r['scan_bound_by']}, "
+              f"{r['scan_registers']} registers, {r['scan_spill']} B spill), "
+              f"katana_bank {r['step_ms']:.4f} ms (bound "
+              f"{r['step_bound_ms']:.5f} by {r['step_bound_by']}, "
+              f"{r['step_registers']} registers, {r['step_spill']} B spill)")
+    print(f"[stages] {kind} N={N}: the timed run's fused_scan, imm_scan "
+          f"and imm_bank bitwise equal to their plain versions over all "
+          f"{zs.shape[0]} frames (symmetrize=False, the prior P0); so "
+          f"again over {STAGE_ASYM_T} frames, and fused_scan's step, at "
+          f"symmetrize False and True (seed P asymmetric by 1e-3); the two "
+          f"contracts part by "
+          f"{gap:.3g}; checks {t_check:.1f} s")
+    return out
+
+
+def imm_step_full_square():
+    """katana_bank_imm at K = 4 (imm9) on the replay size with
+    symmetrize=False: bit for bit with its plain version on an asymmetric
+    P, its time beside symmetrize=True's, bounds, registers, spill."""
+    imm = replay_model("imm")
+    zs, x0, P0 = dev_(*replay_stream("imm"))
+    K, N, n = imm.K, x0.shape[0], imm.n
+    rng = np.random.default_rng(43)
+    xK = (x0[None] + torch.as_tensor(0.05 * rng.standard_normal(
+        (K, N, n), dtype=np.float32), device=DEV)).contiguous()
+    PK = P0[None].expand(K, N, n, n).contiguous()
+    PKa = (PK + torch.as_tensor(1e-3 * rng.standard_normal(
+        (K, N, n, n), dtype=np.float32), device=DEV)).contiguous()
+    for sym in (False, True):
+        got = ops.katana_bank_imm(imm, xK, PKa, zs[0], symmetrize=sym)
+        want = ref.katana_bank_imm_step_plain(imm, xK, PKa, zs[0], sym)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), sym
+    out = {}
+    inst = ops.pick_pattern(imm.models).name
+    for sym in (False, True):
+        ms = cuda_ms(lambda: ops.katana_bank_imm(imm, xK, PK, zs[0],
+                                                 symmetrize=sym), 50,
+                     spin=True)
+        bms, by = bound(*step_work(imm, N, sym))
+        e = ("imm_step", f"{len(inst)}{inst}ELb1ELb{int(sym)}E")
+        out["sym" if sym else "full_square"] = dict(
+            step_ms=ms, step_bound_ms=bms, step_bound_by=by,
+            step_registers=ptxas_registers("imm_step.cu", *e),
+            step_spill=ptxas_spill("imm_step.cu", *e))
+        _print_ptxas_of("imm_step.cu", e)
+        print(f"[stages] imm K={K} N={N} katana_bank_imm symmetrize={sym}: "
+              f"{ms:.4f} ms (bound {bms:.5f} by {by}, {bms / ms:.1%}); "
+              "bitwise equal to its plain version on an asymmetric P")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2026,6 +2335,7 @@ def main() -> int:
     replay = {kind: phase_replay(kind, plain_r)
               for kind in ("lkf", "ekf", "imm")}
     per_frame = phase_per_frame(plain_r)
+    stages, ladder, full_sq = phase_stages()
     phase_resumed_bank(engines["imm"])
     lm, lm_kern = phase_lm(get_config(LM_ARCH), LM_B, LM_S, LM_STEPS, card)
     mamba, lm_kern["ssd_scan"] = phase_mamba(
@@ -2033,6 +2343,10 @@ def main() -> int:
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
+        # the stage ladder's own launches of the kernel, by stage
+        # (phase_stages), apart from the main path's ``launches``
+        if name in ladder:
+            extra = dict(extra, ladder_launches=ladder[name])
         return dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches,
                     max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
@@ -2080,7 +2394,10 @@ def main() -> int:
                       "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                       "bound_share", "launches", "replay_fps",
                       "instantiation", "registers", "waves")}
-                  for k in ("lkf", "ekf")})),
+                  for k in ("lkf", "ekf")},
+                   full_square={k: {f: v for f, v in full_sq[k][
+                       "full_square"].items() if f.startswith("scan")}
+                       for k in ("lkf", "ekf")})),
         entry("katana_imm_sequence", replay["imm"]["kernel_ms"],
               replay["imm"]["plain_ms"], replay["imm"]["bound_ms"],
               replay["imm"]["bound_by"], replay["imm"]["launches"],
@@ -2100,7 +2417,10 @@ def main() -> int:
                    bound_share=per_frame["lkf"]["bound_share"],
                    soa_ms=per_frame["lkf"]["soa_ms"],
                    registers=per_frame["lkf"]["registers"], by_model={
-                       k: per_frame[k] for k in ("lkf", "ekf")})),
+                       k: per_frame[k] for k in ("lkf", "ekf")},
+                   full_square={k: {f: v for f, v in full_sq[k][
+                       "full_square"].items() if f.startswith("step")}
+                       for k in ("lkf", "ekf")})),
         entry("katana_bank_imm", per_frame["imm"]["kernel_ms"],
               per_frame["imm"]["plain_ms"], per_frame["imm"]["bound_ms"],
               per_frame["imm"]["bound_by"], per_frame["imm"]["launches"],
@@ -2108,7 +2428,8 @@ def main() -> int:
                          "imm_bank_sequence)",
                    driver_ms=per_frame["imm"]["driver_ms"],
                    instantiation=per_frame["imm"]["instantiation"],
-                   registers=per_frame["imm"]["registers"])),
+                   registers=per_frame["imm"]["registers"],
+                   full_square=full_sq["imm"]["full_square"])),
     ] + [entry(name, k.pop("ms"), k.pop("plain_ms"), k.pop("bound_ms"),
                k.pop("bound_by"), k.pop("launches"), k,
                library_ms=k.pop("library_ms"))
@@ -2118,6 +2439,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, rows=rows,
                  greedy=greedy, replay=replay, per_frame=per_frame,
+                 stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

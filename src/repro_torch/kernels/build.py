@@ -62,7 +62,7 @@ SIGNATURES = {
     },
     "scan.cu": {
         "katana_bank_scan_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _I, _F, _P, _P, _P, _P, _P],
+                                 _I, _F, _P, _P, _P, _P, _I, _P],
     },
     "imm_scan.cu": {
         "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -70,7 +70,7 @@ SIGNATURES = {
     },
     "imm_step.cu": {
         "katana_imm_step_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F,
-                                _F, _P, _P, _P, _P],
+                                _F, _P, _P, _P, _I, _P],
         "katana_bank_soa_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
                                 _P, _P],
     },

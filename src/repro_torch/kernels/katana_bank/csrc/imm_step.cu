@@ -36,7 +36,10 @@
 // a nonlinear member (the CTRA-8 EKF): its Jacobian is built at the lane's
 // state and pruned by the same Pattern. Layouts are canonical: x (K, N, n),
 // P (K, N, n, n), z (N, m), loglik (K, N). P is read whole (the mixed P
-// need not be symmetric to the bit); P' is the upper triangle, mirrored.
+// need not be symmetric to the bit). Sym (symmetrize=True, the default):
+// P' is the upper triangle, mirrored; otherwise every entry of F P F^T + Q
+// and of the update is computed (the reference's full square), so an
+// asymmetric P stays asymmetric, at n(n-1)/2 more dot products a lane.
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
@@ -78,7 +81,7 @@ __device__ __forceinline__ void lanes_out(float* g, const float* s, int nl,
 
 // Canonical layout, staged through shared memory; LL: write the
 // log-likelihood (the IMM step) or not (katana_bank).
-template <class Pat, bool LL>
+template <class Pat, bool LL, bool Sym>
 __global__ void __launch_bounds__(kLanes)
 imm_step(int Ntr, int K, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ z,
@@ -110,8 +113,9 @@ imm_step(int Ntr, int K, const float* __restrict__ x,
     for (int i = 0; i < N; ++i) xv[i] = xl[i];
 #pragma unroll
     for (int r = 0; r < M; ++r) zv[r] = z[(size_t)c * M + r];
-    step_lane<Pat>(ConstsIn<N, M>{consts + k * model_stride<N, M>()},
-                   nonlinear != 0, dt, xv, Pa, zv, xp, Pp, xn, Pn, S, Si, y);
+    step_lane<Pat, Sym>(ConstsIn<N, M>{consts + k * model_stride<N, M>()},
+                        nonlinear != 0, dt, xv, Pa, zv, xp, Pp, xn, Pn, S, Si,
+                        y);
     if constexpr (LL) ll[l] = gaussian_loglik<M>(S, Si, y, log2pi_m);
 #pragma unroll
     for (int i = 0; i < N; ++i) xl[i] = xn[i];
@@ -125,7 +129,8 @@ imm_step(int Ntr, int K, const float* __restrict__ x,
   lanes_out<NN>(P_out + (size_t)l0 * NN, sP, nl, tid);
 }
 
-// Struct-of-arrays layout, one model: element e of lane c at e * Ntr + c.
+// Struct-of-arrays layout, one model: element e of lane c at e * Ntr + c;
+// symmetrize=True only.
 template <class Pat>
 __global__ void __launch_bounds__(kLanes)
 bank_step_soa(int Ntr, const float* __restrict__ x,
@@ -143,8 +148,8 @@ bank_step_soa(int Ntr, const float* __restrict__ x,
   for (int i = 0; i < N; ++i) xv[i] = x[at(i)];
 #pragma unroll
   for (int r = 0; r < M; ++r) zv[r] = z[at(r)];
-  step_lane<Pat>(ConstsIn<N, M>{consts}, nonlinear != 0, dt, xv, Pa, zv, xp,
-                 Pp, xn, Pn, S, Si, y);
+  step_lane<Pat, true>(ConstsIn<N, M>{consts}, nonlinear != 0, dt, xv, Pa,
+                       zv, xp, Pp, xn, Pn, S, Si, y);
 #pragma unroll
   for (int i = 0; i < N; ++i) x_out[at(i)] = xn[i];
 #pragma unroll
@@ -153,23 +158,22 @@ bank_step_soa(int Ntr, const float* __restrict__ x,
     for (int j = 0; j < N; ++j) P_out[at(i * N + j)] = Pn[i][j];
 }
 
-template <class Pat>
-int launch_step(int K, int Ntr, const void* x, const void* P, const void* z,
-                const void* consts, int nonlinear, float dt, float log2pi_m,
-                void* x_out, void* P_out, void* ll, cudaStream_t s) {
+template <class Pat, bool Sym>
+void launch_step(int K, int Ntr, const void* x, const void* P, const void* z,
+                 const void* consts, int nonlinear, float dt, float log2pi_m,
+                 void* x_out, void* P_out, void* ll, cudaStream_t s) {
   const int blocks = (K * Ntr + kLanes - 1) / kLanes;
   if (ll != nullptr) {
-    imm_step<Pat, true><<<blocks, kLanes, 0, s>>>(
+    imm_step<Pat, true, Sym><<<blocks, kLanes, 0, s>>>(
         Ntr, K, (const float*)x, (const float*)P, (const float*)z,
         (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
         (float*)P_out, (float*)ll);
   } else {
-    imm_step<Pat, false><<<blocks, kLanes, 0, s>>>(
+    imm_step<Pat, false, Sym><<<blocks, kLanes, 0, s>>>(
         Ntr, K, (const float*)x, (const float*)P, (const float*)z,
         (const float*)consts, nonlinear, dt, log2pi_m, (float*)x_out,
         (float*)P_out, nullptr);
   }
-  return (int)cudaGetLastError();
 }
 
 template <class Pat>
@@ -190,25 +194,32 @@ extern "C" {
 // id of an instantiated Pattern of shape (n, m) (pruned.cuh,
 // KATANA_IMM_PATTERNS); any other combination returns
 // cudaErrorInvalidValue without launching. ll null: no log-likelihood
-// (katana_bank, K = 1).
+// (katana_bank, K = 1). sym: 1 for symmetrize=True, 0 for the full square.
 int katana_imm_step_run(int K, int n, int m, int pattern, int Ntr,
                         const void* x, const void* P, const void* z,
                         const void* consts, int nonlinear, float dt,
                         float log2pi_m, void* x_out, void* P_out, void* ll,
-                        void* stream) {
+                        int sym, void* stream) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
 #define KATANA_IMM_STEP_CASE(id, name, n_, m_, ...)                          \
-  if (pattern == id && n == n_ && m == m_)                                  \
-    return launch_step<name>(K, Ntr, x, P, z, consts, nonlinear, dt,        \
-                             log2pi_m, x_out, P_out, ll, s);
+  if (pattern == id && n == n_ && m == m_) {                                \
+    if (sym)                                                                \
+      launch_step<name, true>(K, Ntr, x, P, z, consts, nonlinear, dt,       \
+                              log2pi_m, x_out, P_out, ll, s);               \
+    else                                                                    \
+      launch_step<name, false>(K, Ntr, x, P, z, consts, nonlinear, dt,      \
+                               log2pi_m, x_out, P_out, ll, s);              \
+    return (int)cudaGetLastError();                                         \
+  }
   KATANA_IMM_PATTERNS(KATANA_IMM_STEP_CASE)
 #undef KATANA_IMM_STEP_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // One frame for Ntr tracks of one model, struct-of-arrays layout: x (n, N),
-// P (n, n, N), z (m, N). Same patterns as katana_imm_step_run.
+// P (n, n, N), z (m, N). Same patterns as katana_imm_step_run;
+// symmetrize=True only.
 int katana_bank_soa_run(int n, int m, int pattern, int Ntr, const void* x,
                         const void* P, const void* z, const void* consts,
                         int nonlinear, float dt, void* x_out, void* P_out,

@@ -175,8 +175,9 @@ __device__ __forceinline__ float mahalanobis(const float (&Si)[M][M],
 }
 
 // Kalman update from the predicted state and the frame's S^-1:
-// K = P'H^T S^-1, x = x' + K y, P = P' - K P'[obs, :] (upper, mirrored).
-template <int N, int M>
+// K = P'H^T S^-1, x = x' + K y, P = P' - K P'[obs, :] (Sym: the upper
+// triangle, mirrored; otherwise every entry).
+template <int N, int M, bool Sym = true>
 __device__ __forceinline__ void kalman_update(const float (&xp)[N],
                                               const float (&Pp)[N][N],
                                               const float (&Si)[M][M],
@@ -206,12 +207,12 @@ __device__ __forceinline__ void kalman_update(const float (&xp)[N],
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = i; j < N; ++j) {
+    for (int j = Sym ? i : 0; j < N; ++j) {
       float acc = Pp[i][j];
 #pragma unroll
       for (int r = 0; r < M; ++r) acc = acc - K[i][r] * Pp[obs<N, M>(r)][j];
       Pn[i][j] = acc;
-      Pn[j][i] = acc;
+      if constexpr (Sym) Pn[j][i] = acc;
     }
 }
 

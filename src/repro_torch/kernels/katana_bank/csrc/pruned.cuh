@@ -149,10 +149,11 @@ __device__ __forceinline__ void predict_mean(const FV& Fv,
     xp[i] = fdot<Pat>(i, Fv, [&](int k) { return x[k]; });
 }
 
-// P' = upper triangle of F P F^T + Q, mirrored (ref._predict_cov): row i
-// of F P, then P'[i][j] = F[j] . (F P)[i] for j >= i. Pa(k, j) reads
-// P[k][j]; only one row of F P is live at a time.
-template <class Pat, class FV, class QV, class PA>
+// P' = F P F^T + Q (ref._predict_cov): row i of F P, then
+// P'[i][j] = F[j] . (F P)[i]. Sym (symmetrize=True): j >= i, mirrored;
+// otherwise every j, so an asymmetry of the products is kept. Pa(k, j)
+// reads P[k][j]; only one row of F P is live at a time.
+template <class Pat, bool Sym = true, class FV, class QV, class PA>
 __device__ __forceinline__ void predict_cov_pruned(const FV& Fv, const QV& Qv,
                                                    const PA& Pa,
                                                    float (&Pp)[Pat::N]
@@ -165,11 +166,11 @@ __device__ __forceinline__ void predict_cov_pruned(const FV& Fv, const QV& Qv,
     for (int j = 0; j < N; ++j)
       FP[j] = fdot<Pat>(i, Fv, [&](int k) { return Pa(k, j); });
 #pragma unroll
-    for (int j = i; j < N; ++j) {
+    for (int j = Sym ? i : 0; j < N; ++j) {
       float acc = fdot<Pat>(j, Fv, [&](int k) { return FP[k]; });
       if (!Pat::qz(i, j)) acc = acc + Qv(i, j);
       Pp[i][j] = acc;
-      Pp[j][i] = acc;
+      if constexpr (Sym) Pp[j][i] = acc;
     }
   }
 }
@@ -211,7 +212,7 @@ struct CtraJacobian {
 // the hard-coded dynamics and their Jacobian at the lane's state
 // (ref._predict_single). Pa(r, q) reads P[r][q]; every entry is read, so
 // P need not be symmetric to the bit.
-template <class Pat, class CS, class PA>
+template <class Pat, bool Sym = true, class CS, class PA>
 __device__ __forceinline__ void predict_pruned(const CS& cs, bool nonlinear,
                                                float dt,
                                                const float (&xv)[Pat::N],
@@ -232,31 +233,31 @@ __device__ __forceinline__ void predict_pruned(const CS& cs, bool nonlinear,
       xp[5] = om;
       xp[6] = a;
       xp[7] = vz;
-      predict_cov_pruned<Pat>(J, Qv, Pa, Pp);
+      predict_cov_pruned<Pat, Sym>(J, Qv, Pa, Pp);
       return;
     }
   }
   auto Fv = [&](int i, int j) { return cs.F(i, j); };
   predict_mean<Pat>(Fv, xv, xp);
-  predict_cov_pruned<Pat>(Fv, Qv, Pa, Pp);
+  predict_cov_pruned<Pat, Sym>(Fv, Qv, Pa, Pp);
 }
 
 // One predict+update of a lane: the prediction x', P', then S, S^-1, the
-// innovation y and the updated x, P (upper triangle, mirrored) from the
-// measurement zv. The bank steps, the replay scan and (predict and update
-// in two launches) the live frame all run this code, so T katana_bank
-// calls give the scan's state by construction.
-template <class Pat, class CS, class PA>
+// innovation y and the updated x, P (Sym: upper triangle, mirrored; else
+// every entry) from the measurement zv. The bank steps, the replay scan
+// and (predict and update in two launches) the live frame all run this
+// code, so T katana_bank calls give the scan's state by construction.
+template <class Pat, bool Sym = true, class CS, class PA>
 __device__ __forceinline__ void step_lane(
     const CS& cs, bool nonlinear, float dt, const float (&xv)[Pat::N],
     const PA& Pa, const float (&zv)[Pat::M], float (&xp)[Pat::N],
     float (&Pp)[Pat::N][Pat::N], float (&xn)[Pat::N],
     float (&Pn)[Pat::N][Pat::N], float (&S)[Pat::M][Pat::M],
     float (&Si)[Pat::M][Pat::M], float (&y)[Pat::M]) {
-  predict_pruned<Pat>(cs, nonlinear, dt, xv, Pa, xp, Pp);
+  predict_pruned<Pat, Sym>(cs, nonlinear, dt, xv, Pa, xp, Pp);
   innovation_pruned<Pat>(Pp, [&](int r, int q) { return cs.R(r, q); }, S,
                          Si);
-  kalman_update<Pat::N, Pat::M>(xp, Pp, Si, zv, y, xn, Pn);
+  kalman_update<Pat::N, Pat::M, Sym>(xp, Pp, Si, zv, y, xn, Pn);
 }
 
 // W floats of one lane between device memory and registers: 16-byte (or

@@ -32,6 +32,11 @@
 // they are used, so none holds a register. Launch bounds cap the
 // registers so that the lkf scan's 1,024 blocks of 128 fit one wave of
 // 8 blocks an SM on 132 SMs.
+// Sym = false (symmetrize=False, the rewrite stages' default) carries the
+// whole n x n P in registers instead, computes every entry of the predict
+// and the update (the reference's full square) and reads the seed whole
+// in the loop, so it needs no first_frame; its cap allows more registers
+// (6 / 4 blocks an SM for n <= 6 / n = 8) for the n(n-1)/2 more floats.
 // Memory: the block's z of frame t + 1 (one contiguous span of zs (T, N,
 // m)) comes into shared memory with cp.async while frame t computes
 // (double-buffered); each thread writes its x of frame t into a shared
@@ -52,9 +57,10 @@ namespace katana {
 constexpr int kThreads = 128;
 
 // resident blocks an SM: the register cap (65,536 / (128 * blocks))
-template <int N>
+template <int N, bool Sym>
 constexpr int scan_min_blocks() {
-  return N <= 6 ? 8 : 5;
+  if constexpr (Sym) return N <= 6 ? 8 : 5;
+  return N <= 6 ? 6 : 4;
 }
 
 struct ScanArgs {
@@ -123,12 +129,18 @@ first_frame(const __grid_constant__ ScanArgs a,
   store_vec<NN>(a.P_fin + (size_t)c * NN, Pv);
 }
 
-// NL: the CTRA-8 dynamics; VS: a valid stream.
-template <class Pat, bool NL, bool VS>
-__global__ void __launch_bounds__(kThreads, scan_min_blocks<Pat::N>())
+// NL: the CTRA-8 dynamics; VS: a valid stream; Sym: P's upper triangle
+// (symmetrize=True) or the whole square.
+template <class Pat, bool NL, bool VS, bool Sym>
+__global__ void __launch_bounds__(kThreads, scan_min_blocks<Pat::N, Sym>())
 bank_scan(const __grid_constant__ ScanArgs a,
           const __grid_constant__ ModelTable<Pat::N, Pat::M> tab) {
   constexpr int N = Pat::N, M = Pat::M, NN = N * N, NT = N * (N + 1) / 2;
+  // P[r][q]'s slot of the carried state
+  auto at = [](int r, int q) {
+    if constexpr (Sym) return r <= q ? tri<N>(r, q) : tri<N>(q, r);
+    return r * N + q;
+  };
   __shared__ __align__(16) float zb[2][kThreads * M];
   __shared__ __align__(16) float xb[2][kThreads * N];
   const int Ntr = a.Ntr, T = a.T, tid = threadIdx.x;
@@ -149,9 +161,10 @@ bank_scan(const __grid_constant__ ScanArgs a,
 
   // the seed: x and P's upper triangle, which is all of P (a block with a
   // lane whose seed P is not symmetric to the bit had frame 0 from
-  // first_frame: it starts at frame 1 from x_fin and P_fin)
-  const int t0 = a.first[blockIdx.x];
-  float xv[N], Pt[NT];
+  // first_frame: it starts at frame 1 from x_fin and P_fin); without Sym
+  // x and the whole P
+  const int t0 = Sym ? a.first[blockIdx.x] : 0;
+  float xv[N], Pt[Sym ? NT : NN];
   if (t0 < T) stage_z(t0);
   bool valid = VS && t0 < T ? a.vs[(size_t)t0 * Ntr + c] != 0 : true;
   {
@@ -161,7 +174,7 @@ bank_scan(const __grid_constant__ ScanArgs a,
 #pragma unroll
     for (int r = 0; r < N; ++r)
 #pragma unroll
-      for (int q = r; q < N; ++q) Pt[tri<N>(r, q)] = P0[r * N + q];
+      for (int q = Sym ? r : 0; q < N; ++q) Pt[at(r, q)] = P0[r * N + q];
   }
 
   // frame t: its z staged, the next frame's z and the last frame's xs on
@@ -176,11 +189,9 @@ bank_scan(const __grid_constant__ ScanArgs a,
 #pragma unroll
     for (int r = 0; r < M; ++r) z[r] = zb[t & 1][slot * M + r];
     float xp[N], Pp[N][N], xn[N], Pn[N][N], S[M][M], Si[M][M], y[M];
-    step_lane<Pat>(tab, NL, a.dt, xv,
-                   [&](int r, int q) {
-                     return Pt[r <= q ? tri<N>(r, q) : tri<N>(q, r)];
-                   },
-                   z, xp, Pp, xn, Pn, S, Si, y);
+    step_lane<Pat, Sym>(tab, NL, a.dt, xv,
+                        [&](int r, int q) { return Pt[at(r, q)]; }, z, xp,
+                        Pp, xn, Pn, S, Si, y);
     if constexpr (VS) {
       const float v = valid ? 1.0f : 0.0f;
       if (t + 1 < T) valid = a.vs[(size_t)(t + 1) * Ntr + c] != 0;
@@ -190,15 +201,15 @@ bank_scan(const __grid_constant__ ScanArgs a,
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = i; j < N; ++j)
-          Pt[tri<N>(i, j)] = v * Pn[i][j] + nv * Pp[i][j];
+        for (int j = Sym ? i : 0; j < N; ++j)
+          Pt[at(i, j)] = v * Pn[i][j] + nv * Pp[i][j];
     } else {
 #pragma unroll
       for (int i = 0; i < N; ++i) xv[i] = xn[i];
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = i; j < N; ++j) Pt[tri<N>(i, j)] = Pn[i][j];
+        for (int j = Sym ? i : 0; j < N; ++j) Pt[at(i, j)] = Pn[i][j];
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) xb[t & 1][tid * N + i] = xv[i];
@@ -210,27 +221,31 @@ bank_scan(const __grid_constant__ ScanArgs a,
 #pragma unroll
   for (int r = 0; r < N; ++r)
 #pragma unroll
-    for (int q = 0; q < N; ++q)
-      Pf[r * N + q] = Pt[r <= q ? tri<N>(r, q) : tri<N>(q, r)];
+    for (int q = 0; q < N; ++q) Pf[r * N + q] = Pt[at(r, q)];
   store_vec<N>(a.x_fin + c * N, xv);
   store_vec<NN>(a.P_fin + c * NN, Pf);
 }
 
-// The scan of an instantiated Pattern: first_frame, then bank_scan;
-// `consts` is the model's F, Q, R in host memory, copied into the
-// launches' parameters. A nonlinear model is the CTRA-8 (N = 8) only.
+// The scan of an instantiated Pattern: first_frame, then bank_scan (sym),
+// or bank_scan alone (the full square); `consts` is the model's F, Q, R in
+// host memory, copied into the launches' parameters. A nonlinear model is
+// the CTRA-8 (N = 8) only.
 template <class Pat>
 cudaError_t launch_scan(const ScanArgs& a, const void* consts, int nonlinear,
-                        cudaStream_t s) {
+                        int sym, cudaStream_t s) {
   ModelTable<Pat::N, Pat::M> tab;
   memcpy(&tab, consts, sizeof tab);
   const int blocks = (a.Ntr + kThreads - 1) / kThreads;
   auto run = [&](auto nl, auto vs) {
     constexpr bool NL = decltype(nl)::value, VS = decltype(vs)::value;
+    if (!sym) {
+      bank_scan<Pat, NL, VS, false><<<blocks, kThreads, 0, s>>>(a, tab);
+      return cudaGetLastError();
+    }
     first_frame<Pat, NL, VS><<<blocks, kThreads, 0, s>>>(a, tab);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    bank_scan<Pat, NL, VS><<<blocks, kThreads, 0, s>>>(a, tab);
+    bank_scan<Pat, NL, VS, true><<<blocks, kThreads, 0, s>>>(a, tab);
     return cudaGetLastError();
   };
   auto with_vs = [&](auto nl) {
@@ -253,12 +268,13 @@ extern "C" {
 // (n, m) (pruned.cuh, KATANA_IMM_PATTERNS); any other combination returns
 // cudaErrorInvalidValue without launching. `consts` is the model's F, Q,
 // R in HOST memory (ops._host_consts). vs may be null (every frame
-// valid). `first` holds a byte of scratch for every 128 tracks.
+// valid). `first` holds a byte of scratch for every 128 tracks (read
+// only with sym). sym: 1 for symmetrize=True, 0 for the full square.
 int katana_bank_scan_run(int n, int m, int pattern, int Ntr, int T,
                          const void* x, const void* P, const void* zs,
                          const void* vs, const void* consts, int nonlinear,
                          float dt, void* xs, void* x_fin, void* P_fin,
-                         void* first, void* stream) {
+                         void* first, int sym, void* stream) {
   using namespace katana;
   if (Ntr < 1 || T < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -267,7 +283,7 @@ int katana_bank_scan_run(int n, int m, int pattern, int Ntr, int T,
                    (float*)x_fin, (float*)P_fin, (uint8_t*)first};
 #define KATANA_SCAN_CASE(id, name, n_, m_, ...)                              \
   if (pattern == id && n == n_ && m == m_)                                  \
-    return (int)launch_scan<name>(a, consts, nonlinear, s);
+    return (int)launch_scan<name>(a, consts, nonlinear, sym, s);
   KATANA_IMM_PATTERNS(KATANA_SCAN_CASE)
 #undef KATANA_SCAN_CASE
   return (int)cudaErrorInvalidValue;

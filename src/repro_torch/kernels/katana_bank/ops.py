@@ -39,6 +39,13 @@ each wrapper (the frames also count their greedy launch under
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
 
+The bank steps, ``katana_bank_sequence`` and ``katana_imm_sequence`` at
+K = 1 take ``symmetrize`` as the reference's ops do: True (their default)
+computes the covariance's upper triangle, mirrors aliased; False (the
+default of the rewrite stages, ``core/rewrites.py``) every entry, each
+kernel's compile-time ``Sym = false`` route. The frames, the K > 1 IMM
+scan and ``katana_bank_soa`` run the True contract only.
+
 Every tracking kernel that predicts (the frames, the scans, the bank
 steps) is instantiated for compile-time constant patterns
 (csrc/pruned.cuh): which entries of F, Q and R every member model (or the
@@ -462,7 +469,8 @@ def _check_imm_scan(imm: IMMModel):
     _check_imm_scan_members(imm)
 
 
-def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
+def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
+                 symmetrize: bool = True):
     """One chunk of the single-model scan (csrc/scan.cu), on the model's
     compile-time pattern: xs (T, N, n) is written in place; returns
     (x_T, P_T)."""
@@ -490,7 +498,7 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs):
         zs.data_ptr(), None if valid is None else valid.data_ptr(),
         consts.ctypes.data, int(not model.is_linear), float(model.dt),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), first.data_ptr(),
-        build.stream_of(dev))
+        int(symmetrize), build.stream_of(dev))
     build.check(lib, code, "katana_bank_sequence")
     return x_fin, P_fin
 
@@ -528,7 +536,8 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
 
 
 def katana_bank_sequence(model: FilterModel, zs, x0, P0,
-                         return_final: bool = False, time_chunk: int = 0):
+                         return_final: bool = False, time_chunk: int = 0,
+                         symmetrize: bool = True):
     """Filter a pre-associated measurement stream: zs (T, N, m), the bank
     seeded by x0 (N, n), P0 (N, n, n). Returns xs (T, N, n), the filtered
     state after every frame; with ``return_final`` also (x_T (N, n),
@@ -542,12 +551,14 @@ def katana_bank_sequence(model: FilterModel, zs, x0, P0,
     if build.on_cuda(zs):
         out = torch.empty((T, N, model.n), dtype=zs.dtype, device=zs.device)
         for t0, t1 in chunks:
-            x, P = _launch_scan(model, x, P, zs[t0:t1], None, out[t0:t1])
+            x, P = _launch_scan(model, x, P, zs[t0:t1], None, out[t0:t1],
+                                symmetrize)
             LAUNCHES["katana_bank_sequence"] += 1
     else:
         parts = []
         for t0, t1 in chunks:
-            xs, x, P = ref.katana_bank_scan_plain(model, x, P, zs[t0:t1])
+            xs, x, P = ref.katana_bank_scan_plain(model, x, P, zs[t0:t1],
+                                                  symmetrize=symmetrize)
             parts.append(xs)
         out = (torch.cat(parts) if parts
                else zs.new_empty((0, N, model.n)))
@@ -579,7 +590,8 @@ def imm_sequence_inputs(imm: IMMModel, zs, x0, P0, mu0=None, valid=None):
 
 
 def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
-                        return_final: bool = False, time_chunk: int = 0):
+                        return_final: bool = False, time_chunk: int = 0,
+                        symmetrize: bool = True):
     """IMM-filter a pre-associated stream zs (T, N, m). x0/P0 seed the
     bank, (N, n)/(N, n, n) for fresh tracks or (K, N, n)/(K, N, n, n) to
     resume a mode-conditioned bank; mu0 (N, K) defaults to ``imm.mu0``;
@@ -588,10 +600,17 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
     combined estimates; with ``return_final`` also (x (K, N, n),
     P (K, N, n, n), mu (N, K)). One launch per ``time_chunk`` frames
     (0: 4096), (x, P, mu) carried between them with the same bits as one
-    launch. K=1 is the single-model scan with mu passed through."""
+    launch. K=1 is the single-model scan with mu passed through; K > 1
+    runs ``symmetrize=True`` only and raises NotImplementedError for
+    False."""
+    K = imm.K
+    if K > 1 and not symmetrize:
+        raise NotImplementedError(
+            "katana_imm_sequence: symmetrize=False at K > 1 is not ported "
+            "(ROADMAP §2 item S: imm_scan.cu's full-square route); use "
+            "symmetrize=True or imm_bank_sequence")
     x, P, mu, zs, valid = imm_sequence_inputs(imm, zs, x0, P0, mu0, valid)
     T, N, _ = zs.shape
-    K = imm.K
     chunks = _chunks(T, time_chunk or IMM_SCAN_TIME_CHUNK)
     if build.on_cuda(zs):
         out = torch.empty((T, N, imm.n), dtype=zs.dtype, device=zs.device)
@@ -599,7 +618,7 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
             vt = None if valid is None else valid[t0:t1]
             if K == 1:
                 x1, P1 = _launch_scan(imm.models[0], x[0], P[0], zs[t0:t1],
-                                      vt, out[t0:t1])
+                                      vt, out[t0:t1], symmetrize)
                 x, P = x1[None], P1[None]
             else:
                 x, P, mu = _launch_imm_scan(imm, x, P, mu, zs[t0:t1], vt,
@@ -611,15 +630,16 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
         parts = []
         for t0, t1 in chunks:
             vt = None if valid is None else valid[t0:t1]
-            xs, x, P, mu = ref.katana_bank_imm_scan_plain(imm, x, P, mu,
-                                                          zs[t0:t1], vt)
+            xs, x, P, mu = ref.katana_bank_imm_scan_plain(
+                imm, x, P, mu, zs[t0:t1], vt, symmetrize)
             parts.append(xs)
         out = (torch.cat(parts) if parts
                else zs.new_empty((0, N, imm.n)))
     return (out, (x, P, mu)) if return_final else out
 
 
-def _launch_step(model: FilterModel, x, P, z, soa: bool):
+def _launch_step(model: FilterModel, x, P, z, soa: bool,
+                 symmetrize: bool = True):
     _check_model(model)
     dev = x.device
     n, m = model.n, model.m
@@ -644,17 +664,18 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool):
     else:
         code = lib.katana_imm_step_run(1, n, m, pattern, N, *common, 0.0,
                                        x_out.data_ptr(), P_out.data_ptr(),
-                                       None, build.stream_of(dev))
+                                       None, int(symmetrize),
+                                       build.stream_of(dev))
     build.check(lib, code, "katana_bank_soa" if soa else "katana_bank")
     return x_out, P_out
 
 
-def katana_bank(model: FilterModel, x, P, z):
+def katana_bank(model: FilterModel, x, P, z, symmetrize: bool = True):
     """One predict+update per track: x (N, n), P (N, n, n), z (N, m)
     -> (x', P')."""
     if not build.on_cuda(x):
-        return ref.katana_bank_step_plain(model, x, P, z)
-    out = _launch_step(model, x, P, z, soa=False)
+        return ref.katana_bank_step_plain(model, x, P, z, symmetrize)
+    out = _launch_step(model, x, P, z, soa=False, symmetrize=symmetrize)
     LAUNCHES["katana_bank"] += 1
     return out
 
@@ -662,7 +683,7 @@ def katana_bank(model: FilterModel, x, P, z):
 def katana_bank_soa(model: FilterModel, x, P, z):
     """``katana_bank`` for callers that keep the struct-of-arrays layout:
     x (n, N), P (n, n, N), z (m, N) -> (x', P') in the same layout. The
-    kernel reads this layout directly."""
+    kernel reads this layout directly; symmetrize=True only."""
     if not build.on_cuda(x):
         x2, P2 = ref.katana_bank_step_plain(model, x.T, P.permute(2, 0, 1),
                                             z.T)
@@ -672,13 +693,13 @@ def katana_bank_soa(model: FilterModel, x, P, z):
     return out
 
 
-def katana_bank_imm(imm: IMMModel, x, P, z):
+def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True):
     """One IMM bank step: every (model, track) lane takes a predict+update
     of its model with the track's measurement. x (K, N, n) (typically the
     mixed states), P (K, N, n, n), z (N, m). Returns (x' (K, N, n),
     P' (K, N, n, n), loglik (K, N)). K>1 needs linear member models."""
     if not build.on_cuda(x):
-        return ref.katana_bank_imm_step_plain(imm, x, P, z)
+        return ref.katana_bank_imm_step_plain(imm, x, P, z, symmetrize)
     K, N, n = x.shape
     m = imm.m
     if K > 1:
@@ -702,14 +723,15 @@ def katana_bank_imm(imm: IMMModel, x, P, z):
         P.data_ptr(), z.data_ptr(), consts.data_ptr(),
         int(not mdl0.is_linear), float(mdl0.dt),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
-        P_out.data_ptr(), ll.data_ptr(), build.stream_of(dev))
+        P_out.data_ptr(), ll.data_ptr(), int(symmetrize),
+        build.stream_of(dev))
     build.check(lib, code, "katana_bank_imm")
     LAUNCHES["katana_bank_imm"] += 1
     return x_out, P_out, ll
 
 
 def imm_bank_sequence(imm: IMMModel, zs, x0, P0, mu0=None,
-                      return_final: bool = False):
+                      return_final: bool = False, symmetrize: bool = True):
     """IMM-filter a stream zs (T, N, m) frame by frame: ``rewrites.imm_mix``
     -> ``katana_bank_imm`` -> mode posterior -> combined estimate, x/P
     through device memory every frame. Seeds as ``katana_imm_sequence``.
@@ -722,7 +744,7 @@ def imm_bank_sequence(imm: IMMModel, zs, x0, P0, mu0=None,
     for t in range(zs.shape[0]):
         x_mix, P_mix, cbar = rewrites.imm_mix(x, P, mu, Pi)
         x, P, ll = katana_bank_imm(imm, x_mix.contiguous(),
-                                   P_mix.contiguous(), zs[t])
+                                   P_mix.contiguous(), zs[t], symmetrize)
         mu = rewrites.imm_mode_posterior(cbar, ll)
         out.append(rewrites.imm_combine(x, P, mu)[0])
     xs = (torch.stack(out) if out

@@ -20,6 +20,13 @@ hold each kernel against its plain version.
 Layouts are the port's canonical ones: x (C, n), P (C, n, n),
 z (M, m); IMM x (K, C, n), P (K, C, n, n), mu (C, K); a replay stream
 zs (T, N, m) with xs (T, N, n) out.
+
+``symmetrize`` (the bank steps and the single-model scan) picks the
+reference's two covariance contracts: True emits the upper triangle of
+P' = F P Fᵀ + Q and of the updated P, mirrors aliased; False emits the
+full square in the reference kernel's order (``_emit_FPFt``, then
+``_emit_add_Q``; the update's ``for j in range(n)``), so an asymmetry of
+the float products is carried, not averaged away.
 """
 from __future__ import annotations
 
@@ -114,17 +121,20 @@ def _matvec(F, xv, n):
     return [_dot(F[i], xv, n) for i in range(n)]
 
 
-def _predict_cov(F, P, Q, n):
-    """Upper triangle of F P Fᵀ + Q, mirrors aliased."""
+def _predict_cov(F, P, Q, n, symmetrize=True):
+    """F P Fᵀ + Q: its upper triangle, mirrors aliased, or with
+    ``symmetrize=False`` every entry."""
     FP = [[_dot(F[i], [P[k][j] for k in range(n)], n) for j in range(n)]
           for i in range(n)]
     Pp = [[None] * n for _ in range(n)]
     for i in range(n):
-        for j in range(i, n):
+        for j in (range(i, n) if symmetrize else range(n)):
             v = _dot(F[j], FP[i], n)
             if not _is_zero(Q[i][j]):
                 v = v + Q[i][j]
-            Pp[i][j] = Pp[j][i] = v
+            Pp[i][j] = v
+            if symmetrize:
+                Pp[j][i] = v
     return Pp
 
 
@@ -216,9 +226,10 @@ def _innovation(Pp, R, obs, n, m):
     return S, small_inv_lanes(S, m), PHt
 
 
-def _update(xp, Pp, z, obs, n, m, inno, with_loglik):
+def _update(xp, Pp, z, obs, n, m, inno, with_loglik, symmetrize=True):
     """Kalman update from the precomputed innovation quantities; the
-    posterior covariance upper triangle is emitted, mirrors aliased."""
+    posterior covariance upper triangle is emitted, mirrors aliased (with
+    ``symmetrize=False`` every entry)."""
     y = [z[r] - xp[obs[r]] for r in range(m)]
     S, Sinv, PHt = inno
     K = [[None] * m for _ in range(n)]
@@ -237,11 +248,13 @@ def _update(xp, Pp, z, obs, n, m, inno, with_loglik):
         xn.append(acc)
     Pn = [[None] * n for _ in range(n)]
     for i in range(n):
-        for j in range(i, n):
+        for j in (range(i, n) if symmetrize else range(n)):
             acc = Pp[i][j]
             for r in range(m):
                 acc = acc - K[i][r] * Pp[obs[r]][j]
-            Pn[i][j] = Pn[j][i] = acc
+            Pn[i][j] = acc
+            if symmetrize:
+                Pn[j][i] = acc
     if not with_loglik:
         return xn, Pn
     d = None
@@ -256,7 +269,7 @@ def _update(xp, Pp, z, obs, n, m, inno, with_loglik):
     return xn, Pn, loglik
 
 
-def _predict_single(model, xv, P):
+def _predict_single(model, xv, P, symmetrize=True):
     """Time update of one model: constant F for a linear model, the
     hard-coded CTRA-8 dynamics for a nonlinear one (the reference frame
     kernel ignores ``model.f`` the same way)."""
@@ -283,7 +296,7 @@ def _predict_single(model, xv, P):
         F[2][7] = dt
         F[3][6] = dt
         F[4][5] = dt
-    return xp, _predict_cov(F, P, Q, n)
+    return xp, _predict_cov(F, P, Q, n, symmetrize)
 
 
 def cost_tile(z_pred, Sinv, z, m):
@@ -597,28 +610,32 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
 # stream is measured by z[t, lane]).
 # ---------------------------------------------------------------------------
 
-def _step_lanes(model, xv, P, z, with_loglik=False):
+def _step_lanes(model, xv, P, z, with_loglik=False, symmetrize=True):
     """One predict+update of one model on lane lists. Returns (x̂, P̂,
     update) with update = (x', P'[, loglik])."""
     n, m = model.n, model.m
     obs = check_selector(model)
     R = [[float(v) for v in row] for row in np.asarray(model.R, np.float64)]
-    xp, Pp = _predict_single(model, xv, P)
+    xp, Pp = _predict_single(model, xv, P, symmetrize)
     inno = _innovation(Pp, R, obs, n, m)
-    return xp, Pp, _update(xp, Pp, z, obs, n, m, inno, with_loglik)
+    return xp, Pp, _update(xp, Pp, z, obs, n, m, inno, with_loglik,
+                           symmetrize)
 
 
-def _coast_select(v, xn, Pn, xp, Pp):
+def _coast_select(v, xn, Pn, xp, Pp, symmetrize=True):
     """The replay scans' validity select, as the reference's mul/add
     (no branch): v·updated + (1 − v)·predicted, v a 0/1 lane tensor;
-    the covariance's upper triangle, mirrors aliased."""
+    the covariance's upper triangle, mirrors aliased (with
+    ``symmetrize=False`` every entry)."""
     nv = 1.0 - v
     n = len(xn)
     xs = [v * a + nv * b for a, b in zip(xn, xp)]
     Ps = [[None] * n for _ in range(n)]
     for i in range(n):
-        for j in range(i, n):
-            Ps[i][j] = Ps[j][i] = v * Pn[i][j] + nv * Pp[i][j]
+        for j in (range(i, n) if symmetrize else range(n)):
+            Ps[i][j] = v * Pn[i][j] + nv * Pp[i][j]
+            if symmetrize:
+                Ps[j][i] = Ps[i][j]
     return xs, Ps
 
 
@@ -627,16 +644,17 @@ def _full(xs, Ps, lane):
             [[_bc(u, lane) for u in row] for row in Ps])
 
 
-def katana_bank_step_plain(model, x, P, z):
+def katana_bank_step_plain(model, x, P, z, symmetrize=True):
     """Plain version of the per-frame bank kernel: one predict+update
     per lane. x (N, n), P (N, n, n), z (N, m). Returns (x', P')."""
     xv, Pl = _to_lanes(x, P)
     _, _, (xn, Pn) = _step_lanes(model, xv, Pl,
-                                 [z[:, r] for r in range(model.m)])
+                                 [z[:, r] for r in range(model.m)],
+                                 symmetrize=symmetrize)
     return _from_lanes(*_full(xn, Pn, x[:, 0]))
 
 
-def katana_bank_imm_step_plain(imm, x, P, z):
+def katana_bank_imm_step_plain(imm, x, P, z, symmetrize=True):
     """Plain version of the per-frame IMM bank kernel: each of the K·N
     (model, track) lanes, model-major, takes one predict+update of its
     model with the track's measurement, plus the measurement
@@ -650,20 +668,21 @@ def katana_bank_imm_step_plain(imm, x, P, z):
     Pl = [[P[:, :, i, j].reshape(L) for j in range(n)] for i in range(n)]
     z = [torch.cat([z[:, r]] * K) for r in range(m)]
     if K == 1:
-        _, _, (xn, Pn, ll) = _step_lanes(imm.models[0], xv, Pl, z, True)
+        _, _, (xn, Pn, ll) = _step_lanes(imm.models[0], xv, Pl, z, True,
+                                         symmetrize)
     else:
         obs = _check_imm_linear(imm, "katana_bank_imm")
         Ftab, Qtab, Rtab = _imm_tables(imm, N, x)
         xp = _matvec(Ftab, xv, n)
-        Pp = _predict_cov(Ftab, Pl, Qtab, n)
+        Pp = _predict_cov(Ftab, Pl, Qtab, n, symmetrize)
         inno = _innovation(Pp, Rtab, obs, n, m)
-        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True)
+        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True, symmetrize)
     x2, P2 = _from_lanes(*_full(xn, Pn, xv[0]))
     return (x2.reshape(K, N, n), P2.reshape(K, N, n, n),
             _bc(ll, xv[0]).reshape(K, N))
 
 
-def katana_bank_scan_plain(model, x, P, zs, valid=None):
+def katana_bank_scan_plain(model, x, P, zs, valid=None, symmetrize=True):
     """Plain version of the single-model replay scan: T predict+updates
     per lane with the state carried. x (N, n), P (N, n, n),
     zs (T, N, m); ``valid`` (T, N) bool, optional: a False frame keeps
@@ -676,29 +695,34 @@ def katana_bank_scan_plain(model, x, P, zs, valid=None):
     out = []
     for t in range(T):
         xp, Pp, (xn, Pn) = _step_lanes(model, xv, Pl,
-                                       [zs[t, :, r] for r in range(m)])
+                                       [zs[t, :, r] for r in range(m)],
+                                       symmetrize=symmetrize)
         if valid is not None:
-            xn, Pn = _coast_select(valid[t].to(x.dtype), xn, Pn, xp, Pp)
+            xn, Pn = _coast_select(valid[t].to(x.dtype), xn, Pn, xp, Pp,
+                                   symmetrize)
         xv, Pl = _full(xn, Pn, lane)
         out.append(torch.stack(xv, dim=-1))
     xs = torch.stack(out) if out else x.new_empty((0, N, n))
     return (xs,) + _from_lanes(xv, Pl)
 
 
-def katana_bank_imm_scan_plain(imm, x, P, mu, zs, valid=None):
+def katana_bank_imm_scan_plain(imm, x, P, mu, zs, valid=None,
+                               symmetrize=True):
     """Plain version of the IMM replay scan: per frame the mixing, the
     K predict+updates with their log-likelihoods, the mode posterior
     and the combined estimate, on model-major (K·N,) lanes. x (K, N, n),
     P (K, N, n, n), mu (N, K), zs (T, N, m), ``valid`` (T, N) bool or
     None: a False frame coasts (x̂/P̂ kept, mu <- cbar). Returns
     (xs (T, N, n) combined estimates, x_T, P_T, mu_T (N, K)). K=1 is
-    the single-model scan with mu passed through."""
+    the single-model scan with mu passed through (either ``symmetrize``);
+    K > 1 the upper-triangle contract only."""
     K, N, n = x.shape
     T, _, m = zs.shape
     if K == 1:
         xs, xf, Pf = katana_bank_scan_plain(imm.models[0], x[0], P[0], zs,
-                                            valid)
+                                            valid, symmetrize)
         return xs, xf[None], Pf[None], mu.clone()
+    assert symmetrize, "the K > 1 IMM scan runs symmetrize=True only"
     obs = _check_imm_linear(imm, "katana_imm_sequence")
     Ftab, Qtab, Rtab = _imm_tables(imm, N, x)
     Pi = _markov(imm)

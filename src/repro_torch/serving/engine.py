@@ -132,7 +132,9 @@ class TrackingEngine:
         assignment. x0 (N, n) / P0 (N, n, n) default to the model's prior.
         Returns the (T, N, n) filtered states. The live bank is not
         touched; the time (host clock from the copy of ``zs`` to the card
-        up to the returned array) counts under the ``replay_*`` stats."""
+        until the stream is done on it, as the reference's
+        ``block_until_ready``; the copy of the states back to the host
+        comes after) counts under the ``replay_*`` stats."""
         zs = np.asarray(zs, np.float32)
         T, N, _ = zs.shape
         if x0 is None:
@@ -145,7 +147,8 @@ class TrackingEngine:
         P0 = torch.as_tensor(np.asarray(P0, np.float32), device=dev)
         t0 = time.perf_counter()
         out = seq(self.model, torch.from_numpy(zs).to(dev), x0, P0)
-        out = out.cpu().numpy()  # waits for the stream
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
         self.stats.replay_latency_s += time.perf_counter() - t0
         self.stats.replay_frames += T
-        return out
+        return out.cpu().numpy()

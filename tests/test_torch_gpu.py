@@ -11,7 +11,11 @@ bank steps against their plain versions bit for bit at (N, T) = (5, 17)
 and (1024, 300), at ragged N and with a valid stream (the steps in both
 layouts), the properties that hold bit for bit (K=1 IMM = single-model
 scan, time chunks = one launch, T steps = the scan), and
-``TrackingEngine.replay`` on the card against the CPU. The LM kernels (flash_attention, flash_decode) against their plain
+``TrackingEngine.replay`` on the card against the CPU. The same scans
+and steps at symmetrize=False (the full square, csrc's Sym = false) bit
+for bit with their plain versions on asymmetric seeds, and every stage
+of the paper's ladder (``core/rewrites.py``) on the card against the
+CPU. The LM kernels (flash_attention, flash_decode) against their plain
 versions in float32 (2e-5; 1e-5/1e-4) and bfloat16 (one bf16 ulp of the
 output), and a reduced h2o-danube-1.8b served on the card through both
 kernels against the torch-op routes; the bf16 tensor-core attention at
@@ -42,6 +46,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import tracker as ttr  # noqa: E402
+from repro_torch.core.rewrites import STAGES, run_sequence  # noqa: E402
 from repro_torch.core.filters import IMMModel, as_imm, get_filter  # noqa: E402
 from repro_torch.core.filters import make_ca9_lkf, make_ct9_lkf  # noqa: E402
 from repro_torch.core.filters import make_imm  # noqa: E402
@@ -571,6 +576,124 @@ def test_engine_replay_on_card_matches_cpu(cuda, kind):
     b = cpu.replay(zs)
     assert gpu.stats.replay_frames == 60 and gpu.stats.frames == 0
     _close(torch.as_tensor(a), torch.as_tensor(b), 1e-4)
+
+
+# ------------------------------------------ symmetrize=False and the stages
+
+FULL_SQUARE_CASES = [(1, 17, False), (31, 40, True), (129, 20, False),
+                     (1024, 300, False), (4097, 20, True)]
+
+
+def _asymmetric(rng, P):
+    """P plus 1e-3 noise: symmetric only to rounding, not to the bit."""
+    noise = torch.as_tensor(1e-3 * rng.normal(size=tuple(P.shape)),
+                            dtype=torch.float32, device=P.device)
+    return (P + noise).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
+@pytest.mark.parametrize("N,T,valid", FULL_SQUARE_CASES)
+def test_full_square_scan_and_step_match_plain(cuda, kind, N, T, valid):
+    """scan.cu's and imm_step.cu's Sym = false route (symmetrize=False)
+    bit for bit with the plain version on an asymmetric seed P: the scan
+    (with a valid stream through the K = 1 IMM replay), the step in both
+    layouts, and T steps equal to the scan's final state; the route is
+    not the symmetric one."""
+    model = get_filter(kind)
+    rng = np.random.default_rng(N + T + 1)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, model, N, T,
+                                        drop=0.1 if valid else 0.0), cuda)
+    P0 = _asymmetric(rng, P0)
+    ops.reset_launches()
+    if valid:
+        one = as_imm(model)
+        xs, (xf, Pf, _) = ops.katana_imm_sequence(
+            one, zs, x0, P0, valid=vs, return_final=True, symmetrize=False)
+        _, _, _, zz, vv = ops.imm_sequence_inputs(one, zs, x0, P0, None, vs)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zz, vv,
+                                          symmetrize=False)
+        xf, Pf = xf[0], Pf[0]
+        assert ops.LAUNCHES["katana_imm_sequence"] == 1
+    else:
+        xs, (xf, Pf) = ops.katana_bank_sequence(
+            model, zs, x0, P0, return_final=True, symmetrize=False)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zs,
+                                          symmetrize=False)
+        assert ops.LAUNCHES["katana_bank_sequence"] == 1
+        x, P = x0, P0
+        for t in range(T):
+            x, P = ops.katana_bank(model, x, P, zs[t], symmetrize=False)
+        assert torch.equal(x, xf) and torch.equal(P, Pf)
+        sym = ops.katana_bank_sequence(model, zs, x0, P0)
+        assert not torch.equal(sym, xs)
+    torch.cuda.synchronize()
+    for a, b in zip((xs, xf, Pf), want):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert not torch.equal(Pf, Pf.transpose(1, 2))
+    z0 = torch.nan_to_num(zs[0])  # the valid streams write NaN
+    a = ops.katana_bank(model, x0, P0, z0, symmetrize=False)
+    b = ref.katana_bank_step_plain(model, x0, P0, z0, symmetrize=False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # the struct-of-arrays layout runs symmetrize=True only
+    soa = ops.katana_bank_soa(model, x0.T.contiguous(),
+                              P0.permute(1, 2, 0).contiguous(),
+                              z0.T.contiguous())
+    c = ops.katana_bank(model, x0, P0, z0)
+    assert torch.equal(soa[0].T, c[0])
+    assert torch.equal(soa[1].permute(2, 0, 1), c[1])
+
+
+@pytest.mark.parametrize("kind", ["imm", "other", "ekf", "lkf"])
+@pytest.mark.parametrize("N", [1, 33, 4097])
+def test_full_square_imm_step_matches_plain(cuda, kind, N):
+    """imm_step.cu's Sym = false route at K = 4 (imm9, dense9) and K = 1
+    (ctra8, cv6) bit for bit with the plain version on an asymmetric P."""
+    if kind in ("ekf", "lkf"):
+        imm = as_imm(get_filter(kind))
+    else:
+        imm = IMM_SETS[kind][0]()
+    rng = np.random.default_rng(N + 11)
+    x0, _, zs, _ = replay_inputs(rng, imm, N, 1)
+    K, n = imm.K, imm.n
+    x = torch.as_tensor(np.tile(x0, (K, 1, 1)) + 0.05 * rng.normal(
+        size=(K, N, n)), dtype=torch.float32, device=cuda)
+    P = _asymmetric(rng, torch.as_tensor(spd(rng, (K, N), n), device=cuda))
+    z = torch.as_tensor(zs[0], device=cuda)
+    got = ops.katana_bank_imm(imm, x, P, z, symmetrize=False)
+    want = ref.katana_bank_imm_step_plain(imm, x, P, z, symmetrize=False)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.katana_imm_sequence(make_imm(), z[None], x0=x[0], P0=P[0],
+                                symmetrize=False)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf"])
+@pytest.mark.parametrize("stage", STAGES)
+def test_stage_on_card_matches_cpu(cuda, kind, stage):
+    """Every rewrite stage on the card against the same stage on the CPU,
+    on streams of the reference tests' scale: the lkf kernel stages bit
+    for bit (the plain versions' op stream), the others within 1e-4 by
+    |d| / max(1, |ref|) as the engine's replay (the CPU's sin/cos, cuBLAS's
+    order of summation); the kernel stages' launches."""
+    model = get_filter(kind)
+    rng = np.random.default_rng(3)
+    N = 1 if stage in ("baseline", "opt1", "opt2") else 200
+    x0, P0, zs, _ = replay_inputs(rng, model, N, 50, extent=1.0)
+    ops.reset_launches()
+    a = run_sequence(model, stage, zs, x0, P0)
+    name, want = {"fused_scan": ("katana_bank_sequence", 1),
+                  "imm_bank": ("katana_bank_imm", 50),
+                  "imm_scan": ("katana_imm_sequence", 1)}.get(
+                      stage, ("katana_bank", 0))
+    assert ops.LAUNCHES[name] == want
+    b = run_sequence(model, stage, zs, x0, P0, device="cpu")
+    assert a.device.type == "cuda" and a.shape == b.shape
+    if stage in ("fused_scan", "imm_bank", "imm_scan") and kind == "lkf":
+        assert torch.equal(a.cpu(), b)
+    else:
+        _close(a.cpu(), b, 1e-4)
 
 
 # ---------------------------------------------------------------- LM kernels

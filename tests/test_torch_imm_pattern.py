@@ -206,9 +206,9 @@ def test_the_jacobian_slots_are_the_plain_versions():
     F_seen = {}
     real = ref._predict_cov
 
-    def spy(F, P_, Q, n):
+    def spy(F, P_, Q, n, *rest):
         F_seen["F"] = F
-        return real(F, P_, Q, n)
+        return real(F, P_, Q, n, *rest)
 
     ref._predict_cov = spy
     try:

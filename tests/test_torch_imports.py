@@ -1,6 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX
-blocked, and no source under ``src/repro_torch/`` imports ``jax`` or the
-JAX package ``repro``."""
+blocked, and no source under ``src/repro_torch/`` (nor the port's
+``examples/torch_quickstart.py``) imports ``jax`` or the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -33,8 +34,12 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= len(MODULES)
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PKG)))
+EXAMPLES = [ROOT / "examples" / "torch_quickstart.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + EXAMPLES,
+                         ids=lambda p: str(p.relative_to(
+                             PKG if PKG in p.parents else ROOT)))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

@@ -100,3 +100,40 @@ def test_replay_imm_bank_resumes_bitwise():
     rest = tb.replay_imm_bank(imm, bank, zs[T // 2:], valid[T // 2:])
     assert torch.equal(rest, whole[T // 2:])
     assert np.isfinite(np_(rest)).all()
+
+
+@pytest.mark.parametrize("kind", ["lkf", "imm"])
+def test_replay_span_ends_before_the_copy_back(kind, monkeypatch):
+    """``stats.replay_latency_s`` spans the copy of zs in and the stream,
+    as the reference's span ends at ``block_until_ready``; the copy of
+    the states back to the host comes after it. A patched clock moves 1 s
+    inside the stream and 100 s inside the copy back."""
+    from repro_torch.serving import engine as eng_mod
+
+    now = [0.0]
+    monkeypatch.setattr(eng_mod.time, "perf_counter", lambda: now[0])
+
+    class Out:
+        def __init__(self, t):
+            self.t = t
+
+        def cpu(self):
+            now[0] += 100.0
+            return self.t
+
+    name = "katana_imm_sequence" if kind == "imm" else "katana_bank_sequence"
+    real = getattr(eng_mod, name)
+
+    def stream(*args, **kw):
+        now[0] += 1.0
+        return Out(real(*args, **kw))
+
+    monkeypatch.setattr(eng_mod, name, stream)
+    tm = models(kind)[1]
+    _, _, zs, _ = replay_inputs(np.random.default_rng(15), tm, 3, 6,
+                                extent=EXTENT)
+    et = TrackingEngine(tm, CFG_T, device="cpu")
+    got = et.replay(zs)
+    assert got.shape == (6, 3, tm.n) and got.dtype == np.float32
+    assert et.stats.replay_latency_s == 1.0
+    assert et.stats.replay_fps == 6.0
