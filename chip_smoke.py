@@ -29,6 +29,19 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      CUDA events it records between them, the device queued behind a
      spin) with the ptxas register and spill lines of its kernels, and
      the least time the frame's data needs (bound_ms);
+  3b. the sensor fleet: ``ShardedBankEngine(model, 8, ..., devices=
+     ("cuda",))`` for lkf, ekf and imm, 8 sensors each at phase 3's shape
+     (C=1024, M=256, the dense-sky scene of seed 7 + s), T=150 frames:
+     every fleet frame bit for bit with 8 single-sensor frame steps on the
+     card (assoc, ids, x, P, mu, x_est) and the greedy waves per sensor
+     (the imm fleet also split over two shards of the one card, bit for
+     bit); then a fresh fleet timed over the scene: one launch count a
+     fleet frame, fleet frames/s and sensor-frames/s on the host clock
+     against phase 3's FPS and the >= 300 FPS limit, the fleet frame's
+     device ms a launch (events between launches, device queued), its
+     bound at S=8 and the ptxas lines of its S-aware kernels; the fleet
+     replay (T=300 over 8 x 1024 lanes, 30% invalid) as one
+     ``katana_imm_sequence`` launch bit for bit with 8 per-sensor calls;
   4. the replay path: ``TrackingEngine(..., device="cuda").replay`` over
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
@@ -138,6 +151,7 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.serving.engine import ShardedBankEngine  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 
@@ -707,8 +721,9 @@ def phase_main_path(kind):
             model, *kargs, launch_events=evs))
         inst = ops.pick_pattern(model.models).name
         source = "imm_frame.cu"
-        entries = (("imm_predict", f"{len(inst)}{inst}"), ("imm_cost",),
-                   ("imm_update", f"{len(inst)}{inst}"))
+        entries = (("imm_predict", f"{len(inst)}{inst}"),
+                   ("imm_cost", "Lb0E"),
+                   ("imm_update", f"{len(inst)}{inst}ELi4ELb0E"))
     else:
         launch_ms = launch_events_ms(lambda evs: ops.katana_frame(
             model, *kargs, launch_events=evs))
@@ -716,8 +731,8 @@ def phase_main_path(kind):
         source = "frame.cu"
         nl = "Lb0" if model.is_linear else "Lb1"
         entries = (("frame_predict", f"{len(inst)}{inst}E{nl}"),
-                   ("frame_cost", f"ILi{model.m}E"),
-                   ("frame_update", f"ILi{model.n}ELi{model.m}E"))
+                   ("frame_cost", f"ILi{model.m}ELb0E"),
+                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb0E"))
     print(f"[{kind}] {name} ({inst}) device ms a launch by CUDA events "
           f"(mean of {launch_ms['events']} frames, device queued): "
           + ", ".join(f"{k} {launch_ms[k]:.4f}" for k in FRAME_LAUNCHES)
@@ -787,6 +802,262 @@ def phase_main_path(kind):
               f"{gby}, {waves} waves); standalone kernel on the (C, M) cost "
               f"{g_ms:.4f} ms")
     return row, greedy, eng
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the sensor fleet (ShardedBankEngine) at the reference's S = 8
+# sensors (benchmarks/frame.py's sharded rows, batching.py's imm_sensors),
+# each at phase 3's per-sensor shape (C = 1,024, M = 256, the dense-sky
+# scene; sensor s of seed 7 + s). T = 150 frames: phase 3's 300 cut for
+# time. The fleet replay runs phase 4's T = 300 over S x C = 8,192 lanes.
+# ---------------------------------------------------------------------------
+
+S_FLEET, T_FLEET, T_FLEET_REPLAY = 8, 150, 300
+FLEET_DROP = 0.3   # share of the fleet replay's (frame, slot) entries invalid
+
+
+def fleet_scene(kind):
+    """(z (T, S, M, m) float32, valid (T, S, M)) numpy: sensor s sees
+    phase 3's dense-sky scene drawn from seed 7 + s."""
+    smodel = (filters.get_filter("cv9") if kind == "imm"
+              else filters.get_filter(kind))
+    scene = traj.SceneConfig(T=T_FLEET, max_targets=200, birth_rate=1.0,
+                             death_rate=0.002, clutter_rate=20.0,
+                             extent=200.0, max_meas=M_SERVE)
+    per = [traj.mot_scene(smodel, scene, seed=7 + s)[:2]
+           for s in range(S_FLEET)]
+    return (np.stack([p[0] for p in per], 1).astype(np.float32),
+            np.stack([p[1] for p in per], 1))
+
+
+def fleet_equal(res, singles, axes):
+    """Every state field of a fleet FrameResult against S single-sensor
+    FrameResults, bit for bit: assoc, confirmed, unassigned, the bank
+    (ids, counters, x, P, mu) and x_est."""
+    for a, name in zip(axes, res.bank._fields):
+        got = getattr(res.bank, name)
+        want = torch.stack([getattr(r.bank, name) for r in singles], a)
+        assert torch.equal(got, want), name
+    for f in ("assoc", "confirmed", "unassigned", "mode_probs", "x_est"):
+        got = getattr(res, f)
+        if got is not None:
+            assert torch.equal(got, torch.stack([getattr(r, f)
+                                                 for r in singles])), f
+
+
+def fleet_memory(model, S, C, M):
+    """Bytes of the fleet's P, of its (S, M, C) cost tile and of the
+    greedy's S candidate lists (ops._greedy_scratch)."""
+    K = getattr(model, "K", 1)
+    return dict(P=4 * K * S * C * model.n ** 2, cost_tile=4 * S * M * C,
+                greedy_scratch=(12 * C * M + 4) * S)
+
+
+def phase_fleet(kind, single):
+    """ShardedBankEngine over S = 8 sensors for T = 150 frames: each fleet
+    frame bit for bit with S single-sensor steps on the card (the imm
+    fleet also split over two shards of the one card), waves per sensor;
+    then a fresh fleet timed over the scene (fleet frames/s on the host
+    clock, one launch count a frame), each launch's device time at S = 8,
+    its bound, ptxas lines, and the fleet replay (one launch over S x C
+    lanes) bit for bit with per-sensor katana_imm_sequence calls."""
+    t_phase = time.perf_counter()
+    model = replay_model(kind)
+    is_imm = kind == "imm"
+    S, C, M, T = S_FLEET, C_SERVE, M_SERVE, T_FLEET
+    cfg = tracker.TrackerConfig(capacity=C, max_meas=M)
+    z, valid = fleet_scene(kind)
+    step = tracker.imm_frame_step if is_imm else tracker.frame_step
+    init = bank_lib.init_imm_bank if is_imm else bank_lib.init_bank
+    name = "katana_imm_frame" if is_imm else "katana_frame"
+    kernel = getattr(tracker, name)
+    axes = bank_lib.bank_sensor_axes(init(model, 1, device="cuda"))
+
+    # 1. the checked run
+    eng = ShardedBankEngine(model, S, cfg, devices=("cuda",))
+    two = (ShardedBankEngine(model, S, cfg, devices=("cuda", "cuda"))
+           if is_imm else None)
+    singles = [init(model, C, device="cuda") for _ in range(S)]
+    waves = []
+
+    def spy(*a, **kw):
+        out = kernel(*a, return_waves=True, **kw)
+        waves.append(torch.as_tensor(out[-1]).reshape(-1))
+        return out[:-1]
+
+    wave_rows = []
+    with mock.patch.object(tracker, name, spy):
+        for t in range(T):
+            n0 = len(waves)
+            res = eng.frame(z[t], valid[t])
+            fleet_w = waves[n0]
+            if two is not None:
+                n1 = len(waves)
+                res2 = two.frame(z[t], valid[t])
+                split_w = torch.cat(waves[n1:])
+                assert all(torch.equal(a, b) for a, b in zip(res2.bank,
+                                                             res.bank))
+                for f in ("assoc", "confirmed", "mode_probs", "x_est"):
+                    assert torch.equal(getattr(res2, f), getattr(res, f)), f
+            n2 = len(waves)
+            outs = []
+            for s in range(S):
+                r = step(model, cfg, singles[s],
+                         torch.from_numpy(z[t, s]).cuda(),
+                         torch.from_numpy(valid[t, s]).cuda())
+                singles[s] = r.bank
+                outs.append(r)
+            fleet_equal(res, outs, axes)
+            wave_rows.append((fleet_w, torch.cat(waves[n2:]),
+                              split_w if two is not None else fleet_w))
+    fw = torch.stack([w[0] for w in wave_rows]).cpu()
+    assert fw.shape == (T, S), fw.shape
+    assert torch.equal(fw, torch.stack([w[1] for w in wave_rows]).cpu())
+    assert torch.equal(fw, torch.stack([w[2] for w in wave_rows]).cpu())
+    t_check = time.perf_counter() - t_phase
+    print(f"[fleet {kind}] S={S} x C={C}, M={M}, T={T}: every fleet frame "
+          f"bit for bit with {S} single-sensor {step.__name__} calls on the "
+          "card (assoc, ids, counters, x, P"
+          + (", mu, x_est" if is_imm else "") + "); greedy waves per "
+          f"sensor equal the single-sensor ones (mean by sensor "
+          + " ".join(f"{v:.2f}" for v in fw.double().mean(0).tolist())
+          + ")" + ("; two shards on the one card bit for bit with one"
+                   if is_imm else "") + f" ({t_check:.1f} s)")
+
+    # 2. the timed run: a fresh fleet over the same scene
+    timed = ShardedBankEngine(model, S, cfg, devices=("cuda",))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(T):
+        res = timed.frame(z[t], valid[t])
+    host_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    assert launches[name] == T and launches["greedy_assign"] == T, launches
+    assert all(torch.equal(a, b) for a, b in zip(timed.banks, eng.banks))
+    fps = T / host_s
+    # one sensor the same way: sensor 0's scene through TrackingEngine.submit
+    # back to back (phase 3 times its frames between its route checks)
+    solo = TrackingEngine(model, cfg, device="cuda")
+    t0 = time.perf_counter()
+    for t in range(T):
+        solo.submit(z[t, 0][valid[t, 0]])
+    solo_fps = T / (time.perf_counter() - t0)
+    limit = 300.0
+    verdict = "meets" if fps >= limit else "MISSES"
+    print(f"[fleet {kind}] {T} fleet frames: launches {launches} (one a "
+          f"fleet frame, not {S}); {fps:.1f} fleet frames/s, "
+          f"{fps * S:.1f} sensor-frames/s, {1e3 / fps:.3f} ms a fleet frame "
+          f"(host clock over the loop; engine's own {timed.stats.fps:.1f}); "
+          f"one sensor back to back {solo_fps:.1f} FPS (engine's own "
+          f"{solo.stats.fps:.1f}): {fps / solo_fps:.3f}x; phase 3's "
+          f"{single['fps']:.1f} FPS: {fps / single['fps']:.3f}x; each "
+          f"sensor {fps:.1f} FPS {verdict} the >= {limit:.0f} FPS limit")
+
+    # 3. the fleet frame's kernel at S = 8 on the final banks and the last
+    # frame's measurements
+    banks = timed.banks
+    zt = torch.from_numpy(z[T - 1]).cuda()
+    vt = torch.from_numpy(valid[T - 1]).cuda()
+    gate, rounds = tracker.CHI2_99[model.m], min(C, M)
+    if is_imm:
+        kargs = (banks.x, banks.P, banks.mu, zt, vt, banks.active, gate,
+                 rounds)
+        kfn, pfn = ops.katana_imm_frame, ref.katana_imm_frame_plain
+    else:
+        kargs = (banks.x, banks.P, zt, vt, banks.active, gate, rounds)
+        kfn, pfn = ops.katana_frame, ref.katana_frame_plain
+    out = kfn(model, *kargs, return_waves=True)
+    want, plain_ms = timed_once(lambda: pfn(model, *kargs,
+                                            return_waves=True))
+    assert all(torch.equal(a, b) for a, b in zip(out[:-1], want[:-1]))
+    fwaves = [int(w) for w in out[-1]]
+    assert fwaves == want[-1]
+    assoc = out[-2]
+    nb, nops = 0, 0
+    for s in range(S):
+        b, o = frame_work(model, C, M, int(banks.active[s].sum()),
+                          int(vt[s].sum()), int((assoc[s] >= 0).sum()),
+                          fwaves[s])
+        nb, nops = nb + b, nops + o
+    bms, by = bound(nb, nops)
+    ms = cuda_ms(lambda: kfn(model, *kargs), 50)
+    launch_ms = launch_events_ms(lambda evs: kfn(model, *kargs,
+                                                 launch_events=evs))
+    one = single["launch_device_ms"]
+    print(f"[fleet {kind}] {name} at S={S}: plain {plain_ms:.3f} ms, bit "
+          f"for bit; {ms:.4f} ms a call at the host's pace; device ms a "
+          f"launch by CUDA events (mean of {launch_ms['events']} frames, "
+          "device queued): " + ", ".join(
+              f"{k} {launch_ms[k]:.4f} (one sensor {one[k]:.4f})"
+              for k in FRAME_LAUNCHES)
+          + f"; the fleet frame {launch_ms['frame']:.4f} (one sensor "
+          f"{one['frame']:.4f}); bound {bms:.6f} ms by {by} ({nb} B, "
+          f"{nops} ops for waves {fwaves})")
+    mem = fleet_memory(model, S, C, M)
+    print(f"[fleet {kind}] memory: P {mem['P'] / 1e6:.1f} MB, cost tile "
+          f"{mem['cost_tile'] / 1e6:.1f} MB, greedy scratch "
+          f"{mem['greedy_scratch'] / 1e6:.1f} MB")
+    if is_imm:
+        inst = ops.pick_pattern(model.models).name
+        source = "imm_frame.cu"
+        entries = (("imm_cost", "Lb1E"),
+                   ("imm_update", f"{len(inst)}{inst}ELi4ELb1E"),
+                   ("greedy_candidates", "FleetTile"))
+    else:
+        source = "frame.cu"
+        entries = (("frame_cost", f"ILi{model.m}ELb1E"),
+                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb1E"),
+                   ("greedy_candidates", "FleetTile"))
+    print(f"[fleet {kind}] ptxas of the S-aware kernels (Fleet = true; the "
+          "predict and the waves are the single-sensor ones):")
+    _print_ptxas_of(source, *entries)
+    regs = {e[0]: ptxas_registers(source, *e) for e in entries}
+
+    # 4. the fleet replay from the checked fleet's live banks
+    imm1 = filters.as_imm(model)
+    Tr = T_FLEET_REPLAY
+    # the first S x C lanes of phase 4's stream (drawn once for both)
+    zs = replay_stream(kind)[0][:Tr, :S * C].reshape(Tr, S, C, model.m)
+    vmask = np.random.default_rng(23).random((Tr, S, C)) >= FLEET_DROP
+    zs = np.where(vmask[..., None], zs, np.nan).astype(np.float32)
+    before = [t.clone() for t in eng.banks]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    xs = eng.replay(zs, vmask)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    r_launches = dict(ops.LAUNCHES)
+    assert r_launches["katana_imm_sequence"] == 1, r_launches
+    assert all(torch.equal(a, b) for a, b in zip(before, eng.banks))
+    assert np.isfinite(xs).all()
+    zs_t, v_t = torch.from_numpy(zs).cuda(), torch.from_numpy(vmask).cuda()
+    for s in range(S):
+        b1 = bank_lib.slice_sensor_bank(eng.banks, s)
+        want = ops.katana_imm_sequence(imm1, zs_t[:, s].contiguous(), b1.x,
+                                       b1.P, mu0=b1.mu if is_imm else None,
+                                       valid=v_t[:, s].contiguous())
+        assert torch.equal(torch.from_numpy(xs[:, s]), want.cpu()), s
+    src = "imm_scan.cu" if is_imm else "scan.cu"
+    print(f"[fleet {kind}] replay (T={Tr}, {S} x {C} = {S * C} lanes, "
+          f"{FLEET_DROP:.0%} of the entries invalid, NaN): one "
+          f"katana_imm_sequence launch ({src}), bit for bit with {S} "
+          f"per-sensor calls; {replay_ms:.1f} ms numpy in to numpy out; live "
+          "banks unchanged")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[fleet {kind}] phase 3b part: {phase_s:.1f} s")
+    return dict(sensors=S, frames=T, fleet_fps=fps, sensor_frames_per_s=fps
+                * S, ms_per_fleet_frame=1e3 / fps, engine_fps=timed.stats.fps,
+                single_fps=single["fps"], solo_fps=solo_fps,
+                solo_engine_fps=solo.stats.fps, fps_ratio=fps / solo_fps,
+                limit_fps=limit, meets_limit=fps >= limit,
+                launches=launches[name],
+                greedy_launches=launches["greedy_assign"],
+                kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bytes=nb, operations=nops, waves_last=fwaves,
+                mean_waves_by_sensor=fw.double().mean(0).tolist(),
+                launch_device_ms=launch_ms, registers=regs, memory=mem,
+                replay_launches=r_launches["katana_imm_sequence"],
+                replay_ms=replay_ms, replay_frames=Tr, replay_lanes=S * C,
+                seconds=phase_s)
 
 
 # ---------------------------------------------------------------------------
@@ -2324,29 +2595,70 @@ def main() -> int:
         for ln in log["ptxas"]:
             print(f"    {ln}")
 
+    seconds = {"build": time.perf_counter() - t0}
+    mark = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - mark[0]
+        mark[0] = now
+        print(f"phase {phase}: {seconds[phase]:.1f} s")
+
     errs = phase_kernels_vs_plain()
     errs_r, plain_r = phase_replay_kernels_vs_plain()
     errs.update(errs_r)
+    lap("2")
 
     rows, greedy, engines = {}, None, {}
     for kind in ("lkf", "ekf", "imm"):
         rows[kind], g, engines[kind] = phase_main_path(kind)
         greedy = greedy or g
+    lap("3")
+    fleet = {kind: phase_fleet(kind, rows[kind])
+             for kind in ("lkf", "ekf", "imm")}
+    lap("3b")
     replay = {kind: phase_replay(kind, plain_r)
               for kind in ("lkf", "ekf", "imm")}
+    lap("4")
     per_frame = phase_per_frame(plain_r)
+    lap("5")
     stages, ladder, full_sq = phase_stages()
+    lap("5b")
     phase_resumed_bank(engines["imm"])
+    lap("6")
     lm, lm_kern = phase_lm(get_config(LM_ARCH), LM_B, LM_S, LM_STEPS, card)
+    lap("7")
     mamba, lm_kern["ssd_scan"] = phase_mamba(
         get_config(MAMBA_ARCH), MAMBA_B, MAMBA_S, MAMBA_STEPS, card)
+    lap("8")
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
+    # the sensor fleet's own launches (phase 3b), apart from the main
+    # path's: its frames, and its replays (katana_imm_sequence; at K = 1,
+    # lkf and ekf, it launches scan.cu's bank_scan, row katana_bank_sequence)
+    fleet_launches = {
+        "katana_frame": fleet["lkf"]["launches"] + fleet["ekf"]["launches"],
+        "katana_imm_frame": fleet["imm"]["launches"],
+        "greedy_assign": sum(f["greedy_launches"] for f in fleet.values()),
+        "katana_imm_sequence": fleet["imm"]["replay_launches"],
+        "katana_bank_sequence": (fleet["lkf"]["replay_launches"]
+                                 + fleet["ekf"]["replay_launches"])}
+
+    def fleet_row(kind):
+        f = fleet[kind]
+        return {k: f[k] for k in (
+            "sensors", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "launch_device_ms", "registers", "fleet_fps", "solo_fps",
+            "fps_ratio")}
+
     def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
-        # the stage ladder's own launches of the kernel, by stage
-        # (phase_stages), apart from the main path's ``launches``
+        # the stage ladder's and the sensor fleet's own launches of the
+        # kernel (phase_stages, phase_fleet), apart from the main path's
+        # ``launches``
         if name in ladder:
             extra = dict(extra, ladder_launches=ladder[name])
+        if name in fleet_launches:
+            extra = dict(extra, fleet_launches=fleet_launches[name])
         return dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches,
                     max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
@@ -2362,7 +2674,8 @@ def main() -> int:
                          "the host's pace, launch_device_ms by events with "
                          "the device queued",
                    launch_device_ms=lkf["launch_device_ms"],
-                   registers=lkf["launch_registers"], by_model={
+                   registers=lkf["launch_registers"],
+                   fleet={k: fleet_row(k) for k in ("lkf", "ekf")}, by_model={
                   k: {f: rows[k][f] for f in (
                       "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                       "launches", "launch_device_ms", "launch_registers")}
@@ -2373,7 +2686,8 @@ def main() -> int:
                          "at the host's pace, launch_device_ms by events "
                          "with the device queued",
                    launch_device_ms=imm["launch_device_ms"],
-                   registers=imm["launch_registers"])),
+                   registers=imm["launch_registers"],
+                   fleet=fleet_row("imm"))),
         entry("greedy_assign", greedy["kernel_ms"], greedy["plain_ms"],
               greedy["bound_ms"], greedy["bound_by"],
               sum(r["greedy_launches"] for r in rows.values()),
@@ -2382,7 +2696,9 @@ def main() -> int:
                          "device time (CUDA events the kernel records "
                          "around its launches)",
                    profiler_ms=greedy["profiler_ms"],
-                   standalone_ms=greedy["standalone_ms"])),
+                   standalone_ms=greedy["standalone_ms"],
+                   fleet_device_ms={k: fleet[k]["launch_device_ms"]["greedy"]
+                                    for k in fleet})),
         entry("katana_bank_sequence", replay["lkf"]["kernel_ms"],
               replay["lkf"]["plain_ms"], replay["lkf"]["bound_ms"],
               replay["lkf"]["bound_by"],
@@ -2438,9 +2754,11 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, rows=rows,
-                 greedy=greedy, replay=replay, per_frame=per_frame,
+                 greedy=greedy, fleet=fleet, replay=replay,
+                 per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, kernels=kernels,
+                 phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

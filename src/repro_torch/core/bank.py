@@ -8,6 +8,13 @@ slot, shared by the K hypotheses.
 
 Dtypes follow the reference: float state, int32 counters and ids, bool
 masks. Functions return new NamedTuples and never modify their inputs.
+
+A fleet of S sensors stacks S banks on a sensor axis
+(``bank_sensor_axes``): position 1 of the model-conditioned IMM x, P (the
+(K, S, C, ...) layout, so a fleet's x is (K, S*C, n) to the kernels), 0 of
+every other leaf. The lifecycle glue (``lifecycle_counters``, spawn,
+prune) takes such a leading sensor axis as it is: its ops run along the
+last axes, so a fleet costs the same op count as one sensor.
 """
 from __future__ import annotations
 
@@ -166,8 +173,8 @@ def update_bank(model: FilterModel, bank: BankState, z: torch.Tensor,
 
 
 def lifecycle_counters(bank, assoc: torch.Tensor):
-    """The per-slot hit/miss/age advance for one frame from assoc (C,).
-    Returns (hits, misses, age)."""
+    """The per-slot hit/miss/age advance for one frame from assoc (C,)
+    (or (S, C) for a fleet). Returns (hits, misses, age)."""
     one = torch.ones((), dtype=torch.int32, device=assoc.device)
     zero = torch.zeros((), dtype=torch.int32, device=assoc.device)
     upd = (assoc >= 0) & bank.active
@@ -182,14 +189,15 @@ def lifecycle_counters(bank, assoc: torch.Tensor):
 def _spawn_plan(active: torch.Tensor, unassigned: torch.Tensor):
     """Deterministic free-slot packing: the j-th unassigned measurement
     claims the j-th free slot (cumsum ranks). Returns (take (Cap, M)
-    bool, takes_any (Cap,), free_rank (Cap,) int32)."""
+    bool, takes_any (Cap,), free_rank (Cap,) int32), each with the
+    inputs' leading sensor axis if they have one."""
     free = ~active
-    free_rank = torch.cumsum(free.to(torch.int32), 0, dtype=torch.int32) - 1
-    meas_rank = torch.cumsum(unassigned.to(torch.int32), 0,
+    free_rank = torch.cumsum(free.to(torch.int32), -1, dtype=torch.int32) - 1
+    meas_rank = torch.cumsum(unassigned.to(torch.int32), -1,
                              dtype=torch.int32) - 1
-    take = (free[:, None] & unassigned[None, :]
-            & (free_rank[:, None] == meas_rank[None, :]))
-    return take, take.any(dim=1), free_rank
+    take = (free[..., :, None] & unassigned[..., None, :]
+            & (free_rank[..., :, None] == meas_rank[..., None, :]))
+    return take, take.any(dim=-1), free_rank
 
 
 def _spawn_init_state(model: FilterModel, take: torch.Tensor,
@@ -197,9 +205,10 @@ def _spawn_init_state(model: FilterModel, take: torch.Tensor,
     """Measurement-seeded initial state per claiming slot: z mapped
     through Hᵀ, the unobserved components at the model defaults. A slot
     claims at most one measurement, so the selection is a gather
-    (exact)."""
-    j = take.to(torch.int32).argmax(dim=1)
-    zsel = torch.where(take.any(dim=1)[:, None], z[j.long()],
+    (exact). take (..., Cap, M), z (..., M, m)."""
+    j = take.to(torch.int32).argmax(dim=-1)
+    zj = torch.take_along_dim(z, j.long()[..., None], dim=-2)
+    zsel = torch.where(take.any(dim=-1)[..., None], zj,
                        torch.zeros((), dtype=z.dtype, device=z.device))
     Ht = _const(np.asarray(model.H).T, dtype, z.device)       # (n, m)
     unobs = 1.0 - Ht.sum(dim=1)                               # (n,)
@@ -208,26 +217,27 @@ def _spawn_init_state(model: FilterModel, take: torch.Tensor,
 
 def _spawn_fields(bank, takes_any, free_rank):
     i32 = dict(dtype=torch.int32, device=takes_any.device)
-    new_ids = bank.next_id + free_rank
+    new_ids = bank.next_id[..., None] + free_rank
     return dict(
         active=bank.active | takes_any,
         hits=torch.where(takes_any, torch.ones((), **i32), bank.hits),
         misses=torch.where(takes_any, torch.zeros((), **i32), bank.misses),
         age=torch.where(takes_any, torch.zeros((), **i32), bank.age),
         track_id=torch.where(takes_any, new_ids, bank.track_id),
-        next_id=bank.next_id + takes_any.sum(dtype=torch.int32),
+        next_id=bank.next_id + takes_any.sum(dim=-1, dtype=torch.int32),
     )
 
 
 def spawn_tracks(model: FilterModel, bank: BankState, z: torch.Tensor,
                  unassigned: torch.Tensor, dtype=torch.float32) -> BankState:
-    """Open new tracks for unassigned measurements (M,) in free slots."""
+    """Open new tracks for unassigned measurements (M,) in free slots
+    (a fleet: z (S, M, m), unassigned (S, M))."""
     take, takes_any, free_rank = _spawn_plan(bank.active, unassigned)
     x_init = _spawn_init_state(model, take, z, dtype)
     P_init = _const(model.P0, dtype, z.device)
     return bank._replace(
-        x=torch.where(takes_any[:, None], x_init, bank.x),
-        P=torch.where(takes_any[:, None, None], P_init, bank.P),
+        x=torch.where(takes_any[..., None], x_init, bank.x),
+        P=torch.where(takes_any[..., None, None], P_init, bank.P),
         **_spawn_fields(bank, takes_any, free_rank))
 
 
@@ -235,20 +245,22 @@ def spawn_imm_tracks(imm: IMMModel, bank: IMMBankState, z: torch.Tensor,
                      unassigned: torch.Tensor,
                      dtype=torch.float32) -> IMMBankState:
     """IMM spawn: every mode starts from the same measurement-seeded
-    state, covariance P0 and the prior mode distribution ``imm.mu0``."""
+    state, covariance P0 and the prior mode distribution ``imm.mu0``
+    (a fleet: z (S, M, m), unassigned (S, M))."""
     take, takes_any, free_rank = _spawn_plan(bank.active, unassigned)
     x_init = _spawn_init_state(imm.models[0], take, z, dtype)  # shared H
     P_init = _const(imm.P0, dtype, z.device)
     mu_init = _const(imm.mu0, dtype, z.device)
     return bank._replace(
-        x=torch.where(takes_any[None, :, None], x_init[None], bank.x),
-        P=torch.where(takes_any[None, :, None, None], P_init, bank.P),
-        mu=torch.where(takes_any[:, None], mu_init, bank.mu),
+        x=torch.where(takes_any[None, ..., None], x_init[None], bank.x),
+        P=torch.where(takes_any[None, ..., None, None], P_init, bank.P),
+        mu=torch.where(takes_any[..., None], mu_init, bank.mu),
         **_spawn_fields(bank, takes_any, free_rank))
 
 
 def prune_bank(bank, max_misses: int = 5):
-    """Retire tracks that coasted too long (BankState or IMMBankState)."""
+    """Retire tracks that coasted too long (BankState or IMMBankState,
+    one sensor's or a fleet's)."""
     dead = bank.active & (bank.misses > max_misses)
     zero = torch.zeros((), dtype=torch.int32, device=dead.device)
     return bank._replace(
@@ -257,6 +269,57 @@ def prune_bank(bank, max_misses: int = 5):
         hits=torch.where(dead, zero, bank.hits),
         misses=torch.where(dead, zero, bank.misses),
     )
+
+
+def bank_sensor_axes(bank):
+    """Per-leaf sensor-axis positions for stacking this bank over S
+    independent sensors: 1 for the model-conditioned x, P of an
+    ``IMMBankState`` (the (K, S, C, ...) layout: one contiguous (sensor,
+    slot) block per model slab, which the fleet's kernels and its replay
+    flatten onto their track axis), 0 for every other leaf."""
+    if isinstance(bank, IMMBankState):
+        return IMMBankState(x=1, P=1, mu=0, active=0, hits=0, misses=0,
+                            age=0, track_id=0, next_id=0)
+    return BankState(x=0, P=0, active=0, hits=0, misses=0, age=0,
+                     track_id=0, next_id=0)
+
+
+def _map_sensor_axes(fn, bank, *rest):
+    axes = bank_sensor_axes(bank)
+    return type(bank)(*(fn(a, leaf, *more)
+                        for a, leaf, *more in zip(axes, bank, *rest)))
+
+
+def stack_sensor_banks(bank, n_sensors: int):
+    """Broadcast one bank into an S-sensor stack along
+    ``bank_sensor_axes`` (every sensor starts from the same bank); each
+    leaf is a new contiguous tensor. BankState and IMMBankState alike."""
+    def put(a, x):
+        x = x.unsqueeze(a)
+        shape = x.shape[:a] + (n_sensors,) + x.shape[a + 1:]
+        return x.expand(shape).contiguous()
+
+    return _map_sensor_axes(put, bank)
+
+
+def slice_sensor_bank(banks, s: int):
+    """Sensor ``s`` of a stacked bank as a single-sensor bank (the
+    inverse of one lane of ``stack_sensor_banks``): the checkpoint and
+    failover surface. Each leaf is a new contiguous tensor, so the
+    result shares no memory with the fleet."""
+    return _map_sensor_axes(lambda a, x: x.select(a, s).clone(), banks)
+
+
+def place_sensor_bank(banks, s: int, one):
+    """Write a single-sensor bank into lane ``s`` of a stacked bank, the
+    other lanes untouched: the restore half of ``slice_sensor_bank``.
+    Returns a new stacked bank; neither input is modified."""
+    def put(a, full, x):
+        x = torch.as_tensor(x, dtype=full.dtype, device=full.device)
+        idx = torch.tensor([s], device=full.device)
+        return full.index_copy(a, idx, x.unsqueeze(a))
+
+    return _map_sensor_axes(put, banks, one)
 
 
 def predict_imm_bank(imm: IMMModel, bank: IMMBankState, dtype=torch.float32):

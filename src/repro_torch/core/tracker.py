@@ -11,6 +11,11 @@ is one call of the ``katana_frame`` / ``katana_imm_frame`` kernels;
 plain torch keeps the lifecycle counters, spawn and prune. The einsum
 route (``fused_frame=False``) is the port's own equivalence oracle and
 the route for models the kernels do not serve.
+
+``make_multi_sensor_step`` serves S independent sensors over banks
+stacked on a sensor axis (``bank.bank_sensor_axes``). On the fused route
+the fleet frame is the single-sensor frame step itself: one kernel call
+for all S sensors and the same torch glue over a leading sensor axis.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import bank as bank_lib
 from repro_torch.core.bank import BankState, IMMBankState
 from repro_torch.core.filters import FilterModel, IMMModel
@@ -52,6 +58,8 @@ class TrackerConfig:
 
 
 class FrameResult(NamedTuple):
+    """One frame's result; a fleet's leaves lead with the sensor axis S
+    (the bank's as ``bank.bank_sensor_axes`` places it)."""
     bank: BankState           # BankState or IMMBankState
     assoc: torch.Tensor       # (C,) measurement index per slot or -1
     unassigned: torch.Tensor  # (M,) bool — measurements that spawned
@@ -101,7 +109,8 @@ def _frame_inputs(model, cfg: TrackerConfig, z: torch.Tensor,
                   z_valid: torch.Tensor):
     """The scaled gate, the assignment round bound, the cast
     measurements and the (NaN-guarded) validity mask — applied before
-    the route split, so both routes see identical inputs."""
+    the route split, so both routes see identical inputs. z (M, m) or a
+    fleet's (S, M, m)."""
     dtype = getattr(torch, cfg.dtype)
     gate = (cfg.gate or CHI2_99.get(model.m, 16.0)) * cfg.gate_scale
     rounds = min(cfg.capacity, cfg.max_meas)
@@ -109,14 +118,17 @@ def _frame_inputs(model, cfg: TrackerConfig, z: torch.Tensor,
     if cfg.nan_guard:
         finite = torch.isfinite(zt).all(dim=-1)
         z_valid = z_valid & finite
-        zt = torch.where(finite[:, None], zt,
+        zt = torch.where(finite[..., None], zt,
                          torch.zeros((), dtype=dtype, device=zt.device))
     return dtype, float(gate), rounds, zt, z_valid
 
 
 def _unassigned(assoc, z_valid, max_meas: int):
-    taken = torch.zeros((max_meas,), dtype=torch.int32, device=assoc.device)
-    taken = taken.scatter_reduce(0, assoc.clamp(0, max_meas - 1).long(),
+    """The valid measurements no slot took: assoc (C,) and z_valid (M,),
+    or a fleet's (S, C) and (S, M)."""
+    taken = torch.zeros(assoc.shape[:-1] + (max_meas,), dtype=torch.int32,
+                        device=assoc.device)
+    taken = taken.scatter_reduce(-1, assoc.clamp(0, max_meas - 1).long(),
                                  (assoc >= 0).to(torch.int32), reduce="amax")
     return z_valid & ~taken.bool()
 
@@ -177,8 +189,45 @@ def imm_frame_step(imm: IMMModel, cfg: TrackerConfig, bank: IMMBankState,
     confirmed = bank_f.active & (bank_f.hits >= cfg.min_hits)
     if fused:
         spawned = bank_s.active & ~bank_u.active
-        x_est = torch.where(spawned[:, None], bank_f.x[0], x_c)
+        x_est = torch.where(spawned[..., None], bank_f.x[0], x_c)
     else:
         x_est, _ = imm_combine(bank_f.x, bank_f.P, bank_f.mu)
     return FrameResult(bank_f, assoc, unassigned, confirmed,
                        mode_probs=bank_f.mu, x_est=x_est)
+
+
+def make_multi_sensor_step(model, cfg: TrackerConfig, device="cuda"):
+    """The S-sensor frame step of ``frame_step`` (FilterModel) or
+    ``imm_frame_step`` (IMMModel). Returns ``(bank, axes, step)``:
+    ``bank`` one empty single-sensor bank on ``device``, ``axes`` its
+    sensor-axis positions (``bank.bank_sensor_axes``), and ``step(banks,
+    z (S, max_meas, m), valid (S, max_meas))`` the stacked
+    ``FrameResult`` of S independent sensors (assoc, confirmed (S, C),
+    unassigned (S, M); IMM mode_probs (S, C, K) and x_est (S, C, n)).
+
+    On the fused route the step is the single-sensor step over the
+    stacked banks: one ``katana_frame`` / ``katana_imm_frame`` call for
+    the fleet and the torch glue on a leading sensor axis, with no loop
+    over sensors. Association, spawn, prune and the track ids stay per
+    sensor, each bit for bit its own single-sensor frame. The einsum
+    route (``fused_frame=False``, the oracle) runs the single-sensor step
+    per sensor and stacks the results."""
+    is_imm = isinstance(model, IMMModel)
+    one = (bank_lib.init_imm_bank if is_imm else bank_lib.init_bank)(
+        model, cfg.capacity, getattr(torch, cfg.dtype), resolve_device(device))
+    axes = bank_lib.bank_sensor_axes(one)
+    base = imm_frame_step if is_imm else frame_step
+
+    def step(banks, z, valid):
+        if _use_fused_frame(model, cfg):
+            return base(model, cfg, banks, z, valid)
+        res = [base(model, cfg, bank_lib.slice_sensor_bank(banks, s), z[s],
+                    valid[s])
+               for s in range(z.shape[0])]
+        bank = type(banks)(*(torch.stack(leaves, dim=a) for a, leaves in
+                             zip(axes, zip(*(r.bank for r in res)))))
+        return FrameResult(bank, *(
+            None if f[0] is None else torch.stack(f)
+            for f in zip(*(r[1:] for r in res))))
+
+    return one, axes, step

@@ -48,13 +48,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "frame.cu": {
         "katana_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                             _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P],
     },
     "imm_frame.cu": {
         "katana_imm_frame_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _P, _P, _F, _I, _F, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _P, _P, _F, _I, _I, _F, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _P],
     },
     "greedy.cu": {
         "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P, _P, _P,

@@ -29,6 +29,15 @@
 //   4. frame_update: a thread per assigned, active track, the blocks of
 //      the predict: x', P' (its upper triangle) and S^-1 read back, the
 //      Kalman update over x'/P'.
+// A fleet frame serves S sensors in the same four launches: x (S, C, n)
+// is (S*C, n), so the predict and the update run over S*C tracks (track
+// t of sensor t / C, which the update reads z and z_valid of); the cost
+// grid gains a z axis of S, a block staging its own sensor's z into
+// sensor s's (M, C) tile; the greedy runs S lists and S blocks of waves
+// (greedy.cuh). A track's op stream does not depend on S, so each sensor
+// is bit for bit its single-sensor frame. The sensor offsets are the
+// compile-time Fleet route of the cost tile, the update and the greedy's
+// tile: S = 1 runs the single-sensor code on its grids.
 // x, P and x', P' move with 16-byte accesses where the address allows;
 // the model's F, Q, R are the launch's parameters (ModelTable), read from
 // the constant bank where they are used.
@@ -52,17 +61,19 @@ constexpr int kCostTracks = 128;
 constexpr int kCostMeas = 8;
 
 // The scratch `inno` between the launches holds M * M + M floats per
-// track: S^-1 (M*M) then z_pred (M); entry e of track c sits at e * C + c.
+// track: S^-1 (M*M) then z_pred (M); entry e of track t (of the S*C
+// tracks, SC) sits at e * SC + t.
 
 template <class Pat, bool NL>
 __global__ void __launch_bounds__(kTracks)
-frame_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
+frame_predict(int SC, const float* __restrict__ x,
+              const float* __restrict__ P,
               const __grid_constant__ ModelTable<Pat::N, Pat::M> tab,
               float dt, float* __restrict__ x_out, float* __restrict__ P_out,
               float* __restrict__ inno) {
   constexpr int N = Pat::N, M = Pat::M, NN = N * N;
   const int c = blockIdx.x * kTracks + threadIdx.x;
-  if (c >= C) return;
+  if (c >= SC) return;
   float xv[N], Pv[NN];
   load_vec<N>(x + (size_t)c * N, xv);
   load_vec<NN>(P + (size_t)c * NN, Pv);
@@ -80,17 +91,27 @@ frame_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
 #pragma unroll
   for (int r = 0; r < M; ++r)
 #pragma unroll
-    for (int q = 0; q < M; ++q) inno[(size_t)(r * M + q) * C + c] = Si[r][q];
+    for (int q = 0; q < M; ++q) inno[(size_t)(r * M + q) * SC + c] = Si[r][q];
 #pragma unroll
   for (int r = 0; r < M; ++r)
-    inno[(size_t)(M * M + r) * C + c] = xp[obs<N, M>(r)];
+    inno[(size_t)(M * M + r) * SC + c] = xp[obs<N, M>(r)];
 }
 
-template <int M>
+// Block (x, y, s): sensor s's tracks x * kCostTracks ... against its
+// measurements y * kCostMeas ...; z is (S, Mz, M), the tile (S, Mz, C).
+// Without Fleet, one sensor (SC = C).
+template <int M, bool Fleet>
 __global__ void __launch_bounds__(kCostTracks)
-frame_cost(int C, int Mz, const float* __restrict__ z,
+frame_cost(int C, int SC, int Mz, const float* __restrict__ z,
            const float* __restrict__ inno, float* __restrict__ cost) {
   __shared__ float zs[kCostMeas * M];
+  if constexpr (Fleet) {
+    const int s = blockIdx.z;
+    z += (size_t)s * Mz * M;
+    inno += (size_t)s * C;
+    cost += (size_t)s * Mz * C;
+  }
+  const int ld = Fleet ? SC : C;  // inno's stride: every track's
   const int j0 = blockIdx.y * kCostMeas;
   const int nm = min(kCostMeas, Mz - j0);
   for (int t = threadIdx.x; t < nm * M; t += kCostTracks)
@@ -103,25 +124,29 @@ frame_cost(int C, int Mz, const float* __restrict__ z,
   for (int r = 0; r < M; ++r)
 #pragma unroll
     for (int q = 0; q < M; ++q)
-      Si[r][q] = __ldg(inno + (size_t)(r * M + q) * C + c);
+      Si[r][q] = __ldg(inno + (size_t)(r * M + q) * ld + c);
 #pragma unroll
   for (int r = 0; r < M; ++r)
-    zp[r] = __ldg(inno + (size_t)(M * M + r) * C + c);
+    zp[r] = __ldg(inno + (size_t)(M * M + r) * ld + c);
   for (int jj = 0; jj < nm; ++jj)
     cost[(size_t)(j0 + jj) * C + c] = mahalanobis<M>(Si, zp, zs + jj * M);
 }
 
-template <int N, int M>
+// Track c of the S*C (SC): sensor c / C's z (Mz, M); act, assoc (S*C).
+// Without Fleet, one sensor (SC = C).
+template <int N, int M, bool Fleet>
 __global__ void __launch_bounds__(kTracks)
-frame_update(int C, const float* __restrict__ z,
+frame_update(int C, int SC, int Mz, const float* __restrict__ z,
              const uint8_t* __restrict__ act, const int* __restrict__ assoc,
              const float* __restrict__ inno, float* __restrict__ x_out,
              float* __restrict__ P_out) {
   constexpr int NN = N * N;
+  const int ld = Fleet ? SC : C;  // every track's
   const int c = blockIdx.x * kTracks + threadIdx.x;
-  if (c >= C) return;
+  if (c >= ld) return;
   const int a = assoc[c];
   if (a < 0 || !act[c]) return;  // coasting: keeps the predicted x'/P'
+  if constexpr (Fleet) z += (size_t)(c / C) * Mz * M;
   float xp[N], Pv[NN], Pp[N][N], Si[M][M], zk[M], y[M], xn[N], Pn[N][N];
   load_vec<N>(x_out + (size_t)c * N, xp);
   load_vec<NN>(P_out + (size_t)c * NN, Pv);
@@ -137,7 +162,7 @@ frame_update(int C, const float* __restrict__ z,
   for (int r = 0; r < M; ++r)
 #pragma unroll
     for (int q = 0; q < M; ++q)
-      Si[r][q] = __ldg(inno + (size_t)(r * M + q) * C + c);
+      Si[r][q] = __ldg(inno + (size_t)(r * M + q) * ld + c);
 #pragma unroll
   for (int r = 0; r < M; ++r) zk[r] = z[(size_t)a * M + r];
   kalman_update<N, M>(xp, Pp, Si, zk, y, xn, Pn);
@@ -149,40 +174,46 @@ frame_update(int C, const float* __restrict__ z,
   store_vec<NN>(P_out + (size_t)c * NN, Pv);
 }
 
-template <class Pat, bool NL>
-cudaError_t run_frame(int C, int Mz, const float* x, const float* P,
+template <class Pat, bool NL, bool Fleet>
+cudaError_t run_frame(int S, int C, int Mz, const float* x, const float* P,
                       const float* z, const uint8_t* zval, const uint8_t* act,
                       const ModelTable<Pat::N, Pat::M>& tab, float dt,
                       float gate, int rounds, float* x_out, float* P_out,
                       int* assoc, float* cost, float* inno, void* scratch,
                       int* waves, cudaStream_t stream, void* const* events) {
   constexpr int N = Pat::N, M = Pat::M;
-  const int blocks = (C + kTracks - 1) / kTracks;
+  const int SC = S * C;
+  const int blocks = (SC + kTracks - 1) / kTracks;
   cudaError_t e = record(events, 0, stream);
   if (e != cudaSuccess) return e;
-  if (C > 0) {
+  if (SC > 0) {
     frame_predict<Pat, NL><<<blocks, kTracks, 0, stream>>>(
-        C, x, P, tab, dt, x_out, P_out, inno);
+        SC, x, P, tab, dt, x_out, P_out, inno);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   e = record(events, 1, stream);
   if (e != cudaSuccess) return e;
-  if (C > 0 && Mz > 0) {
+  if (SC > 0 && Mz > 0) {
     const dim3 grid((C + kCostTracks - 1) / kCostTracks,
-                    (Mz + kCostMeas - 1) / kCostMeas);
-    frame_cost<M><<<grid, kCostTracks, 0, stream>>>(C, Mz, z, inno, cost);
+                    (Mz + kCostMeas - 1) / kCostMeas, S);
+    frame_cost<M, Fleet><<<grid, kCostTracks, 0, stream>>>(C, SC, Mz, z,
+                                                            inno, cost);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds,
-                    scratch, assoc, waves, stream,
-                    events ? events[2] : nullptr,
-                    events ? events[3] : nullptr);
+  void* g0 = events ? events[2] : nullptr;
+  void* g1 = events ? events[3] : nullptr;
+  if constexpr (Fleet)
+    e = launch_greedy(FleetTile{cost, act, zval, C, Mz, gate}, C, Mz, S,
+                      rounds, scratch, assoc, waves, stream, g0, g1);
+  else
+    e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, 1, rounds,
+                      scratch, assoc, waves, stream, g0, g1);
   if (e != cudaSuccess) return e;
-  if (C > 0) {
-    frame_update<N, M><<<blocks, kTracks, 0, stream>>>(
-        C, z, act, assoc, inno, x_out, P_out);
+  if (SC > 0) {
+    frame_update<N, M, Fleet><<<blocks, kTracks, 0, stream>>>(
+        C, SC, Mz, z, act, assoc, inno, x_out, P_out);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -193,7 +224,7 @@ cudaError_t run_frame(int C, int Mz, const float* x, const float* P,
 // in host memory, copied into the launches' parameters. A nonlinear
 // model is the CTRA-8 (N = 8) only.
 template <class Pat>
-cudaError_t launch_frame(int C, int Mz, const void* x, const void* P,
+cudaError_t launch_frame(int S, int C, int Mz, const void* x, const void* P,
                          const void* z, const void* zval, const void* act,
                          const void* consts, int nonlinear, float dt,
                          float gate, int rounds, void* x_out, void* P_out,
@@ -201,12 +232,16 @@ cudaError_t launch_frame(int C, int Mz, const void* x, const void* P,
                          void* waves, cudaStream_t s, void* const* events) {
   ModelTable<Pat::N, Pat::M> tab;
   memcpy(&tab, consts, sizeof tab);
+  // S = 1: the single-sensor code (no sensor offsets)
   auto run = [&](auto nl) {
-    return run_frame<Pat, decltype(nl)::value>(
-        C, Mz, (const float*)x, (const float*)P, (const float*)z,
-        (const uint8_t*)zval, (const uint8_t*)act, tab, dt, gate, rounds,
-        (float*)x_out, (float*)P_out, (int*)assoc, (float*)cost,
-        (float*)inno, scratch, (int*)waves, s, events);
+    auto go = [&](auto fleet) {
+      return run_frame<Pat, decltype(nl)::value, decltype(fleet)::value>(
+          S, C, Mz, (const float*)x, (const float*)P, (const float*)z,
+          (const uint8_t*)zval, (const uint8_t*)act, tab, dt, gate, rounds,
+          (float*)x_out, (float*)P_out, (int*)assoc, (float*)cost,
+          (float*)inno, scratch, (int*)waves, s, events);
+    };
+    return S == 1 ? go(std::false_type{}) : go(std::true_type{});
   };
   if constexpr (Pat::N == 8) {
     if (nonlinear) return run(std::true_type{});
@@ -219,18 +254,20 @@ cudaError_t launch_frame(int C, int Mz, const void* x, const void* P,
 
 extern "C" {
 
-// The whole frame of one model. `pattern` is the id of an instantiated
-// Pattern of shape (n, m) (pruned.cuh, KATANA_IMM_PATTERNS); any other
-// combination returns cudaErrorInvalidValue without launching. `consts`
-// is the model's F, Q, R in HOST memory (ops._host_consts). `inno` holds
-// (m^2 + m) * C floats, `scratch` greedy_scratch_bytes(C, Mz). `events`
-// is null or five CUDA events (each may be null) recorded before
+// The whole frame of one model for S >= 1 sensors: x (S, C, n), P (S, C,
+// n, n), z (S, Mz, m), zval (S, Mz), act and assoc (S, C), waves (S).
+// `pattern` is the id of an instantiated Pattern of shape (n, m)
+// (pruned.cuh, KATANA_IMM_PATTERNS); any other combination returns
+// cudaErrorInvalidValue without launching. `consts` is the model's F, Q,
+// R in HOST memory (ops._host_consts). `cost` holds S * Mz * C floats,
+// `inno` (m^2 + m) * S * C, `scratch` greedy_scratch_bytes(C, Mz, S).
+// `events` is null or five CUDA events (each may be null) recorded before
 // frame_predict, after it, after frame_cost (the greedy's start), after
 // the greedy and after frame_update.
 int katana_frame_run(int n, int m, int pattern, int C, int Mz, const void* x,
                      const void* P, const void* z, const void* zval,
                      const void* act, const void* consts, int nonlinear,
-                     float dt, float gate, int rounds, void* x_out,
+                     float dt, float gate, int rounds, int S, void* x_out,
                      void* P_out, void* assoc, void* cost, void* inno,
                      void* scratch, void* waves, void* stream,
                      void* const* events) {
@@ -238,7 +275,7 @@ int katana_frame_run(int n, int m, int pattern, int C, int Mz, const void* x,
   auto s = static_cast<cudaStream_t>(stream);
 #define KATANA_FRAME_CASE(id, name, n_, m_, ...)                             \
   if (pattern == id && n == n_ && m == m_)                                  \
-    return (int)launch_frame<name>(C, Mz, x, P, z, zval, act, consts,       \
+    return (int)launch_frame<name>(S, C, Mz, x, P, z, zval, act, consts,    \
                                    nonlinear, dt, gate, rounds, x_out,      \
                                    P_out, assoc, cost, inno, scratch, waves, \
                                    s, events);

@@ -20,7 +20,7 @@ int greedy_assign_run(int C, int Mz, const void* cost, const void* valid,
   using namespace katana;
   return (int)launch_greedy(
       PairTile{(const float*)cost, (const uint8_t*)valid, Mz, gate}, C, Mz,
-      rounds, scratch, (int*)assoc, (int*)waves,
+      1, rounds, scratch, (int*)assoc, (int*)waves,
       static_cast<cudaStream_t>(stream), ev0, ev1);
 }
 

@@ -31,6 +31,14 @@
 // depend on it. Frames, IMM frames and the standalone greedy share this
 // code; only the tile accessor differs.
 //
+// A fleet frame serves S sensors at once: the tile is (S, M, C)
+// (FleetTile), the candidate grid gains a y axis of S (a block lists one
+// sensor's entries into that sensor's own list and count), and the waves
+// run on S blocks, block s over list s into assoc[s] and waves[s]. A
+// sensor's candidates and minima are those of its own frame, so each
+// sensor's assoc and wave count equal its single-sensor greedy's, bit for
+// bit. S = 1 launches the single-sensor grids on FrameTile.
+//
 // Bound: one read of the masked tile (L2-resident after the cost pass)
 // and, per wave, one read of the candidate list; at the serving shape
 // (C=1024, M=256, a few hundred gated pairs) launch latency and the
@@ -45,14 +53,14 @@ namespace katana {
 
 // Masked entry of the frame's (M, C) cost tile: track active, measurement
 // valid, cost within the gate. Entry e of the tile in memory order is
-// (j, c) = (e / C, e % C).
+// (j, c) = (e / C, e % C). One sensor (s is 0).
 struct FrameTile {
   const float* cost;
   const uint8_t* act;
   const uint8_t* zval;
   int C;
   float gate;
-  __device__ __forceinline__ float at(size_t e, int& j, int& c) const {
+  __device__ __forceinline__ float at(int, size_t e, int& j, int& c) const {
     j = (int)(e / C);
     c = (int)(e - (size_t)j * C);
     const float v = cost[e];
@@ -60,14 +68,34 @@ struct FrameTile {
   }
 };
 
-// Masked entry of a canonical (C, M) cost with a (C, M) pair-validity mask:
-// entry e is (j, c) = (e % M, e / M).
+// FrameTile of a fleet: sensor s's (M, C) tile of the (S, M, C) cost, its
+// act (S, C) and zval (S, M) rows.
+struct FleetTile {
+  const float* cost;
+  const uint8_t* act;
+  const uint8_t* zval;
+  int C;
+  int M;
+  float gate;
+  __device__ __forceinline__ float at(int s, size_t e, int& j,
+                                      int& c) const {
+    j = (int)(e / C);
+    c = (int)(e - (size_t)j * C);
+    const float v = cost[(size_t)s * M * C + e];
+    return (act[(size_t)s * C + c] && zval[(size_t)s * M + j] && v <= gate)
+               ? v
+               : FLT_MAX;
+  }
+};
+
+// Masked entry of a canonical (C, M) cost with a (C, M) pair-validity mask
+// (one sensor): entry e is (j, c) = (e % M, e / M).
 struct PairTile {
   const float* cost;
   const uint8_t* valid;
   int M;
   float gate;
-  __device__ __forceinline__ float at(size_t e, int& j, int& c) const {
+  __device__ __forceinline__ float at(int, size_t e, int& j, int& c) const {
     c = (int)(e / M);
     j = (int)(e - (size_t)c * M);
     const float v = cost[e];
@@ -86,10 +114,12 @@ constexpr unsigned long long kLow = 0xffffffffull;
 constexpr int kCandThreads = 256;
 constexpr int kCandPerThread = 8;
 
-// The scratch the wrapper allocates: keys (C*M x 8 bytes), tracks
-// (C*M x 4), the count (4).
-__host__ __device__ inline size_t greedy_scratch_bytes(int C, int M) {
-  return (size_t)C * M * 12 + 4;
+// The scratch the wrapper allocates for S sensors: keys (S*C*M x 8
+// bytes), tracks (S*C*M x 4), the counts (S x 4); sensor s's list is
+// entries s*C*M ... of keys and tracks.
+__host__ __device__ inline size_t greedy_scratch_bytes(int C, int M,
+                                                       int S = 1) {
+  return ((size_t)C * M * 12 + 4) * S;
 }
 
 __host__ __device__ inline size_t greedy_smem_bytes(int C, int M) {
@@ -101,12 +131,18 @@ __host__ inline int greedy_threads(int n) {
   return t < 1024 ? (t > 0 ? t : 32) : 1024;
 }
 
+// Block (x, s) lists entries x * kCandThreads * kCandPerThread ... of
+// sensor s's `entries` into list s.
 template <class Tile>
 __global__ void __launch_bounds__(kCandThreads)
     greedy_candidates(Tile tile, size_t entries,
                       unsigned long long* __restrict__ keys,
                       int* __restrict__ tracks, int* __restrict__ count) {
   __shared__ int s_n, s_base;
+  const int s = blockIdx.y;
+  keys += (size_t)s * entries;
+  tracks += (size_t)s * entries;
+  count += s;
   if (threadIdx.x == 0) s_n = 0;
   __syncthreads();
   const size_t e0 =
@@ -119,7 +155,7 @@ __global__ void __launch_bounds__(kCandThreads)
     slot[k] = -1;
     if (e < entries) {
       int j, c;
-      const float v = tile.at(e, j, c);
+      const float v = tile.at(s, e, j, c);
       if (v < FLT_MAX) {
         key[k] = ((unsigned long long)ordered_bits(v) << 32) | (unsigned)j;
         trk[k] = c;
@@ -138,6 +174,8 @@ __global__ void __launch_bounds__(kCandThreads)
     }
 }
 
+// Block s runs sensor s's waves over its list into assoc[s] (C) and
+// waves_out[s].
 __global__ void greedy_candidate_waves(int C, int M, int rounds,
                                        const unsigned long long* __restrict__
                                            keys,
@@ -146,6 +184,12 @@ __global__ void greedy_candidate_waves(int C, int M, int rounds,
                                        int* __restrict__ assoc,
                                        int* __restrict__ waves_out) {
   extern __shared__ __align__(8) unsigned char smem[];
+  const int s = blockIdx.x;
+  keys += (size_t)s * C * M;
+  tracks += (size_t)s * C * M;
+  count += s;
+  assoc += (size_t)s * C;
+  waves_out += s;
   unsigned long long* rowkey = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* colkey = rowkey + 2 * C;            // 2 x M
   uint8_t* row_dead = reinterpret_cast<uint8_t*>(colkey + 2 * M);  // meas
@@ -207,19 +251,20 @@ inline cudaError_t record(void* const* events, int i, cudaStream_t stream) {
   return cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
 }
 
-// The greedy's launches on `stream`: the count reset, the candidate list,
-// the waves. `scratch` holds greedy_scratch_bytes(C, M). ev_start / ev_end,
-// when not null, are CUDA events recorded just before and after (the
-// greedy's device time inside a frame).
+// The greedy's launches on `stream` for S sensors: the S counts reset, the
+// candidate lists, the waves (one block a sensor). `scratch` holds
+// greedy_scratch_bytes(C, M, S); assoc is (S, C), waves (S). ev_start /
+// ev_end, when not null, are CUDA events recorded just before and after
+// (the greedy's device time inside a frame).
 template <class Tile>
-inline cudaError_t launch_greedy(const Tile& tile, int C, int M, int rounds,
-                                 void* scratch, int* assoc, int* waves,
-                                 cudaStream_t stream, void* ev_start,
-                                 void* ev_end) {
+inline cudaError_t launch_greedy(const Tile& tile, int C, int M, int S,
+                                 int rounds, void* scratch, int* assoc,
+                                 int* waves, cudaStream_t stream,
+                                 void* ev_start, void* ev_end) {
   const size_t entries = (size_t)C * M;
   auto* keys = static_cast<unsigned long long*>(scratch);
-  auto* tracks = reinterpret_cast<int*>(keys + entries);
-  int* count = tracks + entries;
+  auto* tracks = reinterpret_cast<int*>(keys + entries * S);
+  int* count = tracks + entries * S;
   const size_t smem = greedy_smem_bytes(C, M);
   cudaError_t e;
   if (smem > 48 * 1024) {
@@ -232,17 +277,17 @@ inline cudaError_t launch_greedy(const Tile& tile, int C, int M, int rounds,
     e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), stream);
     if (e != cudaSuccess) return e;
   }
-  e = cudaMemsetAsync(count, 0, sizeof(int), stream);
+  e = cudaMemsetAsync(count, 0, sizeof(int) * S, stream);
   if (e != cudaSuccess) return e;
   if (entries > 0) {
     const size_t per_block = (size_t)kCandThreads * kCandPerThread;
-    const unsigned blocks = (unsigned)((entries + per_block - 1) / per_block);
+    const dim3 blocks((unsigned)((entries + per_block - 1) / per_block), S);
     greedy_candidates<Tile><<<blocks, kCandThreads, 0, stream>>>(
         tile, entries, keys, tracks, count);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  greedy_candidate_waves<<<1, greedy_threads(C > M ? C : M), smem, stream>>>(
+  greedy_candidate_waves<<<S, greedy_threads(C > M ? C : M), smem, stream>>>(
       C, M, rounds, keys, tracks, count, assoc, waves);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;

@@ -47,11 +47,20 @@
 //      track keeps x'/P' and takes mu <- cbar; only a block that updates
 //      a track stores its spans back.
 // At most 128 registers a thread (launch bounds).
+// A fleet frame serves S sensors in the same four launches, as frame.cu:
+// x (K, S, C, n) is (K, S*C, n), mu (S*C, K), so the predict and the
+// update run over S*C tracks (track t of sensor t / C, whose z the update
+// reads); the cost grid gains a z axis of S; the greedy runs S lists and
+// S blocks of waves. Each sensor is bit for bit its single-sensor frame.
+// The sensor offsets are the compile-time Fleet route of the cost tile,
+// the update and the greedy's tile: S = 1 runs the single-sensor code.
 //
 // The Markov prediction and the mixing, the log-likelihood and the mode
 // posterior are imm.cuh's, shared with the IMM replay scan and step.
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
+
+#include <type_traits>
 
 #include "greedy.cuh"
 #include "pruned.cuh"
@@ -66,7 +75,8 @@ constexpr int kCostMeas = 8;
 
 // The scratch `inno` between the launches holds M * M + M + 1 floats per
 // (model, track) lane: S^-1 (M*M), z_pred (M), cbar. Entry e of lane
-// (k, c) sits at (e * K + k) * C + c.
+// (k, t) sits at (e * K + k) * SC + t, t one of the S*C (SC) tracks. The
+// predict and the update take SC for C.
 
 // A block's K spans of x and P: lane (k, cl) at k * kTracks + cl, at the
 // odd strides N and N * N.
@@ -193,11 +203,21 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
   spans_out(x_out, P_out, sm, C, c0, nt, tid);
 }
 
-template <int M, int K>
+// Block (x, y, s): sensor s's tracks x * kCostTracks ... against its
+// measurements y * kCostMeas ...; z is (S, Mz, M), the tile (S, Mz, C).
+// Without Fleet, one sensor (SC = C).
+template <int M, int K, bool Fleet>
 __global__ void __launch_bounds__(kCostTracks)
-imm_cost(int C, int Mz, const float* __restrict__ z,
+imm_cost(int C, int SC, int Mz, const float* __restrict__ z,
          const float* __restrict__ inno, float* __restrict__ cost) {
   __shared__ float zs[kCostMeas * M];
+  if constexpr (Fleet) {
+    const int s = blockIdx.z;
+    z += (size_t)s * Mz * M;
+    inno += (size_t)s * C;
+    cost += (size_t)s * Mz * C;
+  }
+  const int ld = Fleet ? SC : C;  // every track's
   const int j0 = blockIdx.y * kCostMeas;
   const int nm = min(kCostMeas, Mz - j0);
   for (int t = threadIdx.x; t < nm * M; t += kCostTracks)
@@ -205,11 +225,11 @@ imm_cost(int C, int Mz, const float* __restrict__ z,
   __syncthreads();
   const int c = blockIdx.x * kCostTracks + threadIdx.x;
   if (c >= C) return;
-  const size_t step = (size_t)K * C;
+  const size_t step = (size_t)K * ld;
   float Si[K][M][M], zp[K][M], cb[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const float* in = inno + (size_t)k * C + c;
+    const float* in = inno + (size_t)k * ld + c;
 #pragma unroll
     for (int r = 0; r < M; ++r)
 #pragma unroll
@@ -229,9 +249,11 @@ imm_cost(int C, int Mz, const float* __restrict__ z,
   }
 }
 
-template <class Pat, int K>
+// C is the S*C tracks here, Cs a sensor's: track c reads sensor c / Cs's
+// z (Mz, M). Without Fleet, one sensor (C = Cs).
+template <class Pat, int K, bool Fleet>
 __global__ void __launch_bounds__(K * kTracks, 512 / (K * kTracks))
-imm_update(int C, const float* __restrict__ z,
+imm_update(int Cs, int C, int Mz, const float* __restrict__ z,
            const uint8_t* __restrict__ act, const float* __restrict__ consts,
            float log2pi_m, const int* __restrict__ assoc,
            const float* __restrict__ inno, float* __restrict__ x_out,
@@ -277,7 +299,10 @@ imm_update(int C, const float* __restrict__ z,
       }
     innovation_pruned<Pat>(Pp, Rv, S, Si);
 #pragma unroll
-    for (int r = 0; r < M; ++r) zk[r] = z[(size_t)a * M + r];
+    const float* zc = z;  // its sensor's z
+    if constexpr (Fleet) zc += (size_t)(c / Cs) * Mz * M;
+#pragma unroll
+    for (int r = 0; r < M; ++r) zk[r] = zc[(size_t)a * M + r];
     kalman_update<N, M>(xp, Pp, Si, zk, y, xn, Pn);
 #pragma unroll
     for (int d = 0; d < N; ++d) xo[d] = xn[d];
@@ -315,8 +340,9 @@ imm_update(int C, const float* __restrict__ z,
   if (any) spans_out(x_out, P_out, sm, C, c0, nt, tid);
 }
 
-template <class Pat, int K>
-cudaError_t run_imm_frame(int C, int Mz, const float* x, const float* P,
+template <class Pat, int K, bool Fleet>
+cudaError_t run_imm_frame(int S, int C, int Mz, const float* x,
+                          const float* P,
                           const float* mu, const float* z,
                           const uint8_t* zval, const uint8_t* act,
                           const float* consts, float gate, int rounds,
@@ -325,33 +351,39 @@ cudaError_t run_imm_frame(int C, int Mz, const float* x, const float* P,
                           float* cost, float* inno, void* scratch, int* waves,
                           cudaStream_t stream, void* const* events) {
   constexpr int M = Pat::M;
-  const int blocks = (C + kTracks - 1) / kTracks;
+  const int SC = S * C;
+  const int blocks = (SC + kTracks - 1) / kTracks;
   cudaError_t e = record(events, 0, stream);
   if (e != cudaSuccess) return e;
-  if (C > 0) {
+  if (SC > 0) {
     imm_predict<Pat, K><<<blocks, K * kTracks, 0, stream>>>(
-        C, x, P, mu, consts, x_out, P_out, inno);
+        SC, x, P, mu, consts, x_out, P_out, inno);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   e = record(events, 1, stream);
   if (e != cudaSuccess) return e;
-  if (C > 0 && Mz > 0) {
+  if (SC > 0 && Mz > 0) {
     const dim3 grid((C + kCostTracks - 1) / kCostTracks,
-                    (Mz + kCostMeas - 1) / kCostMeas);
-    imm_cost<M, K><<<grid, kCostTracks, 0, stream>>>(C, Mz, z, inno, cost);
+                    (Mz + kCostMeas - 1) / kCostMeas, S);
+    imm_cost<M, K, Fleet><<<grid, kCostTracks, 0, stream>>>(C, SC, Mz, z,
+                                                             inno, cost);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, rounds,
-                    scratch, assoc, waves, stream,
-                    events ? events[2] : nullptr,
-                    events ? events[3] : nullptr);
+  void* g0 = events ? events[2] : nullptr;
+  void* g1 = events ? events[3] : nullptr;
+  if constexpr (Fleet)
+    e = launch_greedy(FleetTile{cost, act, zval, C, Mz, gate}, C, Mz, S,
+                      rounds, scratch, assoc, waves, stream, g0, g1);
+  else
+    e = launch_greedy(FrameTile{cost, act, zval, C, gate}, C, Mz, 1, rounds,
+                      scratch, assoc, waves, stream, g0, g1);
   if (e != cudaSuccess) return e;
-  if (C > 0) {
-    imm_update<Pat, K><<<blocks, K * kTracks, 0, stream>>>(
-        C, z, act, consts, log2pi_m, assoc, inno, x_out, P_out, mu_out,
-        xc_out);
+  if (SC > 0) {
+    imm_update<Pat, K, Fleet><<<blocks, K * kTracks, 0, stream>>>(
+        C, SC, Mz, z, act, consts, log2pi_m, assoc, inno, x_out, P_out,
+        mu_out, xc_out);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -360,7 +392,8 @@ cudaError_t run_imm_frame(int C, int Mz, const float* x, const float* P,
 
 // The frame of an instantiated Pattern: (K, n, m) = (4, 9, 3) only.
 template <class Pat>
-cudaError_t launch_frame(int K, int C, int Mz, const void* x, const void* P,
+cudaError_t launch_frame(int K, int S, int C, int Mz, const void* x,
+                         const void* P,
                          const void* mu, const void* z, const void* zval,
                          const void* act, const void* consts, float gate,
                          int rounds, float log2pi_m, void* x_out,
@@ -369,12 +402,16 @@ cudaError_t launch_frame(int K, int C, int Mz, const void* x, const void* P,
                          void* waves, cudaStream_t s, void* const* events) {
   if constexpr (Pat::N == 9 && Pat::M == 3) {
     if (K != 4) return cudaErrorInvalidValue;
-    return run_imm_frame<Pat, 4>(
-        C, Mz, (const float*)x, (const float*)P, (const float*)mu,
-        (const float*)z, (const uint8_t*)zval, (const uint8_t*)act,
-        (const float*)consts, gate, rounds, log2pi_m, (float*)x_out,
-        (float*)P_out, (float*)mu_out, (float*)xc_out, (int*)assoc,
-        (float*)cost, (float*)inno, scratch, (int*)waves, s, events);
+    // S = 1: the single-sensor code (no sensor offsets)
+    auto go = [&](auto fleet) {
+      return run_imm_frame<Pat, 4, decltype(fleet)::value>(
+          S, C, Mz, (const float*)x, (const float*)P, (const float*)mu,
+          (const float*)z, (const uint8_t*)zval, (const uint8_t*)act,
+          (const float*)consts, gate, rounds, log2pi_m, (float*)x_out,
+          (float*)P_out, (float*)mu_out, (float*)xc_out, (int*)assoc,
+          (float*)cost, (float*)inno, scratch, (int*)waves, s, events);
+    };
+    return S == 1 ? go(std::false_type{}) : go(std::true_type{});
   } else {
     return cudaErrorInvalidValue;
   }
@@ -384,17 +421,19 @@ cudaError_t launch_frame(int K, int C, int Mz, const void* x, const void* P,
 
 extern "C" {
 
-// The whole IMM frame for K > 1. Shapes (K, n, m) in {(4, 9, 3)}, `pattern`
-// the id of an instantiated Pattern of that shape (pruned.cuh); any other
-// combination returns cudaErrorInvalidValue without launching. `inno`
-// holds K * C * (m^2 + m + 1) floats, `scratch` greedy_scratch_bytes(C,
-// Mz). `events` is null or five CUDA events (each may be null) recorded
+// The whole IMM frame for K > 1 and S >= 1 sensors: x (K, S, C, n), P (K,
+// S, C, n, n), mu (S, C, K), z (S, Mz, m), zval (S, Mz), act and assoc
+// (S, C), x_c (S, C, n), waves (S). Shapes (K, n, m) in {(4, 9, 3)},
+// `pattern` the id of an instantiated Pattern of that shape (pruned.cuh);
+// any other combination returns cudaErrorInvalidValue without launching.
+// `cost` holds S * Mz * C floats, `inno` K * S * C * (m^2 + m + 1),
+// `scratch` greedy_scratch_bytes(C, Mz, S). `events` is null or five CUDA events (each may be null) recorded
 // before imm_predict, after it, after imm_cost (the greedy's start), after
 // the greedy and after imm_update.
 int katana_imm_frame_run(int K, int n, int m, int pattern, int C, int Mz,
                          const void* x, const void* P, const void* mu,
                          const void* z, const void* zval, const void* act,
-                         const void* consts, float gate, int rounds,
+                         const void* consts, float gate, int rounds, int S,
                          float log2pi_m, void* x_out, void* P_out,
                          void* mu_out, void* xc_out, void* assoc, void* cost,
                          void* inno, void* scratch, void* waves, void* stream,
@@ -403,7 +442,7 @@ int katana_imm_frame_run(int K, int n, int m, int pattern, int C, int Mz,
   auto s = static_cast<cudaStream_t>(stream);
 #define KATANA_IMM_FRAME_CASE(id, name, n_, m_, ...)                         \
   if (pattern == id && n == n_ && m == m_)                                  \
-    return (int)launch_frame<name>(K, C, Mz, x, P, mu, z, zval, act,        \
+    return (int)launch_frame<name>(K, S, C, Mz, x, P, mu, z, zval, act,     \
                                    consts, gate, rounds, log2pi_m, x_out,   \
                                    P_out, mu_out, xc_out, assoc, cost,      \
                                    inno, scratch, waves, s, events);

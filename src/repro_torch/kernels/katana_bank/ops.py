@@ -263,10 +263,11 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _greedy_scratch(C: int, M: int, device) -> torch.Tensor:
-    """The greedy's candidate list (csrc/greedy.cuh): C*M 8-byte keys,
-    C*M 4-byte tracks and the count."""
-    return torch.empty((12 * C * M + 4,), dtype=torch.uint8, device=device)
+def _greedy_scratch(C: int, M: int, device, S: int = 1) -> torch.Tensor:
+    """The greedy's candidate lists of S sensors (csrc/greedy.cuh): S*C*M
+    8-byte keys, S*C*M 4-byte tracks and S counts."""
+    return torch.empty(((12 * C * M + 4) * S,), dtype=torch.uint8,
+                       device=device)
 
 
 def _event_handles(events):
@@ -277,36 +278,54 @@ def _event_handles(events):
     return tuple(ev.cuda_event for ev in events)
 
 
+def _fleet_shape(x, track_dims: int, axis: int = 0):
+    """(S, lead): a sensor-stacked x (one more axis than ``track_dims``,
+    the sensor axis at ``axis``) serves S sensors; an unstacked one S = 1.
+    ``lead`` is the sensor axis to put in front of per-track shapes."""
+    if x.dim() == track_dims + 1:
+        S = x.shape[axis]
+        if S == 0:
+            raise ValueError("a sensor-stacked frame needs S >= 1 sensors")
+        return S, (S,)
+    if x.dim() == track_dims:
+        return 1, ()
+    raise ValueError(f"x has {x.dim()} dims, expected {track_dims} or "
+                     f"{track_dims + 1} (sensor-stacked)")
+
+
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
                   rounds: int, greedy_events=None, launch_events=None):
     """The launches of the single-model frame (csrc/frame.cu), on the
-    model's compile-time pattern."""
+    model's compile-time pattern, for one sensor (x (C, n)) or a fleet of
+    S (x (S, C, n), every other input with a leading S)."""
     _check_model(model)
     dev = x.device
-    C, n = x.shape
-    M, m = z.shape
+    S, lead = _fleet_shape(x, 2)
+    C, n = x.shape[-2:]
+    M, m = z.shape[-2:]
     f32 = torch.float32
-    _require(x, "x", f32, (C, n), dev)
-    _require(P, "P", f32, (C, n, n), dev)
-    _require(z, "z", f32, (M, m), dev)
-    _require(z_valid, "z_valid", torch.bool, (M,), dev)
-    _require(active, "active", torch.bool, (C,), dev)
+    _require(x, "x", f32, lead + (C, n), dev)
+    _require(P, "P", f32, lead + (C, n, n), dev)
+    _require(z, "z", f32, lead + (M, m), dev)
+    _require(z_valid, "z_valid", torch.bool, lead + (M,), dev)
+    _require(active, "active", torch.bool, lead + (C,), dev)
     consts = _host_consts((model,), np.ones((1, 1)))
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
-    assoc = torch.empty((C,), dtype=torch.int32, device=dev)
-    cost = torch.empty((M, C), dtype=f32, device=dev)
+    assoc = torch.empty(lead + (C,), dtype=torch.int32, device=dev)
+    waves = torch.empty((S,), dtype=torch.int32, device=dev)
+    # the (S, M, C) cost tile
+    cost = torch.empty((S * M * C,), dtype=f32, device=dev)
     # S^-1 and z_pred of every track, from the predict to the cost tile
     # and the update
-    inno = torch.empty((m * m + m, C), dtype=f32, device=dev)
-    scratch = _greedy_scratch(C, M, dev)
-    waves = torch.empty((1,), dtype=torch.int32, device=dev)
+    inno = torch.empty((m * m + m, S * C), dtype=f32, device=dev)
+    scratch = _greedy_scratch(C, M, dev, S)
     events = _frame_events(greedy_events, launch_events)
     lib = build.load("frame.cu")
     code = lib.katana_frame_run(
         n, m, pick_pattern((model,)).id, C, M, x.data_ptr(), P.data_ptr(),
         z.data_ptr(), z_valid.data_ptr(), active.data_ptr(),
         consts.ctypes.data, int(not model.is_linear), float(model.dt),
-        float(gate), int(rounds), x_out.data_ptr(), P_out.data_ptr(),
+        float(gate), int(rounds), S, x_out.data_ptr(), P_out.data_ptr(),
         assoc.data_ptr(), cost.data_ptr(), inno.data_ptr(),
         scratch.data_ptr(), waves.data_ptr(), build.stream_of(dev), events)
     build.check(lib, code, "katana_frame")
@@ -335,7 +354,12 @@ def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     (x' (C, n), P' (C, n, n), assoc (C,) int32): the updated state where
     a slot got a measurement, the predicted state elsewhere. With
     ``return_waves`` also the number of greedy waves run (a device
-    int32 tensor on CUDA, an int on the CPU). ``greedy_events``: a
+    int32 tensor (1,) on CUDA, an int on the CPU). A fleet of S sensors
+    takes every input with a leading S (x (S, C, n), P (S, C, n, n),
+    z (S, M, m), z_valid (S, M), active (S, C)) and returns x', P' and
+    assoc (S, C) so stacked, and waves (S,) (a list of ints on the CPU):
+    one call, the same launches, each sensor bit for bit its own
+    single-sensor call. ``greedy_events``: a
     (start, end) pair of ``torch.cuda.Event(enable_timing=True)`` that
     the kernel records just before and after the greedy's launches, for
     its device time inside the frame; ``launch_events``: five such
@@ -360,15 +384,20 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
     coasting slots keep x̂/P̂ and take mu <- cbar. K=1 is the
     single-model frame with mu passed through. ``greedy_events`` and
-    ``launch_events`` as in ``katana_frame``."""
+    ``launch_events`` as in ``katana_frame``. A fleet of S sensors takes
+    x (K, S, C, n), P (K, S, C, n, n), mu (S, C, K) and z, z_valid,
+    active with a leading S, and returns every output so stacked (x_c
+    (S, C, n), assoc (S, C), waves (S,)), as ``katana_frame`` does."""
     if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
                                           return_waves=return_waves)
-    K, C, n = x.shape
-    M, m = z.shape
+    K, n = x.shape[0], x.shape[-1]
+    S, lead = _fleet_shape(x, 3, axis=1)
+    C = x.shape[-2]
+    M, m = z.shape[-2:]
     dev = x.device
-    _require(mu, "mu", torch.float32, (C, K), dev)
+    _require(mu, "mu", torch.float32, lead + (C, K), dev)
     if K == 1:
         x2, P2, assoc, waves = _launch_frame(imm.models[0], x[0], P[0], z,
                                              z_valid, active, gate, rounds,
@@ -386,27 +415,28 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
                 "multi-model katana_imm_frame requires linear member models")
         _check_model(mdl)
     f32 = torch.float32
-    _require(x, "x", f32, (K, C, n), dev)
-    _require(P, "P", f32, (K, C, n, n), dev)
-    _require(z, "z", f32, (M, m), dev)
-    _require(z_valid, "z_valid", torch.bool, (M,), dev)
-    _require(active, "active", torch.bool, (C,), dev)
-    consts = _consts(imm.models, imm.trans, dev)
+    _require(x, "x", f32, (K,) + lead + (C, n), dev)
+    _require(P, "P", f32, (K,) + lead + (C, n, n), dev)
+    _require(z, "z", f32, lead + (M, m), dev)
+    _require(z_valid, "z_valid", torch.bool, lead + (M,), dev)
+    _require(active, "active", torch.bool, lead + (C,), dev)
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
     mu_out = torch.empty_like(mu)
-    xc = torch.empty((C, n), dtype=f32, device=dev)
-    assoc = torch.empty((C,), dtype=torch.int32, device=dev)
-    cost = torch.empty((M, C), dtype=f32, device=dev)
+    xc = torch.empty(lead + (C, n), dtype=f32, device=dev)
+    assoc = torch.empty(lead + (C,), dtype=torch.int32, device=dev)
+    waves = torch.empty((S,), dtype=torch.int32, device=dev)
+    consts = _consts(imm.models, imm.trans, dev)
+    # the (S, M, C) cost tile
+    cost = torch.empty((S * M * C,), dtype=f32, device=dev)
     # S^-1, z_pred and cbar of every (model, track), from the predict to
     # the cost tile and the update
-    inno = torch.empty((m * m + m + 1, K, C), dtype=f32, device=dev)
-    scratch = _greedy_scratch(C, M, dev)
-    waves = torch.empty((1,), dtype=torch.int32, device=dev)
+    inno = torch.empty((m * m + m + 1, K, S * C), dtype=f32, device=dev)
+    scratch = _greedy_scratch(C, M, dev, S)
     lib = build.load("imm_frame.cu")
     code = lib.katana_imm_frame_run(
         K, n, m, pick_pattern(imm.models).id, C, M, x.data_ptr(),
         P.data_ptr(), mu.data_ptr(), z.data_ptr(), z_valid.data_ptr(),
-        active.data_ptr(), consts.data_ptr(), float(gate), int(rounds),
+        active.data_ptr(), consts.data_ptr(), float(gate), int(rounds), S,
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
         cost.data_ptr(), inno.data_ptr(), scratch.data_ptr(),

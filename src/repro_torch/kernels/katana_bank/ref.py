@@ -461,7 +461,15 @@ def katana_frame_plain(model, x, P, z, z_valid, active, gate: float,
                        rounds: int, return_waves: bool = False):
     """Plain version of the single-model frame kernel. x (C, n),
     P (C, n, n), z (M, m), z_valid (M,) bool, active (C,) bool. Returns
-    (x', P', assoc (C,) int32)."""
+    (x', P', assoc (C,) int32). A fleet of S sensors (every input with a
+    leading S) runs as a loop of single-sensor frames, outputs stacked,
+    waves a list."""
+    if x.dim() == 3:
+        outs = [katana_frame_plain(model, x[s], P[s], z[s], z_valid[s],
+                                   active[s], gate, rounds, True)
+                for s in range(x.shape[0])]
+        out = tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+        return out + ([o[3] for o in outs],) if return_waves else out
     xv, Pl = _to_lanes(x, P)
     xs, Ps, assoc, waves = _frame_lanes(model, xv, Pl, z, z_valid, active,
                                         gate, rounds)
@@ -549,7 +557,18 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
                            rounds: int, return_waves: bool = False):
     """Plain version of the IMM frame kernel. x (K, C, n),
     P (K, C, n, n), mu (C, K). Returns (x', P', mu', x_c (C, n), assoc).
-    K=1 runs exactly the single-model frame with mu passed through."""
+    K=1 runs exactly the single-model frame with mu passed through. A
+    fleet of S sensors (x (K, S, C, n), P (K, S, C, n, n), mu (S, C, K),
+    the rest with a leading S) runs as a loop of single-sensor frames,
+    outputs stacked, waves a list."""
+    if x.dim() == 4:
+        outs = [katana_imm_frame_plain(imm, x[:, s], P[:, s], mu[s], z[s],
+                                       z_valid[s], active[s], gate, rounds,
+                                       True)
+                for s in range(x.shape[1])]
+        out = tuple(torch.stack([o[i] for o in outs], dim=1 if i < 2 else 0)
+                    for i in range(5))
+        return out + ([o[5] for o in outs],) if return_waves else out
     K, C, n = x.shape
     m = imm.m
     if K == 1:

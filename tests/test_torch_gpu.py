@@ -6,7 +6,11 @@ bit, at small shapes and at the serving size C=1024, M=256 (also C not
 a multiple of a block's tracks, every track inactive, no valid
 measurement, one measurement, the IMM frame's dense instantiation), and
 the events they record around each launch; the engine's fused route on
-the card against its einsum route. The replay scans and the per-frame
+the card against its einsum route. The frames over S stacked sensors
+(S = 1, 3, 8 and a ragged C = 13 at S = 3; K = 4 and K = 1 for the IMM
+frame) bit for bit with their plain versions and with S single-sensor
+calls, one launch count a call; ``ShardedBankEngine`` on the card (one
+shard, and two shards on the one card) against the CPU fleet. The replay scans and the per-frame
 bank steps against their plain versions bit for bit at (N, T) = (5, 17)
 and (1024, 300), at ragged N and with a valid stream (the steps in both
 layouts), the properties that hold bit for bit (K=1 IMM = single-model
@@ -1122,3 +1126,147 @@ def _to(tree, dev):
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return {k: _to(v, dev) for k, v in tree.items()}
+
+
+# ------------------------------------------------- multi-sensor fleet frames
+
+# (S, C, M): one sensor as a fleet, three, the reference's eight at the
+# serving shape, and a ragged C (13: predict blocks of 8 tracks and cost
+# blocks of 128 straddle sensors)
+FLEET_CASES = [(1, 200, 64), (3, 200, 64), (8, 1024, 256), (3, 13, 12)]
+
+
+def _fleet_inputs(kind, S, C, M, dev):
+    """S sensors' random frame inputs (each its own seed), stacked on the
+    sensor axis: x (K, S, C, n) for the IMM, a leading S elsewhere."""
+    if kind == "imm":
+        n, m, obs, K = 9, 3, [0, 1, 2], 4
+    else:
+        model = get_filter(kind)
+        n, m, K = model.n, model.m, None
+        obs = [0, 1, 2, 4] if kind == "ekf" else [0, 1, 2]
+    per = [random_frame_inputs(np.random.default_rng(100 * S + C + s), n, m,
+                               C, M, obs, K=K, spread=20.0)
+           for s in range(S)]
+    axis = [1, 1] if K else [0, 0]
+    out = [np.stack([p[i] for p in per],
+                    axis=axis[i] if i < len(axis) else 0)
+           for i in range(len(per[0]))]
+    return _dev(out, dev)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf"])
+@pytest.mark.parametrize("S,C,M", FLEET_CASES)
+def test_fleet_frame_kernel_matches_plain_and_single(cuda, kind, S, C, M):
+    """katana_frame over S stacked sensors: one launch count, assoc (S, C),
+    waves (S,), x' and P' bit for bit with the plain version and with S
+    single-sensor calls."""
+    model = get_filter(kind)
+    x, P, z, zv, act = _fleet_inputs(kind, S, C, M, cuda)
+    gate, rounds = ttr.CHI2_99[model.m], min(C, M)
+    ops.reset_launches()
+    got = ops.katana_frame(model, x, P, z, zv, act, gate, rounds,
+                           return_waves=True)
+    assert ops.LAUNCHES["katana_frame"] == 1
+    assert ops.LAUNCHES["greedy_assign"] == 1
+    want = ref.katana_frame_plain(model, x, P, z, zv, act, gate, rounds,
+                                  return_waves=True)
+    torch.cuda.synchronize()
+    assert got[2].shape == (S, C) and len(got[3]) == S
+    assert torch.equal(got[2], want[2])
+    assert [int(w) for w in got[3]] == want[3]
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert int((got[2] >= 0).sum()) > 0
+    for s in range(S):
+        one = ops.katana_frame(model, x[s], P[s], z[s], zv[s], act[s], gate,
+                               rounds, return_waves=True)
+        assert int(one[3]) == int(got[3][s])
+        for a, b in zip(one[:3], got[:3]):
+            assert torch.equal(a, b[s])
+
+
+@pytest.mark.parametrize("k1", [False, True])
+@pytest.mark.parametrize("S,C,M", FLEET_CASES)
+def test_fleet_imm_frame_kernel_matches_plain_and_single(cuda, k1, S, C, M):
+    """katana_imm_frame over S stacked sensors (K = 4 on imm_frame.cu;
+    K = 1 on frame.cu): one launch count, every output bit for bit with the
+    plain version and with S single-sensor calls."""
+    if k1:
+        imm = as_imm(get_filter("ekf"))
+        x, P, z, zv, act = _fleet_inputs("ekf", S, C, M, cuda)
+        x, P = x[None].contiguous(), P[None].contiguous()
+        mu = torch.ones((S, C, 1), device=cuda)
+        gate = 13.28
+    else:
+        imm = make_imm()
+        x, P, mu, z, zv, act = _fleet_inputs("imm", S, C, M, cuda)
+        gate = 11.34
+    rounds = min(C, M)
+    ops.reset_launches()
+    got = ops.katana_imm_frame(imm, x, P, mu, z, zv, act, gate, rounds,
+                               return_waves=True)
+    assert ops.LAUNCHES["katana_imm_frame"] == 1
+    assert ops.LAUNCHES["greedy_assign"] == 1
+    want = ref.katana_imm_frame_plain(imm, x, P, mu, z, zv, act, gate,
+                                      rounds, return_waves=True)
+    torch.cuda.synchronize()
+    assert got[4].shape == (S, C) and got[3].shape == (S, C, x.shape[-1])
+    assert [int(w) for w in got[5]] == want[5]
+    for a, b in zip(got[:5], want[:5]):
+        assert torch.equal(a, b), float((a.double() - b.double()).abs().max())
+    for s in range(S):
+        one = ops.katana_imm_frame(imm, x[:, s].contiguous(),
+                                   P[:, s].contiguous(), mu[s], z[s], zv[s],
+                                   act[s], gate, rounds, return_waves=True)
+        assert int(one[5]) == int(got[5][s])
+        for i, (a, b) in enumerate(zip(one[:5], got[:5])):
+            assert torch.equal(a, b[:, s] if i < 2 else b[s])
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm"])
+def test_fleet_engine_on_card_matches_cpu(cuda, kind):
+    """ShardedBankEngine on the card (one shard, and two shards on the one
+    card) against the CPU fleet over a scene in which the sensors
+    disagree: one launch count a shard a frame, identical assoc and ids,
+    the two card fleets bit for bit, states within 1e-4 (imm 5e-4) of the
+    CPU's."""
+    from repro_torch.serving.engine import ShardedBankEngine
+
+    model = make_imm() if kind == "imm" else get_filter(kind)
+    S, T = 4, 20
+    cfg = ttr.TrackerConfig(capacity=32, max_meas=16)
+    rng = np.random.default_rng(31)
+    pos = rng.normal(size=(S, 5, model.m)) * 5
+    gpu = ShardedBankEngine(model, S, cfg)
+    two = ShardedBankEngine(model, S, cfg, devices=("cuda", "cuda"))
+    cpu = ShardedBankEngine(model, S, cfg, devices=("cpu",))
+    name = "katana_imm_frame" if kind == "imm" else "katana_frame"
+    tol = 5e-4 if kind == "imm" else 1e-4
+    ops.reset_launches()
+    for t in range(T):
+        pos = pos + 0.05
+        z = np.zeros((S, cfg.max_meas, model.m), np.float32)
+        v = np.zeros((S, cfg.max_meas), bool)
+        z[:, :5] = pos + rng.normal(size=pos.shape) * 0.05
+        v[:, :5] = True
+        v[1] = v[1] & (t < 6)  # sensor 1 goes dark
+        v[2] = v[2] & (t >= 4)       # sensor 2 spawns late
+        a, b, c = gpu.frame(z, v), two.frame(z, v), cpu.frame(z, v)
+        assert torch.equal(a.assoc.cpu(), c.assoc)
+        assert torch.equal(a.bank.track_id.cpu(), c.bank.track_id)
+        for f, g in zip(a.bank, b.bank):
+            assert torch.equal(f, g)
+        _close(a.bank.x.cpu(), c.bank.x, tol)
+        if kind == "imm":
+            assert torch.equal(a.x_est, b.x_est)
+            _close(a.x_est.cpu(), c.x_est, tol)
+    assert ops.LAUNCHES[name] == 3 * T
+    assert ops.LAUNCHES["greedy_assign"] == 3 * T
+    zs = rng.normal(size=(12, S, cfg.capacity, model.m)).astype(np.float32)
+    valid = rng.random((12, S, cfg.capacity)) > 0.3
+    ops.reset_launches()
+    r1, r2 = gpu.replay(zs, valid), two.replay(zs, valid)
+    assert ops.LAUNCHES["katana_imm_sequence"] == 3
+    np.testing.assert_array_equal(r1, r2)
+    _close(torch.as_tensor(r1), torch.as_tensor(cpu.replay(zs, valid)), tol)
