@@ -109,16 +109,39 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      (CUDA events; also at 16, 32 and 64 columns of p a pass), its four
      launches' device times, bound and plain time, and the float32
      route's time on the same inputs;
-  9. one JSON line with the kernel table, then the status line.
+  9. the streaming front end: ``StreamFrontEnd(model, StreamConfig(
+     n_shards=2, lanes_per_shard=8, queue_depth=4, checkpoint_every=8,
+     heartbeat_timeout_s=1.0), ..., devices=("cuda",))`` at phase 3's
+     per-sensor shape, both shards on the one card, 8 tenants (phase 3's
+     scene of seed 7 + t each), imm and lkf, a fake clock of 0.5 s a
+     cycle, 100 cycles through ``ChaosDriver``: (a) uninterrupted; (b)
+     shard 0 killed at cycle 40, every tenant's stream bit for bit (a)'s,
+     4 failovers; (c) the same with checkpoint_every=1000 (the frame-0
+     snapshot and a 40-frame WAL replayed through the survivor's fused
+     step); (d) offered load 0.5x, 1x and 2x under the default ladder
+     (``benchmarks/serving.py:_load_row``): pumps/s and tenant-frames/s on
+     the host clock against the >= 300 limit a tenant, the served, shed
+     and reject fractions, no tenant starved, the 1x pump's host ms split
+     into dispatch, select, snapshot copies and checkpoint saves; (e)
+     ``tests/test_chaos.py::test_everything_at_once``'s plan at this size.
+     Every run: zero exceptions, dispatch errors and breaker trips, and
+     the frame kernel's and the greedy's launches equal to the dispatches
+     plus the WAL frames replayed; also one pump's dispatch: the frame
+     kernel's device ms a launch at 8 lanes (events, device queued) and
+     the whole step's ms;
+  10. one JSON line with the kernel table, then the status line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -151,8 +174,13 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.serving import stream as stream_mod  # noqa: E402
 from repro_torch.serving.engine import ShardedBankEngine  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
+from repro_torch.serving.faults import ChaosDriver, FaultPlan  # noqa: E402
+from repro_torch.serving.stream import Admission, ServiceTier  # noqa: E402
+from repro_torch.serving.stream import StreamConfig  # noqa: E402
+from repro_torch.serving.stream import StreamFrontEnd  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 
 C_SERVE, M_SERVE, T_SERVE = 1024, 256, 300
@@ -2561,6 +2589,427 @@ def phase_mamba(cfg, B, S, steps, card):
     return row, kern
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the streaming front end (serving/stream.py, serving/faults.py)
+# on the card. Eight tenants on two shards of eight lanes (four each, so
+# that the survivor can take a dead shard's four), both shards on the one
+# card, each pump one fused frame call a live shard over its 8 lanes at
+# phase 3's per-sensor shape (C = 1,024, M = 256). Tenant t submits phase
+# 3's dense-sky scene of seed 7 + t, its valid rows a frame. Fake clock,
+# dt 0.5 s; checkpoints in a temporary directory the phase deletes.
+# ---------------------------------------------------------------------------
+
+STREAM_TENANTS, STREAM_CYCLES, STREAM_KILL = 8, 100, 40
+STREAM_DT = 0.5
+STREAM_LOADS = (0.5, 1.0, 2.0)
+STREAM_CFG = dict(n_shards=2, lanes_per_shard=8, queue_depth=4,
+                  checkpoint_every=8, heartbeat_timeout_s=1.0)
+# the bitwise runs stay at the FULL tier while a dead shard's queues back
+# up, so the ladder is pushed out of reach there (as tests/test_chaos.py)
+NO_LADDER = dict(degrade_at=5.0, coast_at=6.0, reject_at=7.0)
+
+
+class FakeClock:
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def stream_scenes(kind, T):
+    """tenant name -> scene(i): the valid rows of frame i (k, m) of phase
+    3's dense-sky scene drawn from seed 7 + t, T frames."""
+    smodel = (filters.get_filter("cv9") if kind == "imm"
+              else filters.get_filter(kind))
+    scene = traj.SceneConfig(T=T, max_targets=200, birth_rate=1.0,
+                             death_rate=0.002, clutter_rate=20.0,
+                             extent=200.0, max_meas=M_SERVE)
+    out = {}
+    for t in range(STREAM_TENANTS):
+        z, v = traj.mot_scene(smodel, scene, seed=7 + t)[:2]
+        out[f"t{t}"] = [np.ascontiguousarray(z[i][v[i]], np.float32)
+                        for i in range(T)].__getitem__
+    return out
+
+
+def stream_front(model, root, tag, t0=0.0, **kw):
+    cfg = dict(STREAM_CFG, **kw)
+    return StreamFrontEnd(model, StreamConfig(**cfg),
+                          tracker.TrackerConfig(capacity=C_SERVE,
+                                                max_meas=M_SERVE),
+                          ckpt_dir=f"{root}/{tag}", clock=FakeClock(t0),
+                          devices=("cuda",))
+
+
+def count_wal(front):
+    """A list whose one entry counts the WAL frames the front end's
+    failovers replay (each one fused step over the survivor's lanes)."""
+    steps = [0]
+    restore = front._restore_tenant
+
+    def counted(t, s, lane):
+        steps[0] += len(t.wal)
+        return restore(t, s, lane)
+
+    front._restore_tenant = counted
+    return steps
+
+
+def stream_drive(front, scenes, plan, cycles, rate=1, budget=None):
+    """ChaosDriver over ``cycles``, then the backlog drained: (report,
+    launches of the run, WAL frames replayed). Every launch count is 0
+    just before the run and read just after it."""
+    for t in scenes:
+        assert front.attach(t) == Admission.ACCEPTED
+    wal = count_wal(front)
+    drv = ChaosDriver(front, plan, scenes, front.clock.advance,
+                      dt_s=STREAM_DT, deadline_budget_s=budget,
+                      offered_rate=rate)
+    ops.reset_launches()
+    rep = drv.run(cycles)
+    for _ in range(40):
+        ups = front.pump()
+        if not ups:
+            break
+        for t, u in ups.items():
+            rep.updates[t].append(u)
+        front.clock.advance(STREAM_DT)
+    torch.cuda.synchronize()
+    return rep, dict(ops.LAUNCHES), wal[0]
+
+
+def stream_checks(tag, front, rep, launches, wal, name):
+    """What every phase 9 run without an injected dispatch fault holds: no
+    exception, no dispatch error, no breaker trip, and one frame launch
+    (and one greedy) a dispatch or a replayed WAL frame."""
+    s = front.stats
+    assert rep.exceptions == [], (tag, rep.exceptions)
+    assert s.dispatch_errors == 0 and front.breaker.trips == 0, (tag, s)
+    want = s.dispatches + wal
+    assert launches[name] == want and launches["greedy_assign"] == want, (
+        tag, launches, s.dispatches, wal)
+    for ups in rep.updates.values():
+        for u in ups:
+            for snap in u.snapshots:
+                assert np.isfinite(snap.state).all(), (tag, u.tenant)
+    print(f"[stream] {tag}: {s.dispatches} dispatches + {wal} WAL frames "
+          f"replayed = {want} {name} launches ({launches[name]}) and "
+          f"greedy_assign ({launches['greedy_assign']}); applied "
+          f"{s.applied} (served {s.served}, coasted {s.coasted}, shed "
+          f"{s.shed}), expired {s.expired}, duplicates {s.duplicates}, "
+          f"rejected {s.rejected_overload + s.rejected_queue_full}, "
+          f"checkpoints {s.checkpoints}, failovers {s.failovers}, "
+          "dispatch errors 0, breaker trips 0, exceptions 0")
+    return want
+
+
+def streams_bitwise(ref, got):
+    """Every tenant's TenantUpdate stream of ``got`` bit for bit the one
+    of ``ref``: kinds, seqs, ids, hits, ages, states, mode_probs."""
+    n = 0
+    for t, ru in ref.updates.items():
+        gu = got.updates[t]
+        assert len(ru) == len(gu), (t, len(ru), len(gu))
+        for r, g in zip(ru, gu):
+            assert (r.frame, r.seq, r.kind, r.tier) == \
+                (g.frame, g.seq, g.kind, g.tier), (t, r.frame)
+            assert [(s.track_id, s.hits, s.age) for s in r.snapshots] == \
+                [(s.track_id, s.hits, s.age) for s in g.snapshots], (
+                    t, r.frame)
+            for rs, gs in zip(r.snapshots, g.snapshots):
+                assert np.array_equal(rs.state, gs.state), (t, r.frame)
+                assert (rs.mode_probs is None) == (gs.mode_probs is None)
+                if rs.mode_probs is not None:
+                    assert np.array_equal(rs.mode_probs, gs.mode_probs)
+                n += 1
+    return n
+
+
+class HostSplit:
+    """Host seconds of a front end's pumps, split into the dispatch (its
+    own span: the copy of zb and vb, the step, the stream's sync), the
+    lane select, the snapshot copies and the checkpoint saves."""
+
+    def __init__(self, front):
+        self.s = dict(pump=0.0, dispatch=0.0, select=0.0, snapshots=0.0,
+                      checkpoints=0.0)
+        self.pumps = 0
+        record = front.stragglers.record
+
+        def dispatched(host, dt):
+            self.s["dispatch"] += dt
+            record(host, dt)
+
+        front.stragglers.record = dispatched
+        for part, attr in (("snapshots", "_host_fields"),
+                           ("snapshots", "_lane_snapshots"),
+                           ("checkpoints", "_checkpoint")):
+            setattr(front, attr, self._timed(part, getattr(front, attr)))
+        self.select = self._timed("select", stream_mod._select_lanes)
+        pump = self._timed("pump", front.pump)
+
+        def counted():
+            self.pumps += 1
+            return pump()
+
+        front.pump = counted
+
+    def _timed(self, part, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[part] += time.perf_counter() - t0
+        return timed
+
+    def ms_a_pump(self):
+        out = {k: 1e3 * v / self.pumps for k, v in self.s.items()}
+        out["rest"] = out["pump"] - sum(out[k] for k in (
+            "dispatch", "select", "snapshots", "checkpoints"))
+        return out
+
+
+def stream_load_row(model, root, scenes, x, name, split=False):
+    """``benchmarks/serving.py:_load_row`` on the card: offered load x
+    (frames a tenant a pump) under StreamConfig's default ladder, the
+    clock 0.05 s a cycle, both tiers' steps warmed up before the clock;
+    the backlog drained at the end."""
+    front = stream_front(model, root, f"load{x}")
+    for t in sorted(scenes):
+        front.attach(t)
+    L, M, m = STREAM_CFG["lanes_per_shard"], M_SERVE, model.m
+    zb, vb = np.zeros((L, M, m), np.float32), np.zeros((L, M), bool)
+    for tier in (ServiceTier.FULL, ServiceTier.WIDE_GATE):
+        front._dispatch(front.shards[0].device, tier, front.shards[0].banks,
+                        zb, vb)
+    torch.cuda.synchronize()
+    host = HostSplit(front) if split else None
+    patch = (mock.patch.object(stream_mod, "_select_lanes", host.select)
+             if split else contextlib.nullcontext())
+    counts = {t: 0 for t in scenes}
+    updates = {t: [] for t in scenes}
+    exceptions = []
+    acc, pumps = 0.0, 0
+    ops.reset_launches()
+    with patch:
+        t0 = time.perf_counter()
+        for cycle in range(STREAM_CYCLES + 4 * front.cfg.queue_depth):
+            drain = cycle >= STREAM_CYCLES
+            try:
+                acc += 0.0 if drain else x
+                while acc >= 1.0 - 1e-9:
+                    acc -= 1.0
+                    for t, scene in scenes.items():
+                        front.submit(t, scene(counts[t]))
+                        counts[t] += 1
+                ups = front.pump()
+            except Exception as e:  # noqa: BLE001 — counted, asserted 0
+                exceptions.append(e)
+                continue
+            pumps += 1
+            for t, u in ups.items():
+                updates[t].append(u)
+            front.clock.advance(0.05)
+            if drain and not ups:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    s = front.stats
+    assert exceptions == [], exceptions
+    assert s.dispatch_errors == 0 and front.breaker.trips == 0, s
+    assert launches[name] == s.dispatches == launches["greedy_assign"], (
+        launches, s.dispatches)
+    streaks = {}
+    for t, ups in updates.items():
+        streak = longest = 0
+        for u in ups:
+            streak = streak + 1 if u.kind == "shed" else 0
+            longest = max(longest, streak)
+        streaks[t] = longest
+    assert all(ups for ups in updates.values()), {
+        t: len(u) for t, u in updates.items()}
+    assert max(streaks.values()) <= front.cfg.starve_limit, streaks
+    applied = sum(len(u) for u in updates.values())
+    assert applied == s.applied
+    tiers = sorted({int(u.tier) for ups in updates.values() for u in ups})
+    row = dict(offered_x=x, tenants=len(scenes), cycles=STREAM_CYCLES,
+               pumps=pumps, wall_s=wall, pumps_per_s=pumps / wall,
+               tenant_frames_per_s=applied / wall, applied=applied,
+               submitted=s.submitted,
+               served_fraction=s.served / s.applied,
+               shed_fraction=(s.shed + s.replaced_oldest + s.expired)
+               / s.submitted,
+               reject_fraction=(s.rejected_overload + s.rejected_queue_full)
+               / s.submitted,
+               tiers=tiers, longest_shed_streak=max(streaks.values()),
+               min_frames_a_tenant=min(len(u) for u in updates.values()),
+               dispatches=s.dispatches, launches=launches[name],
+               exceptions=0)
+    if split:
+        row["host_ms_a_pump"] = host.ms_a_pump()
+    return row
+
+
+def phase_stream(kind, fleet):
+    """The streaming front end on the card for one model: (a) 100 cycles
+    uninterrupted; (b) shard 0 killed at cycle 40, every tenant's stream
+    bit for bit (a)'s, 4 failovers, shard1 alone alive; (c) the same with
+    checkpoint_every=1000 (the frame-0 snapshot + a 40-frame WAL); (d)
+    offered load 0.5x, 1x, 2x under the default ladder (pumps/s, tenant
+    frames/s, the served / shed / reject fractions, no tenant starved; the
+    1x run's host ms a pump split); (e) test_everything_at_once's plan.
+    Each run: launches = dispatches + WAL frames replayed, no dispatch
+    error, no breaker trip, no exception."""
+    t_phase = time.perf_counter()
+    model = filters.make_imm() if kind == "imm" else filters.get_filter(kind)
+    name = "katana_imm_frame" if kind == "imm" else "katana_frame"
+    root = tempfile.mkdtemp(prefix="katana_stream_")
+    row = dict(tenants=STREAM_TENANTS, cycles=STREAM_CYCLES,
+               kill_cycle=STREAM_KILL, **STREAM_CFG)
+    total = 0
+    try:
+        scenes = stream_scenes(kind, 2 * STREAM_CYCLES)
+        t_scene = time.perf_counter() - t_phase
+        # (a) uninterrupted
+        front_a = stream_front(model, root, "a", **NO_LADDER)
+        ref_run, la, wa = stream_drive(front_a, scenes, FaultPlan(),
+                                       STREAM_CYCLES)
+        total += stream_checks(f"{kind} (a) uninterrupted", front_a,
+                               ref_run, la, wa, name)
+        # (b) shard 0 killed at cycle 40
+        front_b = stream_front(model, root, "b", **NO_LADDER)
+        got, lb, wb = stream_drive(
+            front_b, scenes, FaultPlan(kill_shards={STREAM_KILL: 0}),
+            STREAM_CYCLES)
+        total += stream_checks(f"{kind} (b) kill shard0 at cycle 40",
+                               front_b, got, lb, wb, name)
+        n_b = streams_bitwise(ref_run, got)
+        assert front_b.stats.failovers == 4, front_b.stats
+        assert front_b.shards_alive() == ["shard1"]
+        assert len(got.recovered_at) == 4, got.recovered_at
+        # (c) the stale checkpoint: frame 0's + a 40-frame WAL
+        front_c = stream_front(model, root, "c", checkpoint_every=1000,
+                               **NO_LADDER)
+        got_c, lc, wc = stream_drive(
+            front_c, scenes, FaultPlan(kill_shards={STREAM_KILL: 0}),
+            STREAM_CYCLES)
+        total += stream_checks(f"{kind} (c) kill, checkpoint_every=1000",
+                               front_c, got_c, lc, wc, name)
+        assert wc == 4 * STREAM_KILL, wc
+        n_c = streams_bitwise(ref_run, got_c)
+        assert front_c.stats.failovers == 4
+        recovery = {t: got.recovered_at[t] - STREAM_KILL
+                    for t in got.recovered_at}
+        print(f"[stream {kind}] (b), (c): every tenant's stream bit for bit "
+              f"(a)'s ({n_b}, {n_c} track snapshots: ids, hits, ages, "
+              "states" + (", mode_probs" if kind == "imm" else "") + "); "
+              f"failovers 4, alive {front_b.shards_alive()}; WAL frames "
+              f"replayed (b) {wb}, (c) {wc}; cycles from the kill to each "
+              f"moved tenant's next update {recovery}")
+        row.update(wal_frames_b=wb, wal_frames_c=wc, bitwise_snapshots_b=n_b,
+                   bitwise_snapshots_c=n_c, recovery_cycles=recovery,
+                   checkpoints_a=front_a.stats.checkpoints)
+
+        # the device time of one pump's dispatch at S = 8: the fused frame
+        # kernel on shard 1's live lanes and a pump's measurements
+        sh = front_a.shards[1]
+        banks = sh.banks
+        L, C, M = STREAM_CFG["lanes_per_shard"], C_SERVE, M_SERVE
+        zb = np.zeros((L, M, model.m), np.float32)
+        vb = np.zeros((L, M), bool)
+        for t, tn in front_a.tenants.items():
+            if tn.shard == 1:
+                z = scenes[t](STREAM_CYCLES - 1)[:M]
+                zb[tn.lane, :len(z)], vb[tn.lane, :len(z)] = z, True
+        zt, vt = torch.from_numpy(zb).cuda(), torch.from_numpy(vb).cuda()
+        gate, rounds = tracker.CHI2_99[model.m], min(C, M)
+        if kind == "imm":
+            kargs = (banks.x, banks.P, banks.mu, zt, vt, banks.active, gate,
+                     rounds)
+            kfn = ops.katana_imm_frame
+        else:
+            kargs = (banks.x, banks.P, zt, vt, banks.active, gate, rounds)
+            kfn = ops.katana_frame
+        launch_ms = launch_events_ms(lambda evs: kfn(model, *kargs,
+                                                     launch_events=evs))
+        dispatch_ms = cuda_ms(lambda: front_a._dispatch(
+            sh.device, ServiceTier.FULL, banks, zb, vb), 20)
+        print(f"[stream {kind}] one pump's dispatch over {L} lanes: {name} "
+              "device ms a launch by CUDA events (mean of "
+              f"{launch_ms['events']} frames, device queued): " + ", ".join(
+                  f"{k} {launch_ms[k]:.4f}" for k in FRAME_LAUNCHES)
+              + f", the frame {launch_ms['frame']:.4f} (phase 3b's fleet "
+              f"frame {fleet['launch_device_ms']['frame']:.4f}); the whole "
+              f"step (zb, vb in, kernel, glue) {dispatch_ms:.4f} ms at the "
+              "host's pace (CUDA events)")
+        row.update(launch_device_ms=launch_ms, dispatch_ms=dispatch_ms)
+
+        # (d) offered load under the default ladder
+        loads = []
+        for x in STREAM_LOADS:
+            lrow = stream_load_row(model, root, scenes, x, name,
+                                   split=x == 1.0)
+            total += lrow["launches"]
+            loads.append(lrow)
+            print(f"[stream {kind}] (d) offered {x}x: {lrow['pumps']} pumps "
+                  f"in {lrow['wall_s']:.3f} s: {lrow['pumps_per_s']:.1f} "
+                  f"pumps/s, {lrow['tenant_frames_per_s']:.1f} tenant-"
+                  f"frames/s (host clock, warm-up excluded); served "
+                  f"{lrow['served_fraction']:.4f}, shed "
+                  f"{lrow['shed_fraction']:.4f}, reject "
+                  f"{lrow['reject_fraction']:.4f} of the submitted "
+                  f"{lrow['submitted']}; tiers {lrow['tiers']}; longest shed "
+                  f"streak {lrow['longest_shed_streak']} (limit "
+                  f"{StreamConfig().starve_limit}), fewest frames a "
+                  f"tenant {lrow['min_frames_a_tenant']}; launches "
+                  f"{lrow['launches']} = dispatches; exceptions 0")
+        one = next(r for r in loads if r["offered_x"] == 1.0)
+        split = one["host_ms_a_pump"]
+        limit = 300.0
+        verdict = "meets" if one["pumps_per_s"] >= limit else "MISSES"
+        print(f"[stream {kind}] host ms a pump at 1x (mean of "
+              f"{one['pumps']}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items())
+              + f"; {one['pumps_per_s']:.1f} pumps/s (each tenant one frame "
+              f"a pump) {verdict} the >= {limit:.0f} limit a tenant")
+        row.update(loads=loads, host_ms_a_pump=split, limit=limit,
+                   meets_limit=one["pumps_per_s"] >= limit)
+
+        # (e) tests/test_chaos.py::test_everything_at_once at this size
+        front_e = stream_front(model, root, "e", t0=50.0, queue_depth=6,
+                               degrade_at=0.4, coast_at=0.7, reject_at=0.95)
+        plan = FaultPlan(kill_shards={9: 0}, dropouts={"t1": (4, 8)},
+                         corruptions={("t2", 5): "nan", ("t2", 6): "inf"},
+                         duplicates=(("t0", 3), ("t1", 11)),
+                         skews_s={"t2": 0.5})
+        got_e, le, we = stream_drive(front_e, scenes, plan, 20, rate=2,
+                                     budget=30.0)
+        total += stream_checks(f"{kind} (e) everything at once", front_e,
+                               got_e, le, we, name)
+        assert front_e.stats.shards_lost == 1
+        assert all(got_e.frames_applied(t) > 0 for t in scenes)
+        for sh in front_e.shards:
+            if sh.alive:
+                assert torch.isfinite(sh.banks.x).all()
+                assert torch.isfinite(sh.banks.P).all()
+        row.update(sink=dataclasses.asdict(front_e.stats),
+                   sink_tiers=sorted({int(u.tier) for ups in
+                                      got_e.updates.values() for u in ups}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = total
+    row["seconds"] = time.perf_counter() - t_phase
+    print(f"[stream {kind}] {total} {name} launches in phase 9's runs; "
+          f"scenes {t_scene:.1f} s; part {row['seconds']:.1f} s")
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -2631,6 +3080,9 @@ def main() -> int:
     mamba, lm_kern["ssd_scan"] = phase_mamba(
         get_config(MAMBA_ARCH), MAMBA_B, MAMBA_S, MAMBA_STEPS, card)
     lap("8")
+    stream = {kind: phase_stream(kind, fleet[kind])
+              for kind in ("lkf", "imm")}
+    lap("9")
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     # the sensor fleet's own launches (phase 3b), apart from the main
@@ -2651,14 +3103,24 @@ def main() -> int:
             "launch_device_ms", "registers", "fleet_fps", "solo_fps",
             "fps_ratio")}
 
+    # the streaming front end's own launches (phase 9): one frame launch
+    # (and one greedy) a dispatch or a replayed WAL frame
+    stream_launches = {
+        "katana_frame": stream["lkf"]["launches"],
+        "katana_imm_frame": stream["imm"]["launches"],
+        "greedy_assign": stream["lkf"]["launches"]
+        + stream["imm"]["launches"]}
+
     def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
-        # the stage ladder's and the sensor fleet's own launches of the
-        # kernel (phase_stages, phase_fleet), apart from the main path's
-        # ``launches``
+        # the stage ladder's, the sensor fleet's and the stream's own
+        # launches of the kernel (phase_stages, phase_fleet,
+        # phase_stream), apart from the main path's ``launches``
         if name in ladder:
             extra = dict(extra, ladder_launches=ladder[name])
         if name in fleet_launches:
             extra = dict(extra, fleet_launches=fleet_launches[name])
+        if name in stream_launches:
+            extra = dict(extra, stream_launches=stream_launches[name])
         return dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches,
                     max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
@@ -2757,7 +3219,7 @@ def main() -> int:
                  greedy=greedy, fleet=fleet, replay=replay,
                  per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
-                 lm=lm, mamba=mamba, kernels=kernels,
+                 lm=lm, mamba=mamba, stream=stream, kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -32,7 +32,10 @@ both the plain version and the one that rounds as the tensor cores do,
 the float32 state within 1e-4 of its scale; chunks 16-256, d_state 4-128,
 head_dim 16-128, state0, large decays, views off 16 bytes), each type
 running its own kernels, and a reduced mamba2-130m
-served on the card through it against the CPU. Needs an NVIDIA GPU; run
+served on the card through it against the CPU. The streaming front end
+(``serving/stream.py``) on the card: a shard killed mid-run resumes bit
+for bit with the uninterrupted run, one frame launch a dispatch or a
+replayed WAL frame. Needs an NVIDIA GPU; run
 with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
@@ -1270,3 +1273,70 @@ def test_fleet_engine_on_card_matches_cpu(cuda, kind):
     assert ops.LAUNCHES["katana_imm_sequence"] == 3
     np.testing.assert_array_equal(r1, r2)
     _close(torch.as_tensor(r1), torch.as_tensor(cpu.replay(zs, valid)), tol)
+
+
+# ------------------------------------------------- the streaming front end
+
+@pytest.mark.parametrize("kind", ["imm", "lkf"])
+def test_stream_failover_bitwise_on_card(cuda, tmp_path, kind):
+    """``StreamFrontEnd`` on the card (two shards of four lanes on the one
+    card, C = 64, three tenants): shard 0 killed at cycle 7 of 16, and
+    every tenant's stream is bit for bit the uninterrupted run's on the
+    card; one frame launch (and one greedy) a dispatch or a replayed WAL
+    frame, no dispatch error, no breaker trip; ids, hits and ages equal to
+    the CPU front end's, states within 1e-4 (imm 5e-4)."""
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.stream import StreamConfig, StreamFrontEnd
+
+    from test_torch_chaos import (TENANTS, FakeClock,
+                                  assert_streams_bitwise, drive)
+
+    model = make_imm() if kind == "imm" else get_filter(kind)
+    name = "katana_imm_frame" if kind == "imm" else "katana_frame"
+    cfg = ttr.TrackerConfig(capacity=64, max_meas=8)
+    scfg = StreamConfig(n_shards=2, lanes_per_shard=4, queue_depth=8,
+                        checkpoint_every=4, degrade_at=5.0, coast_at=6.0,
+                        reject_at=7.0)
+    runs = {}
+    for tag, dev, plan in (("ref", "cuda", FaultPlan()),
+                           ("kill", "cuda", FaultPlan(kill_shards={7: 0})),
+                           ("cpu", "cpu", FaultPlan(kill_shards={7: 0}))):
+        front = StreamFrontEnd(model, scfg, cfg,
+                               ckpt_dir=str(tmp_path / tag),
+                               clock=FakeClock(), devices=(dev,))
+        wal = [0]
+        restore = front._restore_tenant
+
+        def counted(t, s, lane, _restore=restore, _wal=wal):
+            _wal[0] += len(t.wal)
+            return _restore(t, s, lane)
+
+        front._restore_tenant = counted
+        ops.reset_launches()
+        rep = drive(front, plan, cycles=16)
+        torch.cuda.synchronize()
+        assert rep.exceptions == []
+        assert front.stats.dispatch_errors == 0
+        assert front.breaker.trips == 0
+        if dev == "cuda":
+            want = front.stats.dispatches + wal[0]
+            assert ops.LAUNCHES[name] == want
+            assert ops.LAUNCHES["greedy_assign"] == want
+            assert all(sh.banks.x.device.type == "cuda"
+                       for sh in front.shards if sh.alive)
+        runs[tag] = (front, rep)
+    kill_front, kill = runs["kill"]
+    assert kill_front.stats.failovers == 2
+    assert kill_front.shards_alive() == ["shard1"]
+    assert_streams_bitwise(runs["ref"][1], kill)
+    tol = 5e-4 if kind == "imm" else 1e-4
+    cpu = runs["cpu"][1]
+    for t in TENANTS:
+        for g, c in zip(kill.updates[t], cpu.updates[t], strict=True):
+            assert (g.frame, g.seq, g.kind, g.shard) == \
+                (c.frame, c.seq, c.kind, c.shard)
+            assert [(s.track_id, s.hits, s.age) for s in g.snapshots] == \
+                [(s.track_id, s.hits, s.age) for s in c.snapshots]
+            for gs, cs in zip(g.snapshots, c.snapshots):
+                np.testing.assert_allclose(gs.state, cs.state, atol=tol,
+                                           rtol=0)
