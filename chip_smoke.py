@@ -50,7 +50,9 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      the host<->card copies, the scan's times (CUDA events, the device
      queued behind a spin; also with the whole stream in one launch),
      bound and the share of it reached, and (lkf, ekf) its registers,
-     waves and ptxas lines;
+     waves and ptxas lines; then the lane of tests/data/imm_scan_lane.npz
+     (ROADMAP §3) through the IMM scan kernel and its plain version on
+     the card, bit for bit, NaNs included;
   5. the per-frame twins at that size: T ``katana_bank`` calls equal the
      scan's final state bit for bit; ``imm_bank_sequence`` against
      ``katana_imm_sequence``; the step kernels' times (``katana_bank``
@@ -129,7 +131,23 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      plus the WAL frames replayed; also one pump's dispatch: the frame
      kernel's device ms a launch at 8 lanes (events, device queued) and
      the whole step's ms;
-  10. one JSON line with the kernel table, then the status line.
+  10. training: (a) flash_attention's gradient at danube's layer shape
+     (B=1, S=8192, 32 heads over 8 kv heads of 80, causal, window 4096)
+     in bf16 and float32, dq, dk, dv through ``FlashAttention`` with the
+     kernel's forward bit for bit with the plain forward's, the backward's
+     time against SDPA's backward (for the record), a ragged S=1,000
+     within 2e-5 + 1e-4|x| of the float64 oracle; (b) reduced danube
+     (flash) and mamba2, 5 float32 steps of ``make_train_step`` on the
+     card against the same on the CPU, each loss within 1e-4 relative;
+     (c) h2o-danube-1.8b at full size, bf16, S=8192, a global batch of 2
+     in 2 microbatches, 3 steps: finite loss and grad norm, ms a step,
+     tokens/s, peak memory, flash_attention launches = 24 x 2 x steps
+     (x 2 under recompute); (d) mamba2-130m at full size through
+     ``launch/train.py`` (S=2048, batch 4 in 2, 20 steps): a held-out
+     batch's loss falls, ms a step, tokens/s, peak memory;
+  11. one JSON line with the kernel table (row flash_attention also
+     carries the training launches and the backward times), then the
+     status line.
 """
 from __future__ import annotations
 
@@ -3010,6 +3028,355 @@ def phase_stream(kind, fleet):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 4's lane: the IMM scan on tests/data/imm_scan_lane.npz
+# ---------------------------------------------------------------------------
+
+IMM_LANE = ROOT / "tests" / "data" / "imm_scan_lane.npz"
+
+
+def _same_or_both_nan(a, b) -> bool:
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _first_non_finite(xs):
+    bad = (~torch.isfinite(xs).all(-1)).nonzero()
+    return int(bad[0, 0]) if len(bad) else None
+
+
+def imm_scan_lane():
+    """The lane of ROADMAP §3's reclassified entry (a float32-conditioned
+    IMM lane, tests/test_torch_imm_scan_lane.py) through the kernel and
+    through its plain version on the card: bit for bit, NaNs included;
+    each one's first non-finite frame, and the plain version's on the
+    CPU, printed."""
+    d = np.load(IMM_LANE)
+    imm = filters.as_imm(filters.make_imm())
+    args = [torch.as_tensor(d["zs"][:, None].copy()),
+            torch.as_tensor(d["x0"]), torch.as_tensor(d["P0"])]
+    kw = dict(mu0=torch.as_tensor(d["mu0"][None].copy()),
+              valid=torch.as_tensor(d["valid"][:, None].copy()))
+    on = [a.to(DEV) for a in args]
+    kw_on = {k: v.to(DEV) for k, v in kw.items()}
+    ops.reset_launches()
+    kern = ops.katana_imm_sequence(imm, *on, **kw_on)
+    assert ops.LAUNCHES["katana_imm_sequence"] == 1, ops.LAUNCHES
+    with mock.patch.object(build, "on_cuda", lambda t: False):
+        plain = ops.katana_imm_sequence(imm, *on, **kw_on)
+    cpu = ops.katana_imm_sequence(imm, *args, **kw)
+    assert _same_or_both_nan(kern, plain), "imm lane: kernel vs plain"
+    row = dict(kernel_first_non_finite=_first_non_finite(kern),
+               plain_card_first_non_finite=_first_non_finite(plain),
+               plain_cpu_first_non_finite=_first_non_finite(cpu))
+    print(f"[imm lane] T=300, K=4: kernel bit for bit with its plain "
+          f"version on the card (NaNs included); first non-finite frame: "
+          f"kernel {row['kernel_first_non_finite']}, plain on the card "
+          f"{row['plain_card_first_non_finite']}, plain on the CPU "
+          f"{row['plain_cpu_first_non_finite']} (the reference's float32 "
+          "order; ROADMAP §3)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = (
+    "h2o-danube-1.8b", 8192, 2, 2, 3)
+# the danube step's recompute (PERF.md §6 reckons the memory of each)
+TRAIN_REMAT = "none"
+MAMBA_TRAIN_ARGV = ["--arch", "mamba2-130m", "--seq", "2048", "--batch",
+                    "4", "--microbatches", "2", "--steps", "20"]
+# (B, S, H, KH, d, window) of the gradient checks: danube's layer, and a
+# ragged S against the float64 oracle
+GRAD_SHAPE = (1, 8192, 32, 8, 80, 4096)
+GRAD_RAGGED = (1, 1000, 32, 8, 80, 300)
+GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+SMALL_TRAIN = [("h2o-danube-1.8b", "flash"), ("mamba2-130m", "auto")]
+SMALL_TRAIN_S, SMALL_TRAIN_B, SMALL_TRAIN_STEPS = 128, 4, 5
+
+
+def _grad_inputs(rng, B, S, H, KH, d, dtype):
+    return [torch.as_tensor(rng.normal(size=(B, S, h, d)), dtype=torch.float32
+                            ).to(DEV, dtype) for h in (H, KH, KH, H)]
+
+
+def flash_grads(q, k, v, do, scale, window, forward):
+    """(dq, dk, dv) through ``FlashAttention`` with ``forward`` (the
+    kernel's ``flash_attention_fwd`` or the plain version), causal."""
+    t = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = fa_ops.FlashAttention.apply(*t, scale, True, window, 512, forward)
+    return torch.autograd.grad(o, t, do)
+
+
+def dense_grads64(q, k, v, do, scale, window):
+    """Autograd of dense causal, windowed softmax attention in float64."""
+    G = q.shape[2] // k.shape[2]
+    t = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    kb, vb = (x.repeat_interleave(G, dim=2) for x in t[1:])
+    s = torch.einsum("bqhd,bkhd->bhqk", t[0], kb) * scale
+    ok = fa_ref.mask(q.shape[1], k.shape[1], True, window, q.device)
+    p = torch.softmax(s.masked_fill(~ok, -1e30), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vb)
+    return torch.autograd.grad(o, t, do.double())
+
+
+def sdpa_bwd_ms(q, k, v, do, scale, window, iters):
+    """The library's backward alone (for the record; the port never calls
+    it): ``scaled_dot_product_attention`` on the memory-efficient backend
+    with the kv heads repeated and the causal window as a mask, its
+    forward run once with the graph kept. None if it refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    G = q.shape[2] // k.shape[2]
+    t = [x.detach().requires_grad_() for x in (q, k, v)]
+    qt = t[0].transpose(1, 2)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in t[1:])
+    mask = fa_ref.mask(q.shape[1], k.shape[1], True, window, q.device)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            o = sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
+            dot = do.transpose(1, 2)
+            return cuda_ms(lambda: torch.autograd.grad(o, t, dot,
+                                                       retain_graph=True),
+                           iters, warmup=1)
+    except RuntimeError as exc:
+        print(f"  library call refused: {str(exc).splitlines()[0][:160]}")
+        return None
+
+
+def train_grad_check(card):
+    """(a) flash_attention's gradient at danube's layer shape in bf16 and
+    float32: dq, dk, dv from the kernel's forward bit for bit with those
+    from the plain forward on the card (the backward reads q, k, v, not
+    the output); the backward's time against SDPA's; a ragged S against
+    the float64 oracle."""
+    rng = np.random.default_rng(31)
+    B, S, H, KH, d, W = GRAD_SHAPE
+    scale = d ** -0.5
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = _grad_inputs(rng, B, S, H, KH, d, dtype)
+        fa_ops.reset_launches()
+        got = flash_grads(q, k, v, do, scale, W, fa_ops.flash_attention_fwd)
+        assert fa_ops.LAUNCHES["flash_attention"] == 1, fa_ops.LAUNCHES
+        want = flash_grads(q, k, v, do, scale, W,
+                           fa_ref.flash_attention_plain)
+        for name, a, b in zip("qkv", got, want):
+            assert torch.equal(a, b), ("flash gradient", dtype, name)
+        bwd = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+            q, k, v, do, scale, True, W, 512), 3, warmup=1)
+        lib = sdpa_bwd_ms(q, k, v, do, scale, W, 3)
+        tag = str(dtype).removeprefix("torch.")
+        out[tag] = dict(bwd_ms=bwd, sdpa_bwd_ms=lib)
+        print(f"[train] flash_attention gradient B={B} S={S} H={H} KH={KH} "
+              f"d={d} W={W} {tag}: dq, dk, dv from the kernel's forward bit "
+              f"for bit with the plain forward's; backward {bwd:.3f} ms "
+              f"(torch ops, per 512-row block), SDPA's backward "
+              f"{'refused' if lib is None else f'{lib:.3f} ms'} | {card}")
+        del q, k, v, do, got, want
+    B, S, H, KH, d, W = GRAD_RAGGED
+    q, k, v, do = _grad_inputs(rng, B, S, H, KH, d, torch.float32)
+    got = flash_grads(q, k, v, do, scale, W, fa_ops.flash_attention_fwd)
+    want = dense_grads64(q, k, v, do, scale, W)
+    err = 0.0
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a.double(), b, **GRAD_TOL)
+        err = max(err, max_diff(a.double(), b))
+    out["ragged_max_abs_err"] = err
+    print(f"[train] ragged S={S} (blocks 512 + {S - 512}) H={H} KH={KH} "
+          f"d={d} W={W} float32 against the float64 oracle: max|d| "
+          f"{err:.3g} (<= 2e-5 + 1e-4|x|)")
+    return out
+
+
+def _to_cpu_state(state):
+    from repro_torch.optim import adamw
+
+    return adamw.TrainState(*(None if f is None else adamw.tree_map(
+        lambda t: t.detach().cpu().clone(), f) for f in state))
+
+
+def train_port_vs_cpu(card):
+    """(b) reduced danube (flash) and reduced mamba2, 5 float32 steps on
+    the card and the same on the CPU (the plain versions) from the same
+    state and batches: each step's loss within 1e-4 relative."""
+    from repro_torch.configs import RunConfig, reduced
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    out = {}
+    for arch, impl in SMALL_TRAIN:
+        cfg = reduced(get_config(arch), seq=SMALL_TRAIN_S)
+        if cfg.attention is not None:  # GQA: 4 query heads on 2 kv heads
+            cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+                cfg.attention, n_kv_heads=2))
+        params = init_params(cfg, torch.Generator(DEV).manual_seed(5), DEV)
+        state = adamw.init_train_state(params)
+        cpu_state = _to_cpu_state(state)
+        run = RunConfig(microbatches=2, learning_rate=1e-2, warmup_steps=2,
+                        total_steps=SMALL_TRAIN_STEPS, remat="none")
+        step = make_train_step(cfg, run, ShardingContext(attn_impl=impl),
+                               torch.float32)
+        data = LMDataPipeline(cfg.vocab, SMALL_TRAIN_S, SMALL_TRAIN_B,
+                              seed=3, microbatches=2)
+        batches = [data.next_batch() for _ in range(SMALL_TRAIN_STEPS)]
+        fa_ops.reset_launches()
+        card_loss, cpu_loss = [], []
+        for b in batches:
+            state, m = step(state, b)
+            card_loss.append(float(m["loss"]))
+        launches = fa_ops.LAUNCHES["flash_attention"]
+        for b in batches:
+            cpu_state, m = step(cpu_state, b)
+            cpu_loss.append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+        assert rel <= 1e-4, (arch, card_loss, cpu_loss)
+        want = (cfg.n_layers * 2 * SMALL_TRAIN_STEPS
+                if cfg.attention is not None else 0)
+        assert launches == want, (arch, launches, want)
+        out[arch] = dict(card_loss=card_loss, cpu_loss=cpu_loss,
+                         max_rel=rel, flash_launches=launches)
+        print(f"[train] reduced {arch} ({impl}) float32, {SMALL_TRAIN_STEPS} "
+              f"steps: loss on the card {[round(x, 6) for x in card_loss]}, "
+              f"on the CPU {[round(x, 6) for x in cpu_loss]}; max rel "
+              f"{rel:.3g} (<= 1e-4); flash_attention launches {launches}")
+    return out
+
+
+def train_danube(card):
+    """(c) h2o-danube-1.8b at full size through ``make_train_step``:
+    bf16 compute, attn_impl "flash", S = 8192, a global batch of 2 in 2
+    microbatches, TRAIN_STEPS steps; finite loss and grad norm, ms a
+    step, tokens/s, peak memory, the flash_attention launches."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(microbatches=TRAIN_MB, remat=TRAIN_REMAT)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = adamw.init_train_state(params)
+    del params
+    torch.cuda.empty_cache()
+    data = LMDataPipeline(cfg.vocab, TRAIN_S, TRAIN_BATCH, seed=0,
+                          microbatches=TRAIN_MB)
+    step = make_train_step(cfg, run, ShardingContext(attn_impl="flash"))
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    ms, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fa_ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = cfg.n_layers * TRAIN_MB * TRAIN_STEPS * (
+        1 if TRAIN_REMAT == "none" else 2)
+    assert launches == want, (launches, want)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses,
+                                                                   norms)
+    steady = float(np.mean(ms[1:]))
+    tok_s = TRAIN_BATCH * TRAIN_S / (steady / 1e3)
+    print(f"[train] {TRAIN_ARCH} ({n_params / 1e9:.3f} B params) bf16, "
+          f"S={TRAIN_S}, batch {TRAIN_BATCH} in {TRAIN_MB} microbatches, "
+          f"remat {TRAIN_REMAT}: loss {[round(x, 4) for x in losses]}, grad "
+          f"norm {[round(x, 4) for x in norms]}; ms a step "
+          f"{[round(x, 1) for x in ms]} (steady {steady:.1f}), {tok_s:.1f} "
+          f"tokens/s, peak memory {peak:.2f} GiB, flash_attention launches "
+          f"{launches} | {card}")
+    del state, m
+    torch.cuda.empty_cache()
+    return dict(params=n_params, losses=losses, grad_norms=norms, ms=ms,
+                steady_ms=steady, tokens_per_s=tok_s, peak_gib=peak,
+                launches=launches, remat=TRAIN_REMAT)
+
+
+def train_mamba(card):
+    """(d) mamba2-130m at full size through ``launch/train.py``: 20 steps;
+    ms a step, tokens/s, peak memory. The loss must fall, held on a batch
+    the run never trains on (the pipeline at the next seed): its loss
+    under the trained weights below its loss under the initial ones (one
+    batch both times, so the batch-to-batch spread of ~0.01 at a loss
+    near ln(vocab) does not decide it, and no batch the run memorised);
+    the last step's loss against the first's is printed too."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+
+    argv = MAMBA_TRAIN_ARGV
+    seq, batch = int(argv[argv.index("--seq") + 1]), int(
+        argv[argv.index("--batch") + 1])
+    steps = int(argv[argv.index("--steps") + 1])
+    held = {}
+    real_make = train_lib.make_train_step
+
+    def held_out_loss(state, cfg, run):
+        data = LMDataPipeline(cfg.vocab, seq, batch, seed=run.seed + 1,
+                              microbatches=run.microbatches)
+        b = data.next_batch()
+        with torch.no_grad():
+            params = adamw.compute_params(state, torch.bfloat16)
+            return float(np.mean([float(model_lib.loss_fn(
+                params, cfg, {k: torch.as_tensor(v[i], device=DEV).long()
+                              for k, v in b.items()}, None, run.remat)[0])
+                for i in range(run.microbatches)]))
+
+    def with_held_out_losses(cfg, run, ctx):
+        step = real_make(cfg, run, ctx)
+
+        def wrapped(state, b):
+            if "before" not in held:
+                held["before"] = held_out_loss(state, cfg, run)
+            state, m = step(state, b)
+            held.update(state=state, cfg=cfg, run=run)
+            return state, m
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_lib, "make_train_step",
+                           with_held_out_losses):
+        losses = train_lib.main(argv)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = held_out_loss(held["state"], held["cfg"], held["run"])
+    before = held["before"]
+    assert len(losses) == steps and after < before, (losses, before, after)
+    ms = wall / steps
+    tok_s = batch * seq / (ms / 1e3)
+    print(f"[train] mamba2-130m via launch/train.py {' '.join(argv)}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (the last step's below the "
+          f"first's: {losses[-1] < losses[0]}); a held-out batch's loss "
+          f"{before:.4f} -> {after:.4f}; {ms:.1f} ms a step (wall over "
+          f"{steps} steps, build, the held-out loss and the first step "
+          f"included), {tok_s:.1f} tokens/s, peak memory {peak:.2f} GiB "
+          f"| {card}")
+    held.clear()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, held_out_before=before, held_out_after=after,
+                ms=ms, tokens_per_s=tok_s, peak_gib=peak, wall_ms=wall)
+
+
+def phase_train(card):
+    """Phase 10: training on the card, (a) to (d)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads = train_grad_check(card)
+    small = train_port_vs_cpu(card)
+    danube = train_danube(card)
+    mamba = train_mamba(card)
+    return dict(grads=grads, small=small, danube=danube, mamba=mamba)
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3068,6 +3435,7 @@ def main() -> int:
     lap("3b")
     replay = {kind: phase_replay(kind, plain_r)
               for kind in ("lkf", "ekf", "imm")}
+    lane = imm_scan_lane()
     lap("4")
     per_frame = phase_per_frame(plain_r)
     lap("5")
@@ -3083,6 +3451,17 @@ def main() -> int:
     stream = {kind: phase_stream(kind, fleet[kind])
               for kind in ("lkf", "imm")}
     lap("9")
+    train = phase_train(card)
+    lap("10")
+    lm_kern["flash_attention"].update(
+        train_launches=(sum(r["flash_launches"]
+                            for r in train["small"].values())
+                        + train["danube"]["launches"]),
+        train_bwd_ms={k: v["bwd_ms"] for k, v in train["grads"].items()
+                      if isinstance(v, dict)},
+        train_sdpa_bwd_ms={k: v["sdpa_bwd_ms"]
+                           for k, v in train["grads"].items()
+                           if isinstance(v, dict)})
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     # the sensor fleet's own launches (phase 3b), apart from the main
@@ -3219,7 +3598,8 @@ def main() -> int:
                  greedy=greedy, fleet=fleet, replay=replay,
                  per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
-                 lm=lm, mamba=mamba, stream=stream, kernels=kernels,
+                 lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
+                 train=train, kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

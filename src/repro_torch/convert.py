@@ -6,7 +6,8 @@ constants. Banks travel as numpy arrays, one per field of
 ``BankState`` / ``IMMBankState`` (``np.asarray`` of each leaf of the
 reference bank); models as their numpy constants. Dtypes are kept:
 float32 state, int32 counters and ids, bool masks. An LM's parameter
-tree carries over leaf by leaf (``lm_params_from_numpy``).
+tree carries over leaf by leaf (``lm_params_from_numpy``), and so does a
+training state (``train_state_from_numpy``).
 """
 from __future__ import annotations
 
@@ -117,3 +118,21 @@ def lm_params_from_numpy(tree, cfg, device="cuda"):
         return {k: conv(src[k], shapes[k], f"{path}/{k}") for k in shapes}
 
     return conv(tree, want, "")
+
+
+def train_state_from_numpy(state, cfg, device="cuda"):
+    """The port's ``TrainState`` from the reference's as numpy leaves
+    (``jax.tree.map(np.asarray, state)``; a NamedTuple or a mapping of
+    step, master, m, v and ef): the same fields and trees, each tree
+    checked against ``cfg``'s parameter shapes, dtypes kept (float32
+    trees, an int32 step), so both packages can start from the same
+    master weights."""
+    from repro_torch.optim.adamw import TrainState
+
+    device = resolve_device(device)
+    f = _fields(state)
+    trees = {k: None if f.get(k) is None
+             else lm_params_from_numpy(f[k], cfg, device)
+             for k in ("master", "m", "v", "ef")}
+    step = torch.as_tensor(np.array(f["step"], np.int32), device=device)
+    return TrainState(step=step, **trees)

@@ -1,13 +1,22 @@
 """Wrapper of the flash_attention kernel (``csrc/flash_attention.cu``).
 
 ``flash_attention`` has the reference's signature
-(``repro/kernels/flash_attention/ops.py``), forward only. k/v may carry
-the model's KH kv heads (KH dividing H) as well as the broadcast H heads
-the reference takes: the kernel reads kv head h / (H / KH) in place, so
-nothing is repeated, transposed or padded here. A CPU tensor runs the
-plain version (``ref.flash_attention_plain``); a CUDA tensor launches the
-kernel of its type (``KERNELS``) or raises. ``LAUNCHES`` counts the
-launches.
+(``repro/kernels/flash_attention/ops.py``). k/v may carry the model's KH
+kv heads (KH dividing H) as well as the broadcast H heads the reference
+takes: the kernel reads kv head h / (H / KH) in place, so nothing is
+repeated, transposed or padded here. A CPU tensor runs the plain version
+(``ref.flash_attention_plain``); a CUDA tensor launches the kernel of its
+type (``KERNELS``) or raises. ``LAUNCHES`` counts the launches.
+
+The gradient is the reference's ``custom_vjp`` backward (``_bwd``, jnp
+that recomputes one query block at a time, not a Pallas kernel) as torch
+ops: ``FlashAttention`` runs the forward above and saves q, k and v, and
+its backward (``flash_attention_bwd``) recomputes each block's dense
+float32 scores, masks and softmax, and takes ``torch.autograd.grad`` of
+the block's output, O(block_q x Sk) at a time. It covers every query
+row: the reference's loop stops at ``Sq // block_q`` blocks, so the rows
+of a ragged tail get no dq there and dk, dv lose their share. Serving
+goes through the same ``Function`` (under ``no_grad`` nothing is saved).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+NEG_INF = ref.NEG_INF
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each type runs (csrc/flash_attention.cu): bf16 on the tensor
 # cores, float32 on the CUDA cores (the tensor cores would round it)
@@ -48,12 +58,85 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
                     block_k: int = 512, interpret: bool = True):
     """q: (B, Sq, H, d); k/v: (B, Sk, KH, d) with KH dividing H.
 
-    Returns (B, Sq, H, d) in q's dtype. ``block_q``, ``block_k`` and
-    ``interpret`` are the reference's tiling and mode arguments, kept for
-    the signature: the CUDA kernels use their own tiles (bfloat16: 192
-    queries, or 128 for d > 80, x 64 keys on the tensor cores; float32:
-    64 x 64 on the CUDA cores, ``config``) and mask the ragged tail by
-    the true key length."""
+    Returns (B, Sq, H, d) in q's dtype, differentiable in q, k and v.
+    ``block_q`` is the backward's query block (the reference's); ``block_k``
+    and ``interpret`` are the reference's tiling and mode arguments, kept
+    for the signature: the CUDA kernels use their own tiles (bfloat16:
+    192 queries, or 128 for d > 80, x 64 keys on the tensor cores;
+    float32: 64 x 64 on the CUDA cores, ``config``) and mask the ragged
+    tail by the true key length."""
+    return FlashAttention.apply(q, k, v, scale, causal, window, block_q,
+                                flash_attention_fwd)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``forward`` (``flash_attention_fwd``: the kernel, or the plain
+    version for a CPU tensor) with ``flash_attention_bwd`` as its
+    gradient. The backward reads q, k and v, never the output, so it is
+    the same whichever forward ran."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, block_q, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, causal, window, block_q)
+        return forward(q, k, v, scale, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd(q, k, v, do, scale: float, causal: bool = True,
+                        window: Optional[int] = None, block_q: int = 512):
+    """(dq, dk, dv) of the attention output against ``do`` (B, Sq, H, d),
+    in the reference's order: per block of ``min(block_q, Sq)`` query rows
+    (the last one ragged), the block's dense float32 scores with the
+    causal and window masks (-1e30), softmax, the probabilities cast to
+    v's dtype in the PV product, and ``torch.autograd.grad`` of that
+    output against q and the H-head broadcast k, v; the broadcast
+    gradients add up in float32 over the blocks, are cast to k's dtype
+    and then summed over each group of H / KH query heads (head h reads
+    kv head h // (H / KH), as ``_broadcast_kv`` repeats), so dk and dv
+    keep KH heads."""
+    B, Sq, H, d = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    bq = min(block_q, Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    kb = k.detach().repeat_interleave(G, dim=2).requires_grad_()
+    vb = v.detach().repeat_interleave(G, dim=2).requires_grad_()
+    dq = torch.empty_like(q)
+    dkb = torch.zeros(kb.shape, dtype=torch.float32, device=k.device)
+    dvb = torch.zeros(vb.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, Sq, bq):
+        rows = min(bq, Sq - q0)
+        qpos = q0 + torch.arange(rows, device=q.device)[:, None]
+        ok = torch.ones((rows, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        with torch.enable_grad():
+            qq = q[:, q0:q0 + rows].detach().requires_grad_()
+            s = torch.einsum("bqhd,bkhd->bhqk", qq.float(), kb.float()) * scale
+            p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", p.to(vb.dtype), vb)
+            dqi, dki, dvi = torch.autograd.grad(
+                o, (qq, kb, vb), do[:, q0:q0 + rows])
+        dq[:, q0:q0 + rows] = dqi
+        dkb += dki
+        dvb += dvi
+    dk = dkb.to(k.dtype).view(B, Sk, KH, G, d).sum(3)
+    dv = dvb.to(v.dtype).view(B, Sk, KH, G, d).sum(3)
+    return dq, dk, dv
+
+
+def flash_attention_fwd(q, k, v, scale: float, causal: bool = True,
+                        window: Optional[int] = None):
+    """The forward: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor. Shapes and dtypes as ``flash_attention``."""
     B, Sq, H, d = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     if k.shape != (B, Sk, KH, d) or v.shape != k.shape or H % KH:

@@ -6,13 +6,23 @@ of ``groups`` (and of the stacked caches) carries a leading axis over
 the n_layers / period groups, so a reference tree carries over as a
 copy. The stack is a plain Python loop over the groups (PyTorch runs
 eagerly; there is no scan to trace). Attention and SSM (Mamba-2)
-mixers with MLP layers are served; MoE layers and the frontends raise.
+mixers with MLP layers are served and trained; MoE layers and the
+frontends raise.
+
+Training recomputes as the reference's ``remat`` says, a layer group at
+a time: ``"none"`` keeps every activation, ``"full"`` wraps each group
+in ``torch.utils.checkpoint`` (non-reentrant) and keeps only its input,
+``"selective"`` does the same but keeps the outputs of the 2-D matrix
+products (``aten.mm``: the projections against the weights), the
+counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -93,13 +103,18 @@ def _stack(trees: List[Any]) -> Any:
     return {k: _stack([t[k] for t in trees]) for k in first}
 
 
-def _index(tree: Any, g: int) -> Any:
-    """Group g of a stacked tree (views: writes go to the stack)."""
+def _unbind(tree: Any, n: int) -> List[Any]:
+    """The n groups of a stacked tree (dicts / caches of tensors) at once,
+    as views (writes go to the stack). Under autograd a leaf is one
+    ``unbind``, whose backward stacks the groups' gradients in one pass
+    (a per-group index would zero-fill the whole stack per group)."""
     if isinstance(tree, torch.Tensor):
-        return tree[g]
+        return list(torch.unbind(tree, 0))
     if isinstance(tree, _CACHES):
-        return type(tree)(*(t[g] for t in tree))
-    return {k: _index(v, g) for k, v in tree.items()}
+        return [type(tree)(*ts) for ts in zip(*(_unbind(t, n)
+                                                for t in tree))]
+    per_key = {k: _unbind(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][g] for k in tree} for g in range(n)]
 
 
 def stack_init(gen, cfg: ModelConfig, device, dtype) -> Dict:
@@ -160,24 +175,52 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
     return x, new_cache
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective recompute: keep the 2-D matrix products' outputs."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = {
+    "none": None,
+    "full": {},
+    "selective": {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_matmuls)},
+}
+
+
 def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
-                caches: Optional[Dict], positions, cache_pos):
+                caches: Optional[Dict], positions, cache_pos,
+                remat: str = "selective"):
     """The layer stack. Returns (x, caches | None): prefill stacks the
     layers' new caches; decode writes into ``caches`` in place and
-    returns them."""
+    returns them; train returns None and recomputes each layer group in
+    the backward as ``remat`` (none | full | selective) says."""
     check_supported(cfg)
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
+    recompute = REMAT[remat] if mode == "train" else None
+    cache_groups = (_unbind(caches, n_groups) if mode == "decode"
+                    else [None] * n_groups)
     new = []
-    for g in range(n_groups):
-        pg = _index(groups, g)
-        cg = _index(caches, g) if mode == "decode" else None
-        out = {}
-        for j, (mixer, ffn) in enumerate(plan):
-            name = f"layer{j}"
-            x, out[name] = _layer_apply(
-                pg[name], x, cfg, mixer, ffn, mode, ctx,
-                cg[name] if cg is not None else None, positions, cache_pos)
+    for pg, cg in zip(_unbind(groups, n_groups), cache_groups):
+
+        def group(x, pg=pg, cg=cg):
+            out = {}
+            for j, (mixer, ffn) in enumerate(plan):
+                name = f"layer{j}"
+                x, out[name] = _layer_apply(
+                    pg[name], x, cfg, mixer, ffn, mode, ctx,
+                    cg[name] if cg is not None else None, positions,
+                    cache_pos)
+            return x, out
+
+        if recompute is None:
+            x, out = group(x)
+        else:
+            x, out = ckpt.checkpoint(group, x, use_reentrant=False,
+                                     **recompute)
         new.append(out)
     if mode == "prefill":
         return x, _stack(new)

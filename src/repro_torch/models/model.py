@@ -1,11 +1,11 @@
-"""The full model: embed -> layer stack -> head, with the prefill and
-decode entry points of LM serving.
+"""The full model: embed -> layer stack -> head, with the train,
+prefill and decode entry points and the CE loss.
 
 Batch dict convention (the reference's):
-  tokens    (B, S) int64/int32        — prefill
+  tokens    (B, S) int64/int32        — train, prefill
+  labels    (B, S) int64/int32        — train
   token     (B, 1) int64/int32        — decode
   cache_pos int                       — decode: the new token's position
-Training (``loss_fn``, mode "train") waits for the training slice.
 """
 from __future__ import annotations
 
@@ -71,19 +71,41 @@ def _head(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict, mode: str,
-            ctx: Optional[ShardingContext] = None, caches=None):
-    """Returns (logits (B, 1, vocab) of the last position, caches).
-    mode: "prefill" (caches built) or "decode" (S == 1; ``caches``
-    written in place and returned)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: training (loss_fn, mode 'train') is a later "
-            "slice (ROADMAP.md §1)")
+            ctx: Optional[ShardingContext] = None, caches=None,
+            remat: str = "selective"):
+    """Returns (logits, caches). mode: "train" (logits (B, S, vocab) of
+    every position, no caches; the layer groups recompute as ``remat``
+    says), "prefill" (logits (B, 1, vocab) of the last position, caches
+    built) or "decode" (S == 1; ``caches`` written in place and
+    returned)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     ctx = ctx or ShardingContext()
     cache_pos = batch.get("cache_pos")
     pos_offset = int(cache_pos) if mode == "decode" else 0
     x, positions = _embed_inputs(params, cfg, batch, mode, pos_offset)
     x, new_caches = blocks.stack_apply(params["groups"], x, cfg, mode, ctx,
-                                       caches, positions, cache_pos)
-    x = L.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
+                                       caches, positions, cache_pos,
+                                       remat=remat)
+    if mode != "train":
+        x = x[:, -1:]  # only the last position feeds sampling
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return _head(params, cfg, x), new_caches
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict,
+            ctx: Optional[ShardingContext] = None, remat: str = "selective",
+            aux_weight: float = 1e-2, z_weight: float = 1e-4):
+    """Mean CE over all positions + the MoE aux loss + the z-loss, in
+    float32 (the reference's weights). MoE layers are not served, so aux
+    is 0. Returns (total, {"ce", "aux", "z"})."""
+    logits, _ = forward(params, cfg, batch, "train", ctx, remat=remat)
+    logits = logits.float()
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = torch.mean(lse - gold)
+    zl = torch.mean(lse * lse)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    total = ce + aux_weight * aux + z_weight * zl
+    return total, {"ce": ce, "aux": aux, "z": zl}

@@ -5,10 +5,11 @@ A port of ``repro/models/ssm.py`` on its layouts (``wz``/``wx``
 (d, H, P), ``wB``/``wC`` (d, N), ``wdt`` (d, H), ``w_out`` (H, P, d);
 activations (B, S, H, P)). Prefill runs the SSD scan through the
 ssd_scan kernel (``kernels/ssd_scan/ops.py``), which returns the final
-state with ``y``; ``ssd_chunked`` stays as the reference's pure function
-(the kernel's float32 yardstick). Decode is the reference's one-step
-recurrence in torch ops (the reference has no kernel for it) and writes
-the cache in place.
+state with ``y``. Training runs ``ssd_chunked``, the reference's pure
+function (also the kernel's float32 yardstick), under autograd, as the
+reference does; the kernel stays forward only. Decode is the
+reference's one-step recurrence in torch ops (the reference has no
+kernel for it) and writes the cache in place.
 """
 from __future__ import annotations
 
@@ -118,8 +119,16 @@ def ssd_chunked(x, dt, Bm, Cm, A, chunk: int, state0=None):
         y_inter = (torch.einsum("bqn,bhpn->bqhp", C_c.to(state.dtype), state)
                    * ydec[..., None])
         G = torch.einsum("bin,bjn->bij", C_c.float(), B_c.float())
-        D_ij = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
-        W = torch.where(mask[None, :, :, None], G[..., None] * D_ij,
+        # exp(cum_i - cum_j) above the diagonal (j > i) grows with the
+        # chunk and overflows at chunk 256; the where below drops it, but
+        # its gradient there would be 0 * inf = NaN. The exponent is
+        # masked first, so those entries are exp(-inf) = 0: the same
+        # forward bits, a finite gradient (the reference's ssd_chunked
+        # takes the NaN)
+        lower = mask[None, :, :, None]
+        D_ij = torch.exp(torch.where(
+            lower, cum[:, :, None, :] - cum[:, None, :, :], -math.inf))
+        W = torch.where(lower, G[..., None] * D_ij,
                         torch.zeros((), device=x.device))
         W = W * dt_c[:, None, :, :]
         y_intra = torch.einsum("bijh,bjhp->bihp", W.to(x_c.dtype), x_c)
@@ -133,11 +142,11 @@ def ssd_chunked(x, dt, Bm, Cm, A, chunk: int, state0=None):
 
 def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
               cache: Optional[SSMCache] = None):
-    """x: (B, S, d). mode: prefill | decode (S = 1; ``cache`` written in
-    place and returned). Returns (out (B, S, d), cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: training is a later slice (ROADMAP.md §1)")
+    """x: (B, S, d). mode: train | prefill | decode (S = 1; ``cache``
+    written in place and returned). Returns (out (B, S, d), cache; None
+    in train mode)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     B, S, d = x.shape
     w = cfg.conv_width
     z = torch.einsum("bsd,dhp->bshp", x, p["wz"])
@@ -171,14 +180,17 @@ def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
         xs_c = F.silu(_causal_conv(xs, p["conv_x"]))
         Bm_c = F.silu(_causal_conv(Bm, p["conv_B"]))
         Cm_c = F.silu(_causal_conv(Cm, p["conv_C"]))
-        y, S_fin = ops.ssd_scan(xs_c, dt, Bm_c, Cm_c, A, cfg.chunk)
+        scan = ssd_chunked if mode == "train" else ops.ssd_scan
+        y, S_fin = scan(xs_c, dt, Bm_c, Cm_c, A, cfg.chunk)
         y = y + (p["D"][:, None] * xs_c.float()).to(y.dtype)
-        # the tails are copies: a view would keep the whole (B, S, ...)
-        # projection alive
-        new_cache = SSMCache(state=S_fin,
-                             conv_x=xs[:, S - (w - 1):].clone(),
-                             conv_B=Bm[:, S - (w - 1):].clone(),
-                             conv_C=Cm[:, S - (w - 1):].clone())
+        new_cache = None
+        if mode == "prefill":
+            # the tails are copies: a view would keep the whole (B, S, ...)
+            # projection alive
+            new_cache = SSMCache(state=S_fin,
+                                 conv_x=xs[:, S - (w - 1):].clone(),
+                                 conv_B=Bm[:, S - (w - 1):].clone(),
+                                 conv_C=Cm[:, S - (w - 1):].clone())
     y = _per_head_norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
     out = torch.einsum("bshp,hpd->bsd", y.to(x.dtype), p["w_out"])
     return out, new_cache

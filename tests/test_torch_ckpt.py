@@ -16,7 +16,10 @@ each one induced here:
 Then what the port adds: trees of tensors (the banks), leaf names that
 are the JAX package's key paths, a lane bank saved by either package
 restoring in the other bit for bit, renamed or reshaped leaves raising
-in both directions, and each restored leaf on its ``like`` leaf's device.
+in both directions, each restored leaf on its ``like`` leaf's device,
+and a training state (``optim/adamw.py:TrainState``, with and without
+the error-feedback residual) saved by either package restoring in the
+other bit for bit.
 """
 import json
 import shutil
@@ -395,3 +398,75 @@ def test_async_save_copies_tensors_before_returning(tmp_path):
     mgr.wait()
     got, _ = mgr.restore_latest({"x": torch.empty(8)})
     assert torch.equal(got["x"], torch.arange(8, dtype=torch.float32))
+
+
+# -- a training state crosses packages ---------------------------------------
+
+def _train_states(compression):
+    """The reference's TrainState of reduced danube (one AdamW step taken,
+    so m, v and step are not zero) and the port's copy of it."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.models import model as j_model
+    from repro.optim import adamw as j_adamw
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import train_state_from_numpy
+
+    jcfg = j_reduced(j_get_config("h2o-danube-1.8b"), seq=16)
+    cfg = reduced(get_config("h2o-danube-1.8b"), seq=16)
+    js = j_adamw.init_train_state(j_model.init_params(jcfg,
+                                                      jax.random.key(4)),
+                                  compression)
+    g = jax.tree.map(lambda p: jnp.full_like(p, 0.01), js.master)
+    js = j_adamw.adamw_update(js, g, 1e-3)
+    if compression:
+        js = js._replace(ef=jax.tree.map(lambda p: p * 1e-3, js.master))
+    return js, train_state_from_numpy(jax.tree.map(np.asarray, js), cfg,
+                                      "cpu"), cfg
+
+
+def _train_like(cfg, compression):
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+
+    return adamw.init_train_state(
+        init_params(cfg, torch.Generator().manual_seed(9), "cpu"),
+        compression)
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_reference_train_state_restores_in_the_port_bitwise(tmp_path,
+                                                            compression):
+    import jax
+
+    js, _, cfg = _train_states(compression)
+    JC.save(str(tmp_path), 7, js, extra={"step": 7})
+    got, extra = C.restore(str(tmp_path), _train_like(cfg, compression))
+    assert extra == {"step": 7}
+    want = jax.tree.leaves(js)
+    names = [n for n, _ in C._flatten(got)]
+    assert len(names) == len(want)
+    for name, (_, a), b in zip(names, C._flatten(got), want):
+        assert isinstance(a, torch.Tensor), name
+        assert a.numpy().dtype == np.asarray(b).dtype, name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_port_train_state_restores_in_the_reference_bitwise(tmp_path,
+                                                            compression):
+    import jax
+
+    js, state, cfg = _train_states(compression)
+    C.CheckpointManager(str(tmp_path)).save(3, state, extra={"step": 3},
+                                            blocking=True)
+    like = jax.tree.map(np.zeros_like, js)
+    got, extra = JC.restore(str(tmp_path), like)
+    assert extra == {"step": 3}
+    assert type(got).__name__ == "TrainState"
+    for (name, a), b in zip(C._flatten(state), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(b), a.numpy(), err_msg=name)
+        assert np.asarray(b).dtype == a.numpy().dtype, name

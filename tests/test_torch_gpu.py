@@ -35,7 +35,11 @@ running its own kernels, and a reduced mamba2-130m
 served on the card through it against the CPU. The streaming front end
 (``serving/stream.py``) on the card: a shard killed mid-run resumes bit
 for bit with the uninterrupted run, one frame launch a dispatch or a
-replayed WAL frame. Needs an NVIDIA GPU; run
+replayed WAL frame. flash_attention's gradient through the kernel's
+forward bit for bit with the plain forward's (and the float64 oracle in
+float32, a ragged tail included); the IMM scan on the saved lane of
+tests/data/imm_scan_lane.npz bit for bit with its plain version. Needs an
+NVIDIA GPU; run
 with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
@@ -1340,3 +1344,68 @@ def test_stream_failover_bitwise_on_card(cuda, tmp_path, kind):
             for gs, cs in zip(g.snapshots, c.snapshots):
                 np.testing.assert_allclose(gs.state, cs.state, atol=tol,
                                            rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,d,window", [(1, 600, 4, 2, 80, None),
+                                               (2, 256, 8, 2, 32, 64)])
+def test_flash_gradient_is_the_plain_forwards(cuda, dtype, B, S, H, KH, d,
+                                              window):
+    """Tolerance: none. dq, dk, dv through ``FlashAttention`` with the
+    kernel's forward equal those with the plain forward on the card (the
+    backward reads q, k, v, not the output); one launch; and in float32
+    the gradient lies within 2e-5 + 1e-4 relative of the float64 oracle
+    (a ragged S = 600 covers the 512-row block's tail)."""
+    rng = np.random.default_rng(S + H)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                                   dtype=torch.float32).to(cuda, dtype)
+                   for h in (H, KH, KH, H))
+    scale = d ** -0.5
+
+    def grads(forward):
+        t = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = fa_ops.FlashAttention.apply(*t, scale, True, window, 512,
+                                        forward)
+        return torch.autograd.grad(o, t, do)
+
+    fa_ops.reset_launches()
+    got = grads(fa_ops.flash_attention_fwd)
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
+    want = grads(fa_ref.flash_attention_plain)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if dtype == torch.float32:
+        G = H // KH
+        t = [x.detach().double().requires_grad_() for x in (q, k, v)]
+        kb, vb = (x.repeat_interleave(G, dim=2) for x in t[1:])
+        s = torch.einsum("bqhd,bkhd->bhqk", t[0], kb) * scale
+        ok = fa_ref.mask(S, S, True, window, cuda)
+        o = torch.einsum("bhqk,bkhd->bqhd",
+                         torch.softmax(s.masked_fill(~ok, -1e30), -1), vb)
+        for a, b in zip(got, torch.autograd.grad(o, t, do.double())):
+            torch.testing.assert_close(a.double(), b, atol=2e-5, rtol=1e-4)
+
+
+def test_imm_scan_lane_kernel_is_its_plain_version(cuda):
+    """Tolerance: none. The lane of tests/data/imm_scan_lane.npz through
+    the IMM scan kernel and through its plain version on the card: bit
+    for bit, NaNs included (the lane's float32 fate is the reference's
+    order, tests/test_torch_imm_scan_lane.py)."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+
+    d = np.load(Path(__file__).resolve().parent / "data"
+                / "imm_scan_lane.npz")
+    imm = as_imm(make_imm())
+    zs, x0, P0 = (torch.as_tensor(a.copy()).to(cuda)
+                  for a in (d["zs"][:, None], d["x0"], d["P0"]))
+    kw = dict(mu0=torch.as_tensor(d["mu0"][None].copy()).to(cuda),
+              valid=torch.as_tensor(d["valid"][:, None].copy()).to(cuda))
+    ops.reset_launches()
+    kern = ops.katana_imm_sequence(imm, zs, x0, P0, **kw)
+    assert ops.LAUNCHES["katana_imm_sequence"] == 1
+    with mock.patch.object(build, "on_cuda", lambda t: False):
+        plain = ops.katana_imm_sequence(imm, zs, x0, P0, **kw)
+    same = (kern == plain) | (torch.isnan(kern) & torch.isnan(plain))
+    assert bool(same.all())

@@ -1,7 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX
 blocked, and no source under ``src/repro_torch/`` (nor the port's
-``examples/torch_quickstart.py``) imports ``jax`` or the JAX package
-``repro``."""
+examples, ``examples/torch_quickstart.py`` and ``torch_train_lm.py``)
+imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -34,7 +34,8 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= len(MODULES)
 
 
-EXAMPLES = [ROOT / "examples" / "torch_quickstart.py"]
+EXAMPLES = [ROOT / "examples" / "torch_quickstart.py",
+            ROOT / "examples" / "torch_train_lm.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + EXAMPLES,

@@ -266,9 +266,13 @@ def test_what_one_card_does_not_serve():
         ShardingContext(attn_impl="xla")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                          torch.float32)
-    with pytest.raises(NotImplementedError, match="training"):
-        forward(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                "train")
+    # training is served now (tests/test_torch_train.py); a mode that is
+    # not one of train / prefill / decode raises
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+    logits, caches = forward(params, cfg, batch, "train")
+    assert logits.shape == (1, 4, cfg.vocab) and caches is None
+    with pytest.raises(ValueError, match="mode"):
+        forward(params, cfg, batch, "serve")
     tree = {k: v for k, v in params.items() if k != "final_norm"}
     with pytest.raises(KeyError, match="final_norm"):
         lm_params_from_numpy(tree, cfg, "cpu")

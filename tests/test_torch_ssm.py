@@ -4,8 +4,8 @@ package's (``repro.models.ssm``) on the same parameters (the reference's
 ssd_scan, its plain version on the CPU) and the decode steps after it,
 the output and the whole cache (state and the three conv tails), float32
 within 1e-4/1e-3; bfloat16 within 2e-2 of the values' scale. Also the
-init's leaves, shapes and dtypes, the conv and norm helpers, and the
-decode's in-place cache write."""
+init's leaves, shapes and dtypes, the conv and norm helpers, the
+decode's in-place cache write, and the train mode with its gradient."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -131,7 +131,54 @@ def test_causal_conv_and_norm_match(tail):
 
 
 def test_train_mode_raises():
+    """Training is ported: mode "train" runs ``ssd_chunked`` under autograd
+    and matches the reference's train mode (float32, 1e-4/1e-3), output
+    and input gradient; only an unknown mode raises."""
     jcfg, cfg = _cfgs()
-    _, p = _params(jcfg, "float32")
-    with pytest.raises(NotImplementedError, match="training"):
-        ssm.apply_ssm(p, torch.zeros(1, 16, D_MODEL), cfg, "train")
+    tree, p = _params(jcfg, "float32")
+    jx, tx = _x(7, 2, 32, "float32")
+    jout, jcache = j_ssm.apply_ssm(tree, jx, jcfg, "train")
+    jgrad = jax.grad(lambda x: j_ssm.apply_ssm(tree, x, jcfg, "train")[0]
+                     .sum())(jx)
+    tx.requires_grad_()
+    out, cache = ssm.apply_ssm(p, tx, cfg, "train")
+    assert jcache is None and cache is None
+    _close(out.detach(), jout, "float32")
+    (grad,) = torch.autograd.grad(out.sum(), tx)
+    _close(grad, jgrad, "float32")
+    with pytest.raises(ValueError, match="mode"):
+        ssm.apply_ssm(p, torch.zeros(1, 16, D_MODEL), cfg, "serve")
+
+
+def test_full_chunk_gradient_stays_finite():
+    """At mamba2-130m's chunk of 256, exp(cum_i - cum_j) above the
+    diagonal overflows (here dt * A = -0.5 a step: cum reaches -128).
+    The reference's ``ssd_chunked`` masks it after the exp, so its
+    gradient is 0 * inf = NaN; the port masks the exponent first: the
+    same forward (float32, 1e-4/1e-3 of the reference's), and a finite
+    gradient that matches its own chunk-16 gradient (where nothing
+    overflows) within 1e-4/1e-3."""
+    rng = np.random.default_rng(8)
+    B_, S_, H, P, N = 1, 256, 2, 4, 4
+    x, Bm, Cm = (rng.normal(size=s).astype(np.float32)
+                 for s in ((B_, S_, H, P), (B_, S_, N), (B_, S_, N)))
+    dt = np.full((B_, S_, H), 0.05, np.float32)
+    A = np.array([-10.0, -1.0], np.float32)
+    args = [x, dt, Bm, Cm]
+    jgrads = jax.grad(
+        lambda *a: j_ssm.ssd_chunked(*a, jnp.asarray(A), 256)[0].sum(),
+        argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in args))
+    # the reference's gradients in dt, Bm and Cm are NaN
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jgrads)
+    grads = {}
+    for chunk in (256, 16):
+        t = [torch.tensor(a, requires_grad=True) for a in args]
+        y, _ = ssm.ssd_chunked(*t, torch.as_tensor(A), chunk)
+        if chunk == 256:
+            _close(y.detach(), j_ssm.ssd_chunked(
+                *(jnp.asarray(a) for a in args), jnp.asarray(A), 256)[0],
+                "float32")
+        grads[chunk] = torch.autograd.grad(y.sum(), t)
+    for g256, g16 in zip(grads[256], grads[16]):
+        assert torch.isfinite(g256).all()
+        _close(g256, np_(g16), "float32")
