@@ -145,9 +145,38 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      (x 2 under recompute); (d) mamba2-130m at full size through
      ``launch/train.py`` (S=2048, batch 4 in 2, 20 steps): a held-out
      batch's loss falls, ms a step, tokens/s, peak memory;
-  11. one JSON line with the kernel table (row flash_attention also
-     carries the training launches and the backward times), then the
-     status line.
+  11. MoE layers and the modality frontends: (a) flash_attention at one
+     layer of granite-moe-1b-a400m (B=8, S=4096, 16 heads over 8 of 64,
+     causal), internvl2-2b (B=4, S=4096, 16 over 8 of 128, causal) and
+     hubert-xlarge (B=4, S=1500, 16 heads of 80, non-causal, S not a
+     multiple of the tiles) and flash_decode over a full cache with no
+     window at granite-moe's and internvl2's decode shapes, float32 (2e-5;
+     1e-5 + 1e-4|x|) and bf16 (one ulp of the plain and the hi/lo plain
+     versions) against their plain versions, timed beside them and SDPA;
+     (b) reduced granite-moe, qwen3-moe and jamba (its Mamba layers on
+     ssd_scan) in float32 on attn_impl "flash": a prefill, 3 decode steps
+     and 3 train steps on the card against the same on the CPU (logits
+     within 1e-4 of their scale, loss and aux within 1e-4 relative, every
+     MoE call's top-k identical); (c) granite-moe-1b-a400m at full size:
+     B=8 prompts of S=4096 through ``make_prefill_step`` (24
+     flash_attention launches), 32 greedy steps (24 flash_decode launches
+     a step), prefill ms, tokens/s, decode ms/token, the device-busy share
+     and largest kernels, the flash route's logits on 2 prompts within
+     max(2^-8, 2x) the bf16 full route's distance from a float32 run and
+     the routing choices that differ between the routes; then trained
+     through ``make_train_step`` (bf16 over float32 masters, S=4096, 2 in
+     2 microbatches, remat none, 3 steps: finite loss, aux and grad norm,
+     ms a step, tokens/s, peak memory, 24 x 2 x 3 flash_attention
+     launches); (d) internvl2-2b at full size, B=4 prompts of 256 patch
+     embeddings and 3840 text tokens, 32 decode steps, the same numbers
+     and launch counts; (e) hubert-xlarge at full size through
+     ``make_encode_step``, B=4 clips of 1500 frame embeddings (48
+     flash_attention launches an encode), encode ms and frames/s, one
+     clip's logits held to the bf16 and float32 full routes as (c);
+  12. one JSON line with the kernel table (row flash_attention also
+     carries the training launches and the backward times; rows
+     flash_attention, flash_decode and ssd_scan phase 11's launches, and
+     the first two phase 11's shapes), then the status line.
 """
 from __future__ import annotations
 
@@ -3377,6 +3406,568 @@ def phase_train(card):
     return dict(grads=grads, small=small, danube=danube, mamba=mamba)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: MoE layers and the modality frontends. granite-moe-1b-a400m
+# (hf:ibm-granite/granite-3.0-1b-a400m-base: 24 layers, d 1024, 16 heads
+# over 8 kv heads of 64, 32 experts, top-8, d_ff_expert 512, vocab 49155,
+# no window) served at B = 8 x 4,096 (granite-3.0's context) and trained at
+# S = 4,096; internvl2-2b (arXiv:2404.16821: 24 layers, d 2048, 16 over 8
+# heads of 128) served with 256 patch embeddings before 3,840 text tokens;
+# hubert-xlarge (arXiv:2106.07447: 48 layers, d 1280, 16 heads of 80,
+# non-causal) encoding 30-s clips of 1,500 frame embeddings (50 Hz). Random
+# bf16 weights from seeded generators; nothing cut but the batch.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_B, MOE_S, MOE_STEPS = "granite-moe-1b-a400m", 8, 4096, 32
+MOE_TRAIN_S, MOE_TRAIN_BATCH, MOE_TRAIN_MB, MOE_TRAIN_STEPS = 4096, 2, 2, 3
+MOE_CHECK_B = 2  # prompts held to the full routes
+VLM_ARCH, VLM_B, VLM_TEXT, VLM_STEPS = "internvl2-2b", 4, 3840, 32
+AUDIO_ARCH, AUDIO_B, AUDIO_S = "hubert-xlarge", 4, 1500
+# one layer of each arch at full size: (arch, B, S, H, KH, d, causal)
+MOE_ATTN = [(MOE_ARCH, MOE_B, MOE_S, 16, 8, 64, True),
+            (VLM_ARCH, VLM_B, 256 + VLM_TEXT, 16, 8, 128, True),
+            (AUDIO_ARCH, AUDIO_B, AUDIO_S, 16, 16, 80, False)]
+# one decode step over a full cache with no window: (arch, B, T, H, KH, d)
+MOE_DECODE = [(MOE_ARCH, MOE_B, MOE_S, 16, 8, 64),
+              (VLM_ARCH, VLM_B, 256 + VLM_TEXT, 16, 8, 128)]
+SMALL_MOE = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+             "jamba-1.5-large-398b")
+SMALL_MOE_S, SMALL_MOE_B, SMALL_MOE_STEPS = 128, 4, 3
+
+
+def attention_bound(B, S, H, KH, d, causal, dtype):
+    """(bound ms, by, bytes, operations) of one flash_attention call: q,
+    k, v read once, o written once; 4 d operations a visible (query, key)
+    pair, at the bf16 tensor-core or the float32 CUDA-core peak."""
+    item = torch.finfo(dtype).bits // 8
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nb, nops = 2 * B * S * (H + KH) * d * item, 4 * d * pairs * B * H
+    peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+    by = "bytes" if nb / HBM_BPS >= nops / peak else "operations"
+    return max(nb / HBM_BPS, nops / peak) * 1e3, by, nb, nops
+
+
+def moe_attention_shapes(card):
+    """(a) flash_attention at one layer of each arch, float32 (2e-5 of the
+    plain version) and bf16 (one ulp of the plain and the hi/lo plain
+    versions), timed beside the plain version and SDPA."""
+    rng = np.random.default_rng(41)
+    rows = {}
+    for arch, B, S, H, KH, d, causal in MOE_ATTN:
+        q32, k32, v32 = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                                         dtype=torch.float32, device=DEV)
+                         for h in (H, KH, KH))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            scale = d ** -0.5
+            got = fa_ops.flash_attention(q, k, v, scale, causal, None)
+            want, plain = timed_once(lambda: fa_ref.flash_attention_plain(
+                q, k, v, scale, causal, None))
+            err = max_diff(got, want)
+            if dtype == torch.float32:
+                ulps = None
+                assert err <= 2e-5, (arch, "flash_attention float32", err)
+            else:
+                ulps = bf16_ulp_excess(got, want)
+                hilo = max(bf16_ulp_excess(
+                    got[b:b + 1], fa_ref.flash_attention_hilo_plain(
+                        q[b:b + 1], k[b:b + 1], v[b:b + 1], scale, causal))
+                    for b in range(B))
+                assert ulps <= 1.0 and hilo <= 1.0, (arch, ulps, hilo)
+                ulps = max(ulps, hilo)
+            ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, scale,
+                                                        causal, None),
+                         5, warmup=1)
+            mask = fa_ref.mask(S, S, True, None, DEV) if causal else None
+            lib = sdpa_ms(q, k, v, mask, 5)
+            bms, by, nb, nops = attention_bound(B, S, H, KH, d, causal,
+                                                dtype)
+            tag = str(dtype).removeprefix("torch.")
+            rows[f"{arch} {tag}"] = dict(
+                shape=f"B={B} S={S} H={H} KH={KH} d={d} "
+                      f"{'causal' if causal else 'non-causal'} {tag}",
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, max_abs_err=err, bf16_ulps=ulps)
+            print(f"[moe] flash_attention {arch} B={B} S={S} H={H} KH={KH} "
+                  f"d={d} {'causal' if causal else 'non-causal'} {tag}: "
+                  f"{ms:.3f} ms (plain {plain:.1f} ms, SDPA "
+                  f"{'refused' if lib is None else f'{lib:.3f} ms'}), "
+                  f"max|d| vs plain {err:.3g}"
+                  + ("" if ulps is None else f" = {ulps:.3g} bf16 ulp "
+                     "(plain and hi/lo plain)")
+                  + f"; bound {bms:.4f} ms by {by} ({nb} B, {nops} ops), "
+                  f"{bms / ms:.4f} of it | {card}")
+            del q, k, v, got, want
+        del q32, k32, v32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_decode_shapes(card):
+    """(a) flash_decode over a full cache with no window at G = 2, float32
+    and bf16: the normalised output and m within 1e-5 + 1e-4|x|, l within
+    1e-4 relative of the plain version; timed beside it and SDPA."""
+    rng = np.random.default_rng(43)
+    rows = {}
+    for arch, B, T, H, KH, d in MOE_DECODE:
+        q32 = torch.as_tensor(rng.normal(size=(B, H, d)), dtype=torch.float32,
+                              device=DEV)
+        k32, v32 = (torch.as_tensor(rng.normal(size=(B, T, KH, d)),
+                                    dtype=torch.float32, device=DEV)
+                    for _ in range(2))
+        bk = math.gcd(T, 1024)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            scale = d ** -0.5
+            acc, m, l = fd_ops.flash_decode_partial(q, k, v, scale=scale,
+                                                    block_k=bk)
+            (acc_p, m_p, l_p), plain = timed_once(
+                lambda: fd_ref.flash_decode_partial_plain(q, k, v, scale))
+            torch.testing.assert_close(acc / l, acc_p / l_p, atol=1e-5,
+                                       rtol=1e-4)
+            torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(l, l_p, atol=0, rtol=1e-4)
+            err = max_diff(acc / l, acc_p / l_p)
+            ms = cuda_ms(lambda: fd_ops.flash_decode_partial(
+                q, k, v, scale=scale, block_k=bk), 50)
+            lib = sdpa_ms(q[:, None], k, v, None, 50)
+            item = torch.finfo(dtype).bits // 8
+            nb = (2 * B * T * KH * d + B * H * d) * item + (
+                B * H * d + 2 * B * H) * 4
+            nops = 4 * d * T * B * H
+            peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+            bms = max(nb / HBM_BPS, nops / peak) * 1e3
+            by = "bytes" if nb / HBM_BPS >= nops / peak else "operations"
+            tag = str(dtype).removeprefix("torch.")
+            rows[f"{arch} {tag}"] = dict(
+                shape=f"B={B} T={T} H={H} KH={KH} d={d} {tag}, no window",
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, max_abs_err=err)
+            print(f"[moe] flash_decode {arch} B={B} T={T} H={H} KH={KH} "
+                  f"d={d} {tag}: {ms:.4f} ms by events a wrapper call "
+                  f"(plain {plain:.3f} ms, SDPA over the cache "
+                  f"{'refused' if lib is None else f'{lib:.4f} ms'}), out "
+                  f"max|d| vs plain {err:.3g}; bound {bms:.5f} ms by {by} "
+                  f"({nb} B), {bms / ms:.4f} of it | {card}")
+        del q32, k32, v32
+    return rows
+
+
+@contextlib.contextmanager
+def routes_seen():
+    """Records the top-k indices of every ``apply_moe`` call (on the
+    CPU) while it is open."""
+    from repro_torch.models import moe as moe_lib
+
+    seen, real = [], moe_lib._route
+
+    def spy(*args):
+        out = real(*args)
+        seen.append(out[2].cpu())
+        return out
+
+    moe_lib._route = spy
+    try:
+        yield seen
+    finally:
+        moe_lib._route = real
+
+
+def _launch_counts():
+    return {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
+            "flash_decode": fd_ops.LAUNCHES["flash_decode"],
+            "ssd_scan": ssd_ops.LAUNCHES["ssd_scan"]}
+
+
+def _reset_lm_launches():
+    fa_ops.reset_launches()
+    fd_ops.reset_launches()
+    ssd_ops.reset_launches()
+
+
+def moe_port_vs_cpu(card):
+    """(b) reduced granite-moe, qwen3-moe and jamba in float32 on
+    attn_impl "flash" (jamba's Mamba layers on ssd_scan): a prefill and
+    SMALL_MOE_STEPS decode steps, then SMALL_MOE_STEPS train steps, on the
+    card and on the CPU from the same parameters and inputs: logits within
+    1e-4 of their scale, each loss and aux within 1e-4 relative, every MoE
+    call's top-k identical."""
+    from repro_torch.configs import RunConfig, reduced
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    out, launches = {}, dict.fromkeys(_launch_counts(), 0)
+    for arch in SMALL_MOE:
+        cfg = reduced(get_config(arch), seq=SMALL_MOE_S)
+        params = init_params(cfg, torch.Generator(DEV).manual_seed(7), DEV,
+                             torch.float32)
+        cpu_params = _tree_map(lambda t: t.cpu(), params)
+        ctx = ShardingContext(attn_impl="flash")
+        prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg,
+                                                                        ctx)
+        prompts = torch.as_tensor(LMDataPipeline(
+            cfg.vocab, SMALL_MOE_S, 2, seed=4).next_batch()["tokens"]).long()
+        S = SMALL_MOE_S
+
+        def serve(p, dev, toks=None):
+            logits, caches = prefill(p, {"tokens": prompts.to(dev)})
+            got, fed = [logits.cpu()], []
+            for i in range(SMALL_MOE_STEPS):
+                tok = (logits[:, -1].argmax(-1, keepdim=True).cpu()
+                       if toks is None else toks[i])
+                fed.append(tok)
+                logits, caches = decode(p, {"token": tok.to(dev),
+                                            "cache_pos": S + i}, caches)
+                got.append(logits.cpu())
+            return got, fed
+
+        with routes_seen() as cpu_routes:
+            want, fed = serve(cpu_params, "cpu")
+        _reset_lm_launches()
+        with routes_seen() as card_routes:
+            got, _ = serve(params, DEV, fed)
+        serve_launches = _launch_counts()
+        n_attn = cfg.layer_kinds().count("attn")
+        assert serve_launches["flash_attention"] == n_attn, serve_launches
+        assert serve_launches["flash_decode"] == n_attn * SMALL_MOE_STEPS
+        assert serve_launches["ssd_scan"] == cfg.n_layers - n_attn
+        serve_err = max(_rel(a, b) for a, b in zip(got, want))
+        assert serve_err <= 1e-4, (arch, serve_err)
+
+        run = RunConfig(microbatches=2, learning_rate=1e-2, warmup_steps=2,
+                        total_steps=SMALL_MOE_STEPS, remat="none")
+        step = make_train_step(cfg, run, ctx, torch.float32)
+        data = LMDataPipeline(cfg.vocab, S, SMALL_MOE_B, seed=3,
+                              microbatches=2)
+        batches = [data.next_batch() for _ in range(SMALL_MOE_STEPS)]
+        state = adamw.init_train_state(params)
+        cpu_state = _to_cpu_state(state)
+        _reset_lm_launches()
+        with routes_seen() as card_train:
+            card_m = []
+            for b in batches:
+                state, m = step(state, b)
+                card_m.append({k: float(m[k]) for k in ("loss", "aux")})
+        train_launches = _launch_counts()
+        assert train_launches["flash_attention"] == (
+            n_attn * 2 * SMALL_MOE_STEPS), train_launches
+        with routes_seen() as cpu_train:
+            cpu_m = []
+            for b in batches:
+                cpu_state, m = step(cpu_state, b)
+                cpu_m.append({k: float(m[k]) for k in ("loss", "aux")})
+        train_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                        zip(card_m, cpu_m) for k in ("loss", "aux"))
+        assert train_err <= 1e-4, (arch, card_m, cpu_m)
+        routes = (card_routes + card_train, cpu_routes + cpu_train)
+        assert len(routes[0]) == len(routes[1]) > 0, arch
+        same = all(torch.equal(a, b) for a, b in zip(*routes))
+        assert same, (arch, "top-k differs between the card and the CPU")
+        for k in launches:
+            launches[k] += serve_launches[k] + train_launches[k]
+        out[arch] = dict(serve_max_rel=serve_err, train_max_rel=train_err,
+                         card=card_m, cpu=cpu_m, moe_calls=len(routes[0]),
+                         serve_launches=serve_launches,
+                         train_launches=train_launches)
+        print(f"[moe] reduced {arch} float32 on the card vs the CPU: "
+              f"prefill + {SMALL_MOE_STEPS} decode steps, logits max rel "
+              f"{serve_err:.3g}; {SMALL_MOE_STEPS} train steps, loss "
+              f"{[round(m['loss'], 6) for m in card_m]} aux "
+              f"{[round(m['aux'], 6) for m in card_m]}, max rel "
+              f"{train_err:.3g} (<= 1e-4); top-k identical in all "
+              f"{len(routes[0])} MoE calls; launches serve {serve_launches},"
+              f" train {train_launches}")
+        del params, cpu_params, state, cpu_state
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _serve_numbers(tag, B, S, prefill_ms, step_ms, launches, card):
+    decode_ms = float(np.mean(step_ms))
+    print(f"[moe] {tag} B={B} S={S}: prefill {prefill_ms:.1f} ms "
+          f"({B * S / prefill_ms * 1e3:.4g} tokens/s); decode "
+          f"{len(step_ms)} steps {decode_ms:.3f} ms/token ("
+          f"{B * 1e3 / decode_ms:.1f} tokens/s, steps {min(step_ms):.3f}-"
+          f"{max(step_ms):.3f} ms); launches {launches} | {card}")
+    return dict(B=B, S=S, prefill_ms=prefill_ms,
+                prefill_tokens_per_s=B * S / prefill_ms * 1e3,
+                decode_ms_per_token=decode_ms,
+                decode_tokens_per_s=B * 1e3 / decode_ms, step_ms=step_ms,
+                launches=launches)
+
+
+def _serve_main_path(cfg, params, batch, S, steps):
+    """The main path with the counters reset just before and read just
+    after: one prefill, ``steps`` greedy decode steps (host clock around
+    synchronised steps). Returns (logits, prefill ms, step ms, launches,
+    the caches after the prefill's first decode input)."""
+    ctx = ShardingContext(attn_impl="flash")
+    prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
+    _reset_lm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step_ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = decode(params, {"token": tok, "cache_pos": S + i},
+                             caches)
+        tok = out[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["flash_decode"] == cfg.n_layers * steps, launches
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(out).all())
+    return logits, prefill_ms, step_ms, launches, (prefill, decode, tok,
+                                                   caches)
+
+
+def _profiles(tag, card, **calls):
+    """{what: host ms, device-busy share, kernel ms and events} of one
+    profiled call of each of ``calls``."""
+    prof = {}
+    for what, fn in calls.items():
+        p = busy_profile(fn)
+        print_profile(f"{tag} {what} profile", *p, card, tag="moe")
+        prof[what] = dict(host_ms=p[0], device_busy=p[1], kernels_ms=p[2],
+                          events=p[3])
+    return prof
+
+
+def _flips(a, b):
+    """(tokens x layers whose top-k set differs, tokens x layers) between
+    two runs' lists of top-k indices."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff, sum(x.shape[0] for x in a)
+
+
+def moe_serve(card):
+    """(c) granite-moe-1b-a400m served at full size, then its flash route
+    held to the bf16 and float32 ``full`` routes on MOE_CHECK_B prompts."""
+    cfg = get_config(MOE_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = torch.as_tensor(LMDataPipeline(cfg.vocab, MOE_S, MOE_B, seed=0)
+                              .next_batch()["tokens"], device=DEV).long()
+    make_prefill_step(cfg, ShardingContext(attn_impl="flash"))(
+        params, {"tokens": prompts[:, :128]})  # load, warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, prefill_ms, step_ms, launches, (prefill, decode, tok, caches) = \
+        _serve_main_path(cfg, params, {"tokens": prompts}, MOE_S, MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = _serve_numbers(f"{MOE_ARCH} ({n_params / 1e9:.3f} B params)",
+                         MOE_B, MOE_S, prefill_ms, step_ms, launches, card)
+    assert caches["layer0"].k.shape[2] == MOE_S  # no window: S slots
+    print(f"[moe] peak memory of the served batch {peak:.2f} GiB | {card}")
+    row.update(params=n_params, peak_gib=peak)
+    row["profile"] = _profiles(
+        MOE_ARCH, card, prefill=lambda: prefill(params, {"tokens": prompts}),
+        decode_step=lambda: decode(params, {
+            "token": tok, "cache_pos": MOE_S + MOE_STEPS}, caches))
+    del caches
+    torch.cuda.empty_cache()
+
+    # -- the flash route against the full routes on MOE_CHECK_B prompts --
+    two = {"tokens": prompts[:MOE_CHECK_B]}
+    full = make_prefill_step(cfg, ShardingContext(attn_impl="full"))
+    with routes_seen() as r_flash:
+        l_flash, _ = prefill(params, two)
+    with routes_seen() as r_full:
+        l_full, _ = full(params, two)
+    p32 = _tree_map(lambda t: t.float(), params)
+    with routes_seen() as r_32:
+        l_32, _ = full(p32, two)
+    del p32
+    torch.cuda.empty_cache()
+    e_flash, e_full = _rel(l_flash, l_32), _rel(l_full, l_32)
+    assert e_flash <= max(2 ** -8, ROUTE_SLACK * e_full), (e_flash, e_full)
+    same_b = torch.equal(l_flash, logits[:MOE_CHECK_B])
+    flips_full, n_dec = _flips(r_flash, r_full)
+    flips_32, _ = _flips(r_flash, r_32)
+    flips_ref, _ = _flips(r_full, r_32)
+    print(f"[moe] last-position logits on {MOE_CHECK_B} prompts, max|d| / "
+          f"max|float32 full|: flash route {e_flash:.4g}, bf16 full route "
+          f"{e_full:.4g} (held: flash <= max(2^-8, {ROUTE_SLACK} x full)); "
+          f"the {MOE_CHECK_B}-prompt flash logits equal the batch's "
+          f"{same_b}; routing choices (token x layer top-{cfg.moe.top_k} "
+          f"sets, of "
+          f"{n_dec}) that differ: flash vs bf16 full {flips_full}, flash vs "
+          f"float32 full {flips_32}, bf16 full vs float32 full {flips_ref} "
+          "(a flip at a near tie of the router's probabilities, where the "
+          "routes' rounding decides, is not a fault)")
+    row.update(logits_err_flash=e_flash, logits_err_full=e_full,
+               route_flips=dict(flash_vs_full=flips_full,
+                                flash_vs_f32=flips_32,
+                                full_vs_f32=flips_ref, decisions=n_dec))
+    del params, logits, l_flash, l_full, l_32
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_train(card):
+    """(c) granite-moe-1b-a400m trained at full size: bf16 compute over
+    float32 master weights, S = MOE_TRAIN_S, a global batch of 2 in 2
+    microbatches, remat "none", MOE_TRAIN_STEPS steps."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import adamw
+
+    cfg = get_config(MOE_ARCH)
+    run = RunConfig(microbatches=MOE_TRAIN_MB, remat="none")
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(1), DEV)
+    state = adamw.init_train_state(params)
+    del params
+    torch.cuda.empty_cache()
+    data = LMDataPipeline(cfg.vocab, MOE_TRAIN_S, MOE_TRAIN_BATCH, seed=2,
+                          microbatches=MOE_TRAIN_MB)
+    step = make_train_step(cfg, run, ShardingContext(attn_impl="flash"))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_launches()
+    ms, metrics = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(m[k]) for k in ("loss", "aux",
+                                                 "grad_norm")})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = cfg.n_layers * MOE_TRAIN_MB * MOE_TRAIN_STEPS
+    assert launches["flash_attention"] == want, (launches, want)
+    assert all(np.isfinite(list(m.values())).all() for m in metrics), metrics
+    steady = float(np.mean(ms[1:]))
+    tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_S / (steady / 1e3)
+    print(f"[moe] {MOE_ARCH} trained bf16 over float32 masters, S="
+          f"{MOE_TRAIN_S}, batch {MOE_TRAIN_BATCH} in {MOE_TRAIN_MB} "
+          f"microbatches, remat none, capacity \"factor\" C="
+          f"{moe_lib._capacity(cfg.moe, MOE_TRAIN_S, 'factor')}: "
+          f"loss {[round(m['loss'], 4) for m in metrics]}, aux "
+          f"{[round(m['aux'], 4) for m in metrics]}, grad norm "
+          f"{[round(m['grad_norm'], 4) for m in metrics]}; ms a step "
+          f"{[round(x, 1) for x in ms]} (steady {steady:.1f}), {tok_s:.1f} "
+          f"tokens/s, peak memory {peak:.2f} GiB, launches {launches} "
+          f"| {card}")
+    del state, m
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, ms=ms, steady_ms=steady,
+                tokens_per_s=tok_s, peak_gib=peak, launches=launches)
+
+
+def vlm_serve(card):
+    """(d) internvl2-2b served at full size: VLM_B prompts of 256 patch
+    embeddings (random bf16) before VLM_TEXT text tokens, then VLM_STEPS
+    greedy decode steps."""
+    cfg = get_config(VLM_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    n_front = cfg.frontend_positions
+    gen = torch.Generator(DEV).manual_seed(5)
+    embeds = torch.randn((VLM_B, n_front, cfg.d_model), generator=gen,
+                         device=DEV).bfloat16()
+    text = torch.as_tensor(LMDataPipeline(cfg.vocab, VLM_TEXT, VLM_B, seed=1)
+                           .next_batch()["tokens"], device=DEV).long()
+    batch = {"embeds": embeds, "tokens": text}
+    S = n_front + VLM_TEXT
+    make_prefill_step(cfg, ShardingContext(attn_impl="flash"))(
+        params, {"embeds": embeds[:, :64], "tokens": text[:, :64]})
+    torch.cuda.synchronize()
+    logits, prefill_ms, step_ms, launches, (prefill, decode, tok, caches) = \
+        _serve_main_path(cfg, params, batch, S, VLM_STEPS)
+    row = _serve_numbers(f"{VLM_ARCH} ({n_front} patch embeddings + "
+                         f"{VLM_TEXT} text tokens)", VLM_B, S, prefill_ms,
+                         step_ms, launches, card)
+    assert logits.shape == (VLM_B, 1, cfg.vocab)
+    row["profile"] = _profiles(
+        VLM_ARCH, card, prefill=lambda: prefill(params, batch),
+        decode_step=lambda: decode(params, {
+            "token": tok, "cache_pos": S + VLM_STEPS}, caches))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return row
+
+
+def audio_encode(card):
+    """(e) hubert-xlarge through ``make_encode_step``: AUDIO_B clips of
+    AUDIO_S frame embeddings on flash_attention (non-causal; S is not a
+    multiple of the kernel's tiles, so the key-length mask decides);
+    every position's logits on one clip held to the bf16 and float32
+    ``full`` routes as phase 7's rule."""
+    from repro_torch.launch.steps import make_encode_step
+
+    cfg = get_config(AUDIO_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    gen = torch.Generator(DEV).manual_seed(6)
+    embeds = torch.randn((AUDIO_B, AUDIO_S, cfg.d_model), generator=gen,
+                         device=DEV).bfloat16()
+    encode = make_encode_step(cfg, ShardingContext(attn_impl="flash"))
+    encode(params, {"embeds": embeds[:, :100]})  # load, warm up
+    _reset_lm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = encode(params, {"embeds": embeds})
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert logits.shape == (AUDIO_B, AUDIO_S, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    frames_s = AUDIO_B * AUDIO_S / encode_ms * 1e3
+    print(f"[moe] {AUDIO_ARCH} encode B={AUDIO_B} S={AUDIO_S}: "
+          f"{encode_ms:.1f} ms ({frames_s:.4g} frames/s, "
+          f"{AUDIO_B * AUDIO_S / 50 / (encode_ms / 1e3):.4g} s of audio a "
+          f"second); launches {launches} | {card}")
+    one = {"embeds": embeds[:1]}
+    full = make_encode_step(cfg, ShardingContext(attn_impl="full"))
+    l_full = full(params, one)
+    p32 = _tree_map(lambda t: t.float(), params)
+    l_32 = full(p32, {"embeds": embeds[:1].float()})
+    del p32
+    e_flash, e_full = _rel(logits[:1], l_32), _rel(l_full, l_32)
+    assert e_flash <= max(2 ** -8, ROUTE_SLACK * e_full), (e_flash, e_full)
+    print(f"[moe] {AUDIO_ARCH} logits of every position on one clip, max|d|"
+          f" / max|float32 full|: flash route {e_flash:.4g}, bf16 full "
+          f"route {e_full:.4g} (held: flash <= max(2^-8, {ROUTE_SLACK} x "
+          "full))")
+    prof = _profiles(AUDIO_ARCH, card,
+                     encode=lambda: encode(params, {"embeds": embeds}))
+    del params, logits, l_full, l_32
+    torch.cuda.empty_cache()
+    return dict(B=AUDIO_B, S=AUDIO_S, encode_ms=encode_ms,
+                frames_per_s=frames_s, launches=launches,
+                logits_err_flash=e_flash, logits_err_full=e_full,
+                profile=prof)
+
+
+def phase_moe(card):
+    """Phase 11: MoE layers and the modality frontends, (a) to (e)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = moe_attention_shapes(card)
+    dec = moe_decode_shapes(card)
+    small, small_launches = moe_port_vs_cpu(card)
+    serve = moe_serve(card)
+    train = moe_train(card)
+    vlm = vlm_serve(card)
+    audio = audio_encode(card)
+    launches = {k: small_launches[k] + sum(r["launches"][k] for r in (
+        serve, train, vlm, audio)) for k in small_launches}
+    return dict(attention_shapes=attn, decode_shapes=dec, small=small,
+                serve=serve, train=train, vlm=vlm, audio=audio,
+                launches=launches)
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3453,6 +4044,8 @@ def main() -> int:
     lap("9")
     train = phase_train(card)
     lap("10")
+    moe = phase_moe(card)
+    lap("11")
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
@@ -3462,6 +4055,14 @@ def main() -> int:
         train_sdpa_bwd_ms={k: v["sdpa_bwd_ms"]
                            for k, v in train["grads"].items()
                            if isinstance(v, dict)})
+    # phase 11's own launches and its shapes (the MoE and frontend archs)
+    lm_kern["flash_attention"].update(
+        moe_launches=moe["launches"]["flash_attention"],
+        moe_shapes=moe["attention_shapes"])
+    lm_kern["flash_decode"].update(
+        moe_launches=moe["launches"]["flash_decode"],
+        moe_shapes=moe["decode_shapes"])
+    lm_kern["ssd_scan"].update(moe_launches=moe["launches"]["ssd_scan"])
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     # the sensor fleet's own launches (phase 3b), apart from the main
@@ -3599,7 +4200,7 @@ def main() -> int:
                  per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
-                 train=train, kernels=kernels,
+                 train=train, moe=moe, kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

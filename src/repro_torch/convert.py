@@ -98,7 +98,10 @@ def lm_params_from_numpy(tree, cfg, device="cuda"):
     the reference's tree and layouts (``groups`` stacked on a leading
     layer-group axis, ``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so this
     is a copy; every leaf is checked against the shapes
-    ``init_params(cfg)`` makes. Dtypes are kept (bfloat16 included)."""
+    ``init_params(cfg)`` makes, the MoE layers' (``moe``: router, w_in,
+    w_gate, w_out) and the frontend stub's (``frontend``: proj, norm)
+    included. Dtypes are kept (bfloat16 included; a float32 router stays
+    float32 in a bfloat16 tree)."""
     from repro_torch.models.model import init_params
 
     device = resolve_device(device)

@@ -1,7 +1,7 @@
 """The steps the launchers and an LM server drive: the train step
 (microbatched gradient accumulation, clipping, optional int8
-error-feedback compression, AdamW) and the serve steps (prefill, decode).
-The encode step waits for its slice."""
+error-feedback compression, AdamW), the serve steps (prefill, decode)
+and the encode step of the encoder-only archs."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.compression import ef_compress
+from repro_torch.models import blocks
+from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
 from repro_torch.sharding.rules import ShardingContext
@@ -21,8 +23,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``batch`` leaves (tensors or numpy arrays) are shaped (microbatches,
-    mb_batch, S). Each microbatch takes the gradient of the loss through
-    the ``compute_dtype`` view of the master weights; the gradients add
+    mb_batch, ...): tokens and labels (taken as int64) and, for the
+    frontend archs, embeds (kept in their dtype). Each microbatch takes
+    the gradient of the loss through the ``compute_dtype`` view of the
+    master weights; the gradients add
     up in float32, so activation (and logits) memory is bounded by one
     microbatch. Then the reference's order: divide by the microbatch
     count, clip by the global norm, ``ef_compress`` under
@@ -32,8 +36,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
 
     def train_step(state: adamw.TrainState, batch: Dict[str, Any]):
         dev = adamw.tree_leaves(state.master)[0].device
-        batch = {k: torch.as_tensor(v, device=dev).long()
-                 for k, v in batch.items()}
+        batch = {k: _batch_leaf(k, v, dev) for k, v in batch.items()}
         params_c = adamw.tree_map(lambda p: p.detach().requires_grad_(),
                                   adamw.compute_params(state, compute_dtype))
         leaves = adamw.tree_leaves(params_c)
@@ -47,9 +50,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
             mb = {k: v[i] for k, v in batch.items()}
             loss, metrics = model_lib.loss_fn(params_c, cfg, mb, ctx,
                                               run.remat)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the batch never reaches (an audio arch's token table)
+            # has no gradient: its sum stays 0, as jax.grad gives zeros
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             for acc, g in zip(adamw.tree_leaves(gsum), grads):
-                acc.add_(g.to(torch.float32))
+                if g is not None:
+                    acc.add_(g.to(torch.float32))
             del grads
             lsum = lsum + loss.detach().to(torch.float32)
             ce.append(metrics["ce"].detach())
@@ -77,6 +83,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     return train_step
 
 
+def _batch_leaf(key: str, v, dev) -> torch.Tensor:
+    t = torch.as_tensor(v, device=dev)
+    return t if key == "embeds" else t.long()
+
+
 def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardingContext] = None):
     """prefill_step(params, batch) -> (logits (B, 1, vocab), caches)."""
 
@@ -96,3 +107,20 @@ def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardingContext] = None):
         return model_lib.forward(params, cfg, batch, "decode", ctx, caches)
 
     return decode_step
+
+
+def make_encode_step(cfg: ModelConfig, ctx: Optional[ShardingContext] = None):
+    """Encoder-only archs (hubert): encode_step(params, batch) -> logits
+    (B, S, vocab) of every position, no cache. The stack runs in train
+    mode without recompute, under ``no_grad``."""
+    ctx = ctx or ShardingContext()
+
+    @torch.no_grad()
+    def encode_step(params, batch):
+        x, positions = model_lib._embed_inputs(params, cfg, batch, "prefill")
+        x, _, _ = blocks.stack_apply(params["groups"], x, cfg, "train", ctx,
+                                     None, positions, None, remat="none")
+        x = L.apply_norm(params["final_norm"], x, cfg.norm)
+        return model_lib._head(params, cfg, x)
+
+    return encode_step

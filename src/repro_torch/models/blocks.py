@@ -6,8 +6,10 @@ of ``groups`` (and of the stacked caches) carries a leading axis over
 the n_layers / period groups, so a reference tree carries over as a
 copy. The stack is a plain Python loop over the groups (PyTorch runs
 eagerly; there is no scan to trace). Attention and SSM (Mamba-2)
-mixers with MLP layers are served and trained; MoE layers and the
-frontends raise.
+mixers with MLP or MoE layers are served and trained; an MoE layer runs
+at capacity ``"factor"`` in train mode and ``"full"`` (no drops) in
+prefill and decode, and its load-balance aux loss adds up over the
+stack.
 
 Training recomputes as the reference's ``remat`` says, a layer group at
 a time: ``"none"`` keeps every activation, ``"full"`` wraps each group
@@ -27,13 +29,10 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMCache
-
-UNSUPPORTED = {
-    "moe": "MoE layers are a later slice (ROADMAP.md §1)",
-}
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -62,18 +61,6 @@ def group_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return plan[:p]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not serve."""
-    for mixer, ffn in group_plan(cfg):
-        for kind in (mixer, ffn):
-            if kind in UNSUPPORTED:
-                raise NotImplementedError(f"{cfg.name}: {UNSUPPORTED[kind]}")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub is a later slice "
-            "(ROADMAP.md §1)")
-
-
 def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
                 dtype) -> Dict:
     p: Dict[str, Any] = {
@@ -83,10 +70,14 @@ def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
                                        device, dtype)
     else:
         p["ssm"] = ssm_lib.ssm_init(gen, cfg.ssm, cfg.d_model, device, dtype)
-    if ffn == "mlp":
+    if ffn != "none":
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, device, dtype)
+    if ffn == "mlp":
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device,
                               dtype)
+    elif ffn == "moe":
+        p["moe"] = moe_lib.moe_init(gen, cfg.moe, cfg.d_model, cfg.act,
+                                    device, dtype)
     return p
 
 
@@ -119,7 +110,6 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 
 def stack_init(gen, cfg: ModelConfig, device, dtype) -> Dict:
     """{layer<j>: params} with a leading (n_groups,) axis on every leaf."""
-    check_supported(cfg)
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
     groups = [{f"layer{j}": _layer_init(gen, cfg, mixer, ffn, device, dtype)
@@ -151,7 +141,6 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device,
     """Stacked (n_groups, ...) zero caches: (B, W, K, hd) KV caches with W
     the cache length cut to the sliding window; SSM caches of the float32
     state (B, H, P, N) and the conv tails (B, w-1, ...)."""
-    check_supported(cfg)
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
     return {f"layer{j}": _empty_layer_cache(cfg, mixer, n_groups, B,
@@ -169,10 +158,17 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
     else:
         out, new_cache = ssm_lib.apply_ssm(p["ssm"], h, cfg.ssm, mode, cache)
     x = x + out
-    if ffn == "mlp":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
         h = L.apply_norm(p["norm2"], x, cfg.norm)
-        x = x + L.apply_mlp(p["mlp"], h, cfg.act)
-    return x, new_cache
+        if ffn == "mlp":
+            out = L.apply_mlp(p["mlp"], h, cfg.act)
+        else:
+            cap_mode = "factor" if mode == "train" else "full"
+            out, aux = moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.act, ctx,
+                                         cap_mode)
+        x = x + out
+    return x, new_cache, aux
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -193,35 +189,40 @@ REMAT = {
 def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
                 caches: Optional[Dict], positions, cache_pos,
                 remat: str = "selective"):
-    """The layer stack. Returns (x, caches | None): prefill stacks the
-    layers' new caches; decode writes into ``caches`` in place and
+    """The layer stack. Returns (x, caches | None, aux): prefill stacks
+    the layers' new caches; decode writes into ``caches`` in place and
     returns them; train returns None and recomputes each layer group in
-    the backward as ``remat`` (none | full | selective) says."""
-    check_supported(cfg)
+    the backward as ``remat`` (none | full | selective) says. aux is the
+    MoE layers' load-balance loss summed over the stack (a float32
+    scalar, 0 without MoE layers)."""
     plan = group_plan(cfg)
     n_groups = cfg.n_layers // len(plan)
     recompute = REMAT[remat] if mode == "train" else None
     cache_groups = (_unbind(caches, n_groups) if mode == "decode"
                     else [None] * n_groups)
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pg, cg in zip(_unbind(groups, n_groups), cache_groups):
 
         def group(x, pg=pg, cg=cg):
             out = {}
+            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
             for j, (mixer, ffn) in enumerate(plan):
                 name = f"layer{j}"
-                x, out[name] = _layer_apply(
+                x, out[name], a = _layer_apply(
                     pg[name], x, cfg, mixer, ffn, mode, ctx,
                     cg[name] if cg is not None else None, positions,
                     cache_pos)
-            return x, out
+                aux_g = aux_g + a
+            return x, out, aux_g
 
         if recompute is None:
-            x, out = group(x)
+            x, out, aux_g = group(x)
         else:
-            x, out = ckpt.checkpoint(group, x, use_reentrant=False,
-                                     **recompute)
+            x, out, aux_g = ckpt.checkpoint(group, x, use_reentrant=False,
+                                            **recompute)
+        aux = aux + aux_g
         new.append(out)
     if mode == "prefill":
-        return x, _stack(new)
-    return x, (caches if mode == "decode" else None)
+        return x, _stack(new), aux
+    return x, (caches if mode == "decode" else None), aux

@@ -2,7 +2,8 @@
 prefill and decode entry points and the CE loss.
 
 Batch dict convention (the reference's):
-  tokens    (B, S) int64/int32        — train, prefill
+  tokens    (B, S_text) int64/int32   — train, prefill; absent for audio
+  embeds    (B, T_front, d)           — the vision / audio frontend stubs
   labels    (B, S) int64/int32        — train
   token     (B, 1) int64/int32        — decode
   cache_pos int                       — decode: the new token's position
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import blocks, frontends
 from repro_torch.models import layers as L
 from repro_torch.sharding.rules import ShardingContext
 
@@ -49,14 +50,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["head"] = L.randn(generator, (cfg.d_model, cfg.vocab),
                             1.0 / math.sqrt(cfg.d_model), device, dtype)
+    if cfg.frontend:
+        p["frontend"] = frontends.frontend_init(generator, cfg, device,
+                                                dtype)
     return p
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict, mode: str,
                   pos_offset: int = 0):
-    """Returns (x (B, S, d), positions (S,))."""
-    tokens = batch["token" if mode == "decode" else "tokens"]
-    x = L.apply_embed(params["embed"], tokens)
+    """Returns (x (B, S, d), positions (S,)): the frontend's projected
+    ``embeds`` then the embedded tokens, concatenated on the sequence
+    axis (either may be absent)."""
+    parts = []
+    if "embeds" in batch:
+        parts.append(frontends.apply_frontend(params["frontend"],
+                                              batch["embeds"], cfg))
+    key = "token" if mode == "decode" else "tokens"
+    if key in batch:
+        parts.append(L.apply_embed(params["embed"], batch[key]))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device) + pos_offset
     if "positions" in params["embed"]:
@@ -77,35 +89,44 @@ def forward(params, cfg: ModelConfig, batch: Dict, mode: str,
     every position, no caches; the layer groups recompute as ``remat``
     says), "prefill" (logits (B, 1, vocab) of the last position, caches
     built) or "decode" (S == 1; ``caches`` written in place and
-    returned)."""
+    returned). The MoE aux loss, the reference's third value, is left
+    out here; ``loss_fn`` reads it."""
+    logits, new_caches, _ = _forward(params, cfg, batch, mode, ctx, caches,
+                                     remat)
+    return logits, new_caches
+
+
+def _forward(params, cfg: ModelConfig, batch: Dict, mode: str,
+             ctx: Optional[ShardingContext], caches, remat: str):
+    """``forward`` with the reference's three values: (logits, caches,
+    aux)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     ctx = ctx or ShardingContext()
     cache_pos = batch.get("cache_pos")
     pos_offset = int(cache_pos) if mode == "decode" else 0
     x, positions = _embed_inputs(params, cfg, batch, mode, pos_offset)
-    x, new_caches = blocks.stack_apply(params["groups"], x, cfg, mode, ctx,
-                                       caches, positions, cache_pos,
-                                       remat=remat)
+    x, new_caches, aux = blocks.stack_apply(params["groups"], x, cfg, mode,
+                                            ctx, caches, positions,
+                                            cache_pos, remat=remat)
     if mode != "train":
         x = x[:, -1:]  # only the last position feeds sampling
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return _head(params, cfg, x), new_caches
+    return _head(params, cfg, x), new_caches, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict,
             ctx: Optional[ShardingContext] = None, remat: str = "selective",
             aux_weight: float = 1e-2, z_weight: float = 1e-4):
     """Mean CE over all positions + the MoE aux loss + the z-loss, in
-    float32 (the reference's weights). MoE layers are not served, so aux
-    is 0. Returns (total, {"ce", "aux", "z"})."""
-    logits, _ = forward(params, cfg, batch, "train", ctx, remat=remat)
+    float32 (the reference's weights). Returns (total, {"ce", "aux",
+    "z"}); aux is 0 without MoE layers."""
+    logits, _, aux = _forward(params, cfg, batch, "train", ctx, None, remat)
     logits = logits.float()
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)                       # (B, S)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     ce = torch.mean(lse - gold)
     zl = torch.mean(lse * lse)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     total = ce + aux_weight * aux + z_weight * zl
     return total, {"ce": ce, "aux": aux, "z": zl}

@@ -402,9 +402,10 @@ def test_async_save_copies_tensors_before_returning(tmp_path):
 
 # -- a training state crosses packages ---------------------------------------
 
-def _train_states(compression):
-    """The reference's TrainState of reduced danube (one AdamW step taken,
-    so m, v and step are not zero) and the port's copy of it."""
+def _train_states(compression, arch="h2o-danube-1.8b"):
+    """The reference's TrainState of a reduced arch (danube by default;
+    one AdamW step taken, so m, v and step are not zero) and the port's
+    copy of it."""
     import jax
     import jax.numpy as jnp
 
@@ -415,8 +416,8 @@ def _train_states(compression):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import train_state_from_numpy
 
-    jcfg = j_reduced(j_get_config("h2o-danube-1.8b"), seq=16)
-    cfg = reduced(get_config("h2o-danube-1.8b"), seq=16)
+    jcfg = j_reduced(j_get_config(arch), seq=16)
+    cfg = reduced(get_config(arch), seq=16)
     js = j_adamw.init_train_state(j_model.init_params(jcfg,
                                                       jax.random.key(4)),
                                   compression)
@@ -470,3 +471,26 @@ def test_port_train_state_restores_in_the_reference_bitwise(tmp_path,
     for (name, a), b in zip(C._flatten(state), jax.tree.leaves(got)):
         np.testing.assert_array_equal(np.asarray(b), a.numpy(), err_msg=name)
         assert np.asarray(b).dtype == a.numpy().dtype, name
+
+
+def test_moe_train_state_crosses_packages_bitwise(tmp_path):
+    """A reduced granite-moe TrainState (the router, w_in, w_gate, w_out of
+    every layer among its leaves) saved by either package restores in the
+    other bit for bit."""
+    import jax
+
+    js, state, cfg = _train_states(False, "granite-moe-1b-a400m")
+    names = [n for n, _ in C._flatten(state)]
+    assert {n.split("/")[-1] for n in names if "['moe']" in n} == {
+        "['router']", "['w_gate']", "['w_in']", "['w_out']"}
+    JC.save(str(tmp_path / "ref"), 1, js)
+    got, _ = C.restore(str(tmp_path / "ref"), _train_like(cfg, False))
+    for (name, a), b in zip(C._flatten(got), jax.tree.leaves(js)):
+        assert a.numpy().dtype == np.asarray(b).dtype, name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    C.CheckpointManager(str(tmp_path / "port")).save(2, state, blocking=True)
+    back, _ = JC.restore(str(tmp_path / "port"),
+                         jax.tree.map(np.zeros_like, js))
+    for (name, a), b in zip(C._flatten(state), jax.tree.leaves(back)):
+        assert np.asarray(b).dtype == a.numpy().dtype, name
+        np.testing.assert_array_equal(np.asarray(b), a.numpy(), err_msg=name)

@@ -32,7 +32,11 @@ both the plain version and the one that rounds as the tensor cores do,
 the float32 state within 1e-4 of its scale; chunks 16-256, d_state 4-128,
 head_dim 16-128, state0, large decays, views off 16 bytes), each type
 running its own kernels, and a reduced mamba2-130m
-served on the card through it against the CPU. The streaming front end
+served on the card through it against the CPU. flash_attention and
+flash_decode at the MoE and frontend archs' head dims and GQA groups
+(d 64 and 128 over G = 2, hubert's non-causal d 80 at an unaligned S),
+and reduced granite-moe and jamba prefilled on the card against the CPU
+(identical top-k in every MoE layer). The streaming front end
 (``serving/stream.py``) on the card: a shard killed mid-run resumes bit
 for bit with the uninterrupted run, one frame launch a dispatch or a
 replayed WAL frame. flash_attention's gradient through the kernel's
@@ -71,6 +75,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.steps import make_decode_step  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
@@ -1133,6 +1138,84 @@ def _to(tree, dev):
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return {k: _to(v, dev) for k, v in tree.items()}
+
+
+# ------------------------------------- the MoE and frontend archs' shapes
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KH,d,causal", [
+    (256, 16, 8, 64, True),      # granite-moe-1b-a400m's layer
+    (300, 16, 8, 128, True),     # internvl2-2b's, a ragged query tile
+    (250, 16, 16, 80, False)])   # hubert-xlarge's: non-causal, S unaligned
+def test_flash_attention_at_the_moe_and_frontend_shapes(cuda, dtype, S, H,
+                                                        KH, d, causal):
+    rng = np.random.default_rng(S + d)
+    q, k, v = _qkv(rng, 2, S, S, H, KH, d, dtype, cuda)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, None)
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, causal, None)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        _within_bf16_ulp(got, want)
+        _within_bf16_ulp(got, fa_ref.flash_attention_hilo_plain(
+            q, k, v, d ** -0.5, causal, None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_at_the_moe_and_frontend_shapes(cuda, dtype, d):
+    """16 query heads over 8 kv heads (G = 2), a cache with no window."""
+    rng = np.random.default_rng(d)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(cuda, dtype)
+    q, k, v = mk(2, 16, d), mk(2, 320, 8, d), mk(2, 320, 8, d)
+    fd_ops.reset_launches()
+    got = fd_ops.flash_decode_partial(q, k, v, scale=d ** -0.5, block_k=320)
+    assert fd_ops.LAUNCHES["flash_decode"] == 1
+    want = fd_ref.flash_decode_partial_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(got[0] / got[2], want[0] / want[2],
+                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_prefill_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """float32 prefill through flash_attention (and ssd_scan in jamba's
+    Mamba layers) on the card == the CPU's plain route: logits 1e-4 +
+    1e-3|x|, caches 1e-5 + 1e-4|x|, every MoE layer's top-k identical."""
+    cfg = reduced(get_config(arch), seq=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    topi = []
+    route = moe_lib._route
+
+    def spy(*a):
+        out = route(*a)
+        topi.append(out[2].cpu())
+        return out
+
+    monkeypatch.setattr(moe_lib, "_route", spy)
+    prefill = make_prefill_step(cfg, ShardingContext(attn_impl="flash"))
+    fa_ops.reset_launches()
+    lg, cg = prefill(_to(params, cuda), {"tokens": toks.to(cuda)})
+    assert fa_ops.LAUNCHES["flash_attention"] == cfg.layer_kinds().count(
+        "attn")
+    card = topi[:]
+    topi.clear()
+    lc, cc = prefill(params, {"tokens": toks})
+    assert len(card) == len(topi) > 0
+    for a, b in zip(card, topi):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-3)
+    for name in cc:
+        for got, want in zip(cg[name], cc[name]):
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
 
 
 # ------------------------------------------------- multi-sensor fleet frames
