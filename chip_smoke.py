@@ -173,10 +173,29 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      ``make_encode_step``, B=4 clips of 1500 frame embeddings (48
      flash_attention launches an encode), encode ms and frames/s, one
      clip's logits held to the bf16 and float32 full routes as (c);
-  12. one JSON line with the kernel table (row flash_attention also
+  12. the jitted trackers, the serving CLI, the examples and the
+     whole-step shares: (a) ``make_jitted_tracker`` /
+     ``make_jitted_imm_tracker`` (the frame captured once in a
+     ``torch.cuda.CUDAGraph`` and replayed) over phase 3's scene for lkf,
+     ekf and imm, every frame's every tensor bit for bit with the eager
+     frame step on the card, one capture, one frame launch (and one
+     greedy) a frame, and the host ms a frame of the replayed and the
+     eager step, each ending in a sync; then torch.profiler's events of
+     50 replays of each tracker in one fresh process, one event of each
+     kernel of the frame a replay, as many as the launches counted; (b) ``repro_torch.launch.serve``'s
+     ``main`` on the card for lkf and ekf, its confirmed counts equal to
+     the same call on the CPU; (c) ``examples/torch_tracking_pipeline.py``,
+     ``torch_mot_demo.py`` and ``torch_serve_lm.py`` at their defaults on
+     the card; (d) every whole step of phases 7, 8, 10 and 11 against the
+     card's peaks (``roofline.analysis.MACHINES["h100"]``): its model FLOPs
+     (``models/counting.py``) and mfu (FLOPs / (host s x bf16 peak)), and
+     for the decode steps the analytic bytes (``roofline/memmodel.py``),
+     their bound at the HBM rate and the share of it reached;
+  13. one JSON line with the kernel table (row flash_attention also
      carries the training launches and the backward times; rows
      flash_attention, flash_decode and ssd_scan phase 11's launches, and
-     the first two phase 11's shapes), then the status line.
+     the first two phase 11's shapes; rows katana_frame, katana_imm_frame
+     and greedy_assign phase 12's), then the status line.
 """
 from __future__ import annotations
 
@@ -208,6 +227,7 @@ from repro_torch.core import ref as oracle  # noqa: E402
 from repro_torch.core import rewrites  # noqa: E402
 from repro_torch.data import trajectories as traj  # noqa: E402
 from repro_torch.data.lm import LMDataPipeline  # noqa: E402
+from repro_torch import profiling  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -221,6 +241,7 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.roofline.analysis import MACHINES  # noqa: E402
 from repro_torch.serving import stream as stream_mod  # noqa: E402
 from repro_torch.serving.engine import ShardedBankEngine  # noqa: E402
 from repro_torch.serving.engine import TrackingEngine  # noqa: E402
@@ -231,9 +252,11 @@ from repro_torch.serving.stream import StreamFrontEnd  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 
 C_SERVE, M_SERVE, T_SERVE = 1024, 256, 300
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the bf16
+# dense tensor-core rate from the port's roofline preset, float32
 # operations/s outside the tensor cores
-HBM_BPS = 3.35e12
+HBM_BPS = MACHINES["h100"].mem_bw
+BF16_OPS = MACHINES["h100"].peak_flops
 F32_OPS = 67e12
 # kernel vs its plain version (the same op stream: measured bitwise)
 TOL = {"lkf": 1e-4, "ekf": 1e-4, "imm": 5e-4}
@@ -328,24 +351,78 @@ def _short(count, launches, iters):
 def device_ms(fn, iters: int = 20, launches=None):
     """(device milliseconds per call by kernel name, from the kernel
     events of a torch.profiler session, and the events missing from them
-    (``_short``): later sessions of a long process lose some or all of
-    their kernel events (PERF.md, Findings), so a time read here is
-    printed with its count)."""
+    (``_short``), printed with each time read here). Called in a fresh
+    process (``fresh_profile``): later sessions of a long process lose
+    some or all of their kernel events (PERF.md §7)."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=list(profiling.ACTIVITIES)) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out, count = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = (out.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3 / iters)
-            count[e.name] = count.get(e.name, 0) + 1
-    return out, _short(count, launches, iters)
+    ms, count = profiling.kernel_events(prof)
+    return ({k: v / iters for k, v in ms.items()},
+            _short(count, launches, iters))
+
+
+def fresh_profile(job, tensors, **spec):
+    """One profiled job (``profile_job``) in a fresh process
+    (``repro_torch.profiling.fresh``): later torch.profiler sessions of
+    one long process lose kernel events (PERF.md §7). Returns the child's
+    result: for "frame" and "ssd_scan" ``device_ms``'s pair, for "serve"
+    {step: ``busy_profile``'s four values}, for "jitted"
+    ``jitted_events``'s dict."""
+    return profiling.fresh("chip_smoke:profile_job", tensors, path=ROOT,
+                           job=job, **spec)
+
+
+def serve_profiles(spec, batch):
+    """The "serve" job: ``spec["arch"]`` at full size with seed 0's bf16
+    weights (as every serving phase draws them) on attn_impl "flash", one
+    warm-up call, then ``busy_profile`` of one prefill and of the decode
+    step after it (an encoder-only arch: one encode)."""
+    from repro_torch.launch.steps import make_encode_step
+
+    cfg = get_config(spec["arch"])
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    ctx = ShardingContext(attn_impl="flash")
+    if cfg.is_encoder_only:
+        encode = make_encode_step(cfg, ctx)
+        encode(params, batch)
+        return {"encode": busy_profile(lambda: encode(params, batch))}
+    prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
+    prefill(params, batch)
+    got = {}
+    out = {"prefill": busy_profile(
+        lambda: got.update(step=prefill(params, batch)))}
+    logits, caches = got["step"]
+    S = spec["S"]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    logits, caches = decode(params, {"token": tok, "cache_pos": S}, caches)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out["decode_step"] = busy_profile(lambda: decode(
+        params, {"token": tok, "cache_pos": S + 1}, caches))
+    return out
+
+
+def profile_job(tensors, job, **spec):
+    """The child's side of ``fresh_profile``: run ``job`` on ``tensors``
+    (loaded onto the card)."""
+    if job == "frame":
+        kind = spec["kind"]
+        model = (filters.make_imm() if kind == "imm"
+                 else filters.get_filter(kind))
+        fn = ops.katana_imm_frame if kind == "imm" else ops.katana_frame
+        return device_ms(lambda: fn(model, *tensors), spec["iters"],
+                         spec["launches"])
+    if job == "ssd_scan":
+        args, kw = tensors
+        return device_ms(lambda: ssd_ops.ssd_scan(*args, **kw),
+                         spec["iters"], spec["launches"])
+    if job == "jitted":
+        return jitted_events(tensors, spec["replays"])
+    return serve_profiles(spec, tensors)
 
 
 def event_pairs_ms(call, n: int = 50) -> float:
@@ -369,6 +446,9 @@ def event_pairs_ms(call, n: int = 50) -> float:
 
 
 FRAME_LAUNCHES = ("predict", "cost", "greedy", "update")
+# the greedy's two kernels in a frame, by name part
+GREEDY_KERNELS = ("greedy_candidates<katana::FrameTile>",
+                  "greedy_candidate_waves")
 
 
 def launch_events_ms(call, n: int = 50):
@@ -779,12 +859,11 @@ def phase_main_path(kind):
     einsum_ms = cuda_ms(lambda: step(model, cfg_e, bank, zt, vt), 3,
                         warmup=1)
     bms, by = bound(nb, nops)
-    greedy_parts = ("greedy_candidates<katana::FrameTile>",
-                    "greedy_candidate_waves")
-    prof, prof_short = device_ms(kern,
-                                 launches={k: 1 for k in greedy_parts})
+    prof, prof_short = fresh_profile(
+        "frame", kargs, kind=kind, iters=20,
+        launches={k: 1 for k in GREEDY_KERNELS})
     greedy_prof = sum(v for k, v in prof.items()
-                      if any(g in k for g in greedy_parts))
+                      if any(g in k for g in GREEDY_KERNELS))
     # the same from CUDA events the kernel records around its greedy
     greedy_ev = event_pairs_ms(lambda evs: (
         ops.katana_imm_frame if is_imm else ops.katana_frame)(
@@ -1952,8 +2031,6 @@ def imm_step_full_square():
 # ---------------------------------------------------------------------------
 
 LM_ARCH, LM_B, LM_S, LM_STEPS = "h2o-danube-1.8b", 4, 8192, 32
-# published H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
-BF16_OPS = 989e12
 SMALL_ATTN = [  # (B, S, H, KH, d, causal, window): kernels vs plain, float32
     (2, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 80, True, 64),
     (1, 77, 4, 1, 128, False, None), (1, 300, 2, 2, 8, False, 40)]
@@ -2040,25 +2117,20 @@ def busy_profile(fn):
     torch.profiler: the CUDA kernels' durations summed (one stream: they
     do not overlap) against the host clock around the call."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=list(profiling.ACTIVITIES)) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by, count = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[e.name] = count.get(e.name, 0) + 1
+    by, count = profiling.kernel_events(prof)
     return wall, sum(by.values()) / wall, by, count
 
 
 def print_profile(what, wall, share, by, count, card, top=6, tag="lm"):
     total = sum(by.values())
     print(f"[{tag}] {what}: {wall:.2f} ms host, device busy {share:.4f} "
-          f"({total:.2f} ms in {len(by)} kernel names); top: " + "; ".join(
+          f"({total:.2f} ms in {len(by)} kernel names, "
+          f"{sum(count.values())} kernel events); top: " + "; ".join(
               f"{k[:48]} {v:.2f} ms" for k, v in sorted(
                   by.items(), key=lambda kv: -kv[1])[:top]) + f" | {card}")
 
@@ -2246,10 +2318,9 @@ def phase_lm(cfg, B, S, steps, card):
           "rounds p to bf16 before PV)")
 
     # -- where the time goes: one prefill, one decode step (profiled) --
-    prof_prefill = busy_profile(lambda: prefill(params, {"tokens": prompts}))
+    profs = fresh_profile("serve", {"tokens": prompts}, arch=cfg.name, S=S)
+    prof_prefill, prof_decode = profs["prefill"], profs["decode_step"]
     print_profile("prefill profile", *prof_prefill, card)
-    prof_decode = busy_profile(lambda: decode(
-        params, {"token": toks[1], "cache_pos": S + 1}, cache0))
     print_profile("decode step profile", *prof_decode, card)
 
     # -- the kernels at one layer of the serving shape, bf16 --
@@ -2544,10 +2615,9 @@ def phase_mamba(cfg, B, S, steps, card):
     torch.cuda.empty_cache()
 
     # -- where the time goes: one prefill, one decode step (profiled) --
-    prof_prefill = busy_profile(lambda: prefill(params, {"tokens": prompts}))
+    profs = fresh_profile("serve", {"tokens": prompts}, arch=cfg.name, S=S)
+    prof_prefill, prof_decode = profs["prefill"], profs["decode_step"]
     print_profile("prefill profile", *prof_prefill, card, tag="mamba")
-    prof_decode = busy_profile(lambda: decode(
-        params, {"token": tok, "cache_pos": S + steps}, caches))
     print_profile("decode step profile", *prof_decode, card, tag="mamba")
 
     # -- the kernel on layer 0's real prefill inputs, bf16 --
@@ -2573,8 +2643,8 @@ def phase_mamba(cfg, B, S, steps, card):
                                                 w), 3, warmup=1)
              for w in ssd_ops.P_BLOCKS}
     # the four launches' device times
-    s_dev, s_short = device_ms(lambda: ssd_ops.ssd_scan(*args, **kw), 3,
-                               launches={k: 1 for k in SSD_KERNELS})
+    s_dev, s_short = fresh_profile("ssd_scan", (args, kw), iters=3,
+                                   launches={k: 1 for k in SSD_KERNELS})
     s_dev = {k: v for k, v in s_dev.items()
              if any(p in k for p in SSD_KERNELS)}
     # the float32 check route (the CUDA-core kernel) on the same inputs
@@ -3727,13 +3797,13 @@ def _serve_main_path(cfg, params, batch, S, steps):
                                                    caches)
 
 
-def _profiles(tag, card, **calls):
-    """{what: host ms, device-busy share, kernel ms and events} of one
-    profiled call of each of ``calls``."""
+def _profiles(arch, card, batch, S):
+    """{step: host ms, device-busy share, kernel ms and events} of one
+    profiled prefill and decode step of ``arch`` (an encode for hubert),
+    in a fresh process (``fresh_profile``)."""
     prof = {}
-    for what, fn in calls.items():
-        p = busy_profile(fn)
-        print_profile(f"{tag} {what} profile", *p, card, tag="moe")
+    for what, p in fresh_profile("serve", batch, arch=arch, S=S).items():
+        print_profile(f"{arch} {what} profile", *p, card, tag="moe")
         prof[what] = dict(host_ms=p[0], device_busy=p[1], kernels_ms=p[2],
                           events=p[3])
     return prof
@@ -3768,10 +3838,7 @@ def moe_serve(card):
     assert caches["layer0"].k.shape[2] == MOE_S  # no window: S slots
     print(f"[moe] peak memory of the served batch {peak:.2f} GiB | {card}")
     row.update(params=n_params, peak_gib=peak)
-    row["profile"] = _profiles(
-        MOE_ARCH, card, prefill=lambda: prefill(params, {"tokens": prompts}),
-        decode_step=lambda: decode(params, {
-            "token": tok, "cache_pos": MOE_S + MOE_STEPS}, caches))
+    row["profile"] = _profiles(MOE_ARCH, card, {"tokens": prompts}, MOE_S)
     del caches
     torch.cuda.empty_cache()
 
@@ -3888,10 +3955,7 @@ def vlm_serve(card):
                          f"{VLM_TEXT} text tokens)", VLM_B, S, prefill_ms,
                          step_ms, launches, card)
     assert logits.shape == (VLM_B, 1, cfg.vocab)
-    row["profile"] = _profiles(
-        VLM_ARCH, card, prefill=lambda: prefill(params, batch),
-        decode_step=lambda: decode(params, {
-            "token": tok, "cache_pos": S + VLM_STEPS}, caches))
+    row["profile"] = _profiles(VLM_ARCH, card, batch, S)
     del params, caches, logits
     torch.cuda.empty_cache()
     return row
@@ -3940,8 +4004,7 @@ def audio_encode(card):
           f" / max|float32 full|: flash route {e_flash:.4g}, bf16 full "
           f"route {e_full:.4g} (held: flash <= max(2^-8, {ROUTE_SLACK} x "
           "full))")
-    prof = _profiles(AUDIO_ARCH, card,
-                     encode=lambda: encode(params, {"embeds": embeds}))
+    prof = _profiles(AUDIO_ARCH, card, {"embeds": embeds}, AUDIO_S)
     del params, logits, l_full, l_32
     torch.cuda.empty_cache()
     return dict(B=AUDIO_B, S=AUDIO_S, encode_ms=encode_ms,
@@ -3966,6 +4029,266 @@ def phase_moe(card):
     return dict(attention_shapes=attn, decode_shapes=dec, small=small,
                 serve=serve, train=train, vlm=vlm, audio=audio,
                 launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the jitted trackers on CUDA graphs, the serving CLI, the
+# examples, and the whole-step shares of phases 7, 8, 10 and 11 from the
+# analytic models (models/counting.py, roofline/memmodel.py).
+# ---------------------------------------------------------------------------
+
+CLI_KINDS = ("lkf", "ekf")
+JIT_PROFILED = 50  # replays of each tracker read by torch.profiler in (a)
+# the kernels of one frame by name part: the frame's predict, cost and
+# update launches and the greedy's two
+JIT_KERNELS = {"frame": ("frame_predict", "frame_cost", "frame_update"),
+               "imm": ("imm_predict", "imm_cost", "imm_update")}
+EXAMPLES = ("torch_tracking_pipeline", "torch_mot_demo", "torch_serve_lm")
+
+
+def _frame_tensors(res):
+    """Every tensor of a FrameResult: the bank's fields, assoc,
+    unassigned, confirmed, and for IMM mode_probs and x_est."""
+    return [t for t in list(res.bank) + list(res[1:]) if t is not None]
+
+
+def _jit_setup(kind):
+    """(model, tracker config, make, launch-count name) of (a)."""
+    model = filters.make_imm() if kind == "imm" else filters.get_filter(kind)
+    cfg = tracker.TrackerConfig(capacity=C_SERVE, max_meas=M_SERVE)
+    if kind == "imm":
+        return model, cfg, tracker.make_jitted_imm_tracker, "katana_imm_frame"
+    return model, cfg, tracker.make_jitted_tracker, "katana_frame"
+
+
+def jit_frames(kind):
+    """Phase 3's scene as the padded (z, valid) frames of ``kind``."""
+    model = _jit_setup(kind)[0]
+    smodel = filters.get_filter("cv9") if kind == "imm" else model
+    scene = traj.SceneConfig(T=T_SERVE, max_targets=200, birth_rate=1.0,
+                             death_rate=0.002, clutter_rate=20.0,
+                             extent=200.0, max_meas=M_SERVE)
+    z, valid, _ = traj.mot_scene(smodel, scene, seed=7)
+    return [padded(z[t][valid[t]].astype(np.float32), model.m, M_SERVE)
+            for t in range(T_SERVE)]
+
+
+def jitted_events(frames, replays):
+    """The "jitted" job: for each kind of ``frames`` ({kind: frames}) a
+    jitted tracker captures frame 0; then one torch.profiler session holds
+    ``replays`` replays of the frames after it, kind after kind (one
+    session: later sessions of a process lose events). Returns each
+    tracker's captures and replays, the launches ``ops.LAUNCHES`` counted
+    in the session and its events of each kernel of the frames
+    (``JIT_KERNELS``, ``GREEDY_KERNELS``)."""
+    steps = {}
+    for kind, fr in frames.items():
+        model, cfg, make, _ = _jit_setup(kind)
+        init, step = make(model, cfg, device="cuda")
+        steps[kind] = (step, step(init(), *fr[0]).bank)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.profiler.profile(activities=list(profiling.ACTIVITIES)) as prof:
+        for kind, (step, bank) in steps.items():
+            for zt, vt in frames[kind][1:replays + 1]:
+                bank = step(bank, zt, vt).bank
+        torch.cuda.synchronize()
+    _, count = profiling.kernel_events(prof)
+    parts = JIT_KERNELS["frame"] + JIT_KERNELS["imm"] + GREEDY_KERNELS
+    return dict(captures={k: s.captures for k, (s, _) in steps.items()},
+                replays={k: s.replays for k, (s, _) in steps.items()},
+                launches={n: ops.LAUNCHES[n] for n in (
+                    "katana_frame", "katana_imm_frame", "greedy_assign")},
+                events={p: sum(c for k, c in count.items() if p in k)
+                        for p in parts})
+
+
+def jitted_profile(frames, card):
+    """(a), last: torch.profiler's kernel events of ``JIT_PROFILED``
+    replays of each jitted tracker, in one fresh process
+    (``jitted_events``): one event of each kernel of the frame a replay,
+    as many as the launches ``ops.LAUNCHES`` counted over them."""
+    n = JIT_PROFILED
+    prof = fresh_profile("jitted", {k: f[:n + 1] for k, f in frames.items()},
+                         replays=n)
+    n_imm = sum(k == "imm" for k in frames)
+    want = {"katana_frame": n * (len(frames) - n_imm),
+            "katana_imm_frame": n * n_imm, "greedy_assign": n * len(frames)}
+    assert set(prof["captures"].values()) == {1}, prof
+    assert set(prof["replays"].values()) == {n}, prof
+    assert prof["launches"] == want, prof
+    of = {p: name for name, parts in (
+        ("katana_frame", JIT_KERNELS["frame"]),
+        ("katana_imm_frame", JIT_KERNELS["imm"]),
+        ("greedy_assign", GREEDY_KERNELS)) for p in parts}
+    for part, events in prof["events"].items():
+        assert events == want[of[part]], (part, prof)
+    print(f"[jit] {n} replays of each of {', '.join(frames)} in one fresh "
+          "process: torch.profiler's kernel events "
+          + ", ".join(f"{k} {e}" for k, e in prof["events"].items())
+          + f", as many as the launches counted {prof['launches']} | {card}")
+    return prof
+
+
+def jitted_tracker(kind, frames, card):
+    """(a) ``make_jitted_tracker`` / ``make_jitted_imm_tracker`` over phase
+    3's scene (C = 1,024, M = 256, T = 300): one capture, one frame launch
+    (and one greedy) a frame with the counts reset just before and read
+    just after; then the eager frame step over the same frames, every
+    tensor of every frame bit for bit with the replayed graph's. The host
+    ms a frame of each, every frame ending in a sync as ``submit`` does
+    (frame 0, which captures, left out of the replayed mean)."""
+    model, cfg, make, name = _jit_setup(kind)
+    is_imm = kind == "imm"
+    eager = tracker.imm_frame_step if is_imm else tracker.frame_step
+    init, step = make(model, cfg, device="cuda")
+
+    def drive(fn):
+        bank, out, ms = init(), [], []
+        torch.cuda.synchronize()
+        for zt, vt in frames:
+            t0 = time.perf_counter()
+            res = fn(bank, zt, vt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(res)
+            bank = res.bank
+        return out, ms
+
+    ops.reset_launches()
+    got, ms_g = drive(step)
+    launches = dict(ops.LAUNCHES)
+    assert step.captures == 1, (kind, step.captures)
+    assert step.replays == T_SERVE - 1, (kind, step.replays)
+    assert launches[name] == T_SERVE, (kind, launches)
+    assert launches["greedy_assign"] == T_SERVE, (kind, launches)
+    want, ms_e = drive(lambda b, zt, vt: eager(model, cfg, b, zt, vt))
+    for t, (a, b) in enumerate(zip(got, want)):
+        for x, y in zip(_frame_tensors(a), _frame_tensors(b)):
+            assert torch.equal(x, y), (kind, t)
+    confirmed = int(want[-1].confirmed.sum())
+    replay_ms, eager_ms = float(np.mean(ms_g[1:])), float(np.mean(ms_e[1:]))
+    print(f"[jit] {kind} C={C_SERVE} M={M_SERVE} T={T_SERVE}: every frame "
+          f"bit for bit with the eager frame step ({confirmed} confirmed at "
+          f"the end); captures {step.captures}, replays {step.replays}, "
+          f"{name} launches {launches[name]}, greedy "
+          f"{launches['greedy_assign']}"
+          f"; host ms a frame with a sync: replayed {replay_ms:.4f}, eager "
+          f"{eager_ms:.4f} (frame 0 with the capture {ms_g[0]:.1f}) | {card}")
+    return dict(captures=step.captures, replays=step.replays,
+                launches={name: launches[name],
+                          "greedy_assign": launches["greedy_assign"]},
+                replay_ms=replay_ms, eager_ms=eager_ms,
+                capture_frame_ms=ms_g[0], confirmed=confirmed)
+
+
+def serve_cli(card):
+    """(b) ``python -m repro_torch.launch.serve``'s ``main`` on the card
+    for lkf and ekf: its confirmed-track count every frame equal to the
+    same call with ``--device cpu``."""
+    from repro_torch.launch import serve
+
+    out = {}
+    for kind in CLI_KINDS:
+        got = serve.main(["--filter", kind])
+        want = serve.main(["--filter", kind, "--device", "cpu"])
+        if got != want:
+            diff = [(t, a, b) for t, (a, b) in enumerate(zip(got, want))
+                    if a != b]
+            print(f"[cli] {kind}: card and CPU differ at (frame, card, CPU) "
+                  f"{diff}")
+        assert got == want, kind
+        print(f"[cli] {kind}: {len(got)} frames, n_conf_hist equal to the "
+              f"CPU's (final {got[-1]}) | {card}")
+        out[kind] = got
+    return out
+
+
+def run_examples(card):
+    """(c) the three examples at their defaults on the card."""
+    import importlib.util
+
+    out = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main([])
+        out[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[examples] {name} ran at its defaults on the card in "
+              f"{out[name]:.1f} ms | {card}")
+    return out
+
+
+def step_shares(lm, mamba, train, moe, card):
+    """(d) Each whole step of phases 7, 8, 10 and 11 against the card's
+    peaks: its model FLOPs (``counting.model_flops``) and the share of
+    the bf16 peak its host time reached (mfu = FLOPs / (host s x
+    BF16_OPS)); for the decode steps also the analytic bytes a step
+    (``memmodel.analytic_bytes_dev`` on one card), their bound at HBM_BPS
+    and the share of it reached."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.counting import model_flops
+    from repro_torch.roofline.memmodel import analytic_bytes_dev
+
+    argv = MAMBA_TRAIN_ARGV
+    m_arch, m_seq, m_batch = (argv[argv.index(f) + 1]
+                              for f in ("--arch", "--seq", "--batch"))
+    steps = [  # (phase, arch, kind, B, S, host ms)
+        ("7", LM_ARCH, "prefill", lm["B"], lm["S"], lm["prefill_ms"]),
+        ("7", LM_ARCH, "decode", lm["B"], lm["S"], lm["decode_ms_per_token"]),
+        ("8", MAMBA_ARCH, "prefill", mamba["B"], mamba["S"],
+         mamba["prefill_ms"]),
+        ("8", MAMBA_ARCH, "decode", mamba["B"], mamba["S"],
+         mamba["decode_ms_per_token"]),
+        ("10", TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_S,
+         train["danube"]["steady_ms"]),
+        ("10", m_arch, "train", int(m_batch), int(m_seq),
+         train["mamba"]["ms"]),
+    ] + [("11", arch, kind, r["B"], r["S"], r[key])
+         for arch, r in ((MOE_ARCH, moe["serve"]), (VLM_ARCH, moe["vlm"]))
+         for kind, key in (("prefill", "prefill_ms"),
+                           ("decode", "decode_ms_per_token"))] + [
+        ("11", MOE_ARCH, "train", MOE_TRAIN_BATCH, MOE_TRAIN_S,
+         moe["train"]["steady_ms"]),
+        ("11", AUDIO_ARCH, "prefill", moe["audio"]["B"], moe["audio"]["S"],
+         moe["audio"]["encode_ms"])]
+    rows = []
+    for phase, arch, kind, B, S, ms in steps:
+        cfg = get_config(arch)
+        shape = ShapeConfig(f"{kind}_{S}", S, B, kind)
+        flops = model_flops(cfg, shape)
+        mfu = flops / (ms / 1e3 * BF16_OPS)
+        row = dict(phase=phase, arch=arch, kind=kind, B=B, S=S, host_ms=ms,
+                   model_flops=flops, mfu=mfu)
+        what = "encode" if cfg.is_encoder_only else kind
+        line = (f"[shares] phase {phase} {arch} {what} B={B} S={S}: model "
+                f"FLOPs {flops:.4e}, host {ms:.3f} ms, mfu {mfu:.6f}")
+        if kind == "decode":
+            nbytes = analytic_bytes_dev(cfg, shape, RunConfig(), 1, 1)
+            bound = nbytes / HBM_BPS * 1e3
+            row.update(analytic_bytes=nbytes, byte_bound_ms=bound,
+                       byte_bound_share=bound / ms)
+            line += (f"; analytic bytes {nbytes:.4e}, byte bound "
+                     f"{bound:.4f} ms, {bound / ms:.4f} of it reached")
+        print(f"{line} | {card}")
+        rows.append(row)
+    return rows
+
+
+def phase_jitted(lm, mamba, train, moe, card):
+    """Phase 12, (a) to (d)."""
+    frames = {kind: jit_frames(kind) for kind in ("lkf", "ekf", "imm")}
+    jit = {kind: jitted_tracker(kind, frames[kind], card) for kind in frames}
+    events = jitted_profile(frames, card)["events"]
+    cli = serve_cli(card)
+    examples = run_examples(card)
+    shares = step_shares(lm, mamba, train, moe, card)
+    return dict(jitted=jit, jitted_events=events, cli=cli,
+                examples_ms=examples, shares=shares)
 
 
 def _leaves(tree):
@@ -4046,6 +4369,8 @@ def main() -> int:
     lap("10")
     moe = phase_moe(card)
     lap("11")
+    jitted = phase_jitted(lm, mamba, train, moe, card)
+    lap("12")
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
@@ -4091,10 +4416,23 @@ def main() -> int:
         "greedy_assign": stream["lkf"]["launches"]
         + stream["imm"]["launches"]}
 
+    # the jitted trackers' own launches (phase 12 (a)): one frame launch
+    # (and one greedy) a captured or replayed frame
+    jit = jitted["jitted"]
+    jitted_launches = {
+        "katana_frame": sum(jit[k]["launches"]["katana_frame"]
+                            for k in ("lkf", "ekf")),
+        "katana_imm_frame": jit["imm"]["launches"]["katana_imm_frame"],
+        "greedy_assign": sum(j["launches"]["greedy_assign"]
+                             for j in jit.values())}
+
     def entry(name, ms, plain_ms, bms, by, launches, extra, library_ms=None):
-        # the stage ladder's, the sensor fleet's and the stream's own
-        # launches of the kernel (phase_stages, phase_fleet,
-        # phase_stream), apart from the main path's ``launches``
+        # the stage ladder's, the sensor fleet's, the stream's and the
+        # jitted trackers' own launches of the kernel (phase_stages,
+        # phase_fleet, phase_stream, phase_jitted), apart from the main
+        # path's ``launches``
+        if name in jitted_launches:
+            extra = dict(extra, jitted_launches=jitted_launches[name])
         if name in ladder:
             extra = dict(extra, ladder_launches=ladder[name])
         if name in fleet_launches:
@@ -4200,7 +4538,7 @@ def main() -> int:
                  per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
-                 train=train, moe=moe, kernels=kernels,
+                 train=train, moe=moe, jitted=jitted, kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

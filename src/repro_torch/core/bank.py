@@ -24,11 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.filters import FilterModel, IMMModel
+from repro_torch.core.filters import FilterModel, IMMModel, device_const
 from repro_torch.core.rewrites import (gaussian_loglik, imm_mix,
                                        imm_mode_posterior, small_det,
                                        small_inv, stage_constants,
-                                       sym_unpack, triu_pack)
+                                       sym_unpack, triu_index)
 from repro_torch.kernels.katana_bank.ops import katana_imm_sequence
 
 
@@ -66,17 +66,14 @@ def _lifecycle_init(capacity: int, device):
                 next_id=torch.zeros((), **i32))
 
 
-def _const(a, dtype, device):
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-
 def init_bank(model: FilterModel, capacity: int, dtype=torch.float32,
               device="cuda") -> BankState:
     device = resolve_device(device)
     n = model.n
     return BankState(
         x=torch.zeros((capacity, n), dtype=dtype, device=device),
-        P=_const(model.P0, dtype, device).expand(capacity, n, n).clone(),
+        P=device_const(model, "P0", model.P0, dtype, device).expand(
+            capacity, n, n).clone(),
         **_lifecycle_init(capacity, device))
 
 
@@ -86,8 +83,10 @@ def init_imm_bank(imm: IMMModel, capacity: int, dtype=torch.float32,
     n, K = imm.n, imm.K
     return IMMBankState(
         x=torch.zeros((K, capacity, n), dtype=dtype, device=device),
-        P=_const(imm.P0, dtype, device).expand(K, capacity, n, n).clone(),
-        mu=_const(imm.mu0, dtype, device).expand(capacity, K).clone(),
+        P=device_const(imm, "P0", imm.P0, dtype, device).expand(
+            K, capacity, n, n).clone(),
+        mu=device_const(imm, "mu0", imm.mu0, dtype, device).expand(
+            capacity, K).clone(),
         **_lifecycle_init(capacity, device))
 
 
@@ -97,7 +96,7 @@ def _predict_lanes(model: FilterModel, x: torch.Tensor, P: torch.Tensor,
     states: (x_pred, P_pred, z_pred, S, Sinv, PHt). Only the upper
     triangle of F·P·Fᵀ + Q is computed; the mirrors alias it."""
     n = model.n
-    iu, ju, _ = triu_pack(n)
+    iu, ju = triu_index(n, x.device)
     C = stage_constants(model, dtype, x.device)
     Qtri = C.Q[iu, ju]
     if model.is_linear:
@@ -123,7 +122,7 @@ def _kalman_update_lanes(model: FilterModel, x_pred, P_pred, zk, PHt, Sinv,
     precomputed P·Hᵀ and S^{-1}; the posterior covariance is emitted
     upper-triangle-only with aliased mirrors."""
     n = model.n
-    iu, ju, _ = triu_pack(n)
+    iu, ju = triu_index(n, x_pred.device)
     C = stage_constants(model, dtype, x_pred.device)
     y = zk + torch.einsum("mi,ki->km", C.H_neg, x_pred)
     K = torch.einsum("kim,kmn->kin", PHt, Sinv)
@@ -210,9 +209,11 @@ def _spawn_init_state(model: FilterModel, take: torch.Tensor,
     zj = torch.take_along_dim(z, j.long()[..., None], dim=-2)
     zsel = torch.where(take.any(dim=-1)[..., None], zj,
                        torch.zeros((), dtype=z.dtype, device=z.device))
-    Ht = _const(np.asarray(model.H).T, dtype, z.device)       # (n, m)
+    Ht = device_const(model, "H^T", lambda: np.asarray(model.H).T, dtype,
+                      z.device)                               # (n, m)
     unobs = 1.0 - Ht.sum(dim=1)                               # (n,)
-    return zsel @ Ht.T + _const(model.x0, dtype, z.device) * unobs
+    return zsel @ Ht.T + device_const(model, "x0", model.x0, dtype,
+                                      z.device) * unobs
 
 
 def _spawn_fields(bank, takes_any, free_rank):
@@ -234,7 +235,7 @@ def spawn_tracks(model: FilterModel, bank: BankState, z: torch.Tensor,
     (a fleet: z (S, M, m), unassigned (S, M))."""
     take, takes_any, free_rank = _spawn_plan(bank.active, unassigned)
     x_init = _spawn_init_state(model, take, z, dtype)
-    P_init = _const(model.P0, dtype, z.device)
+    P_init = device_const(model, "P0", model.P0, dtype, z.device)
     return bank._replace(
         x=torch.where(takes_any[..., None], x_init, bank.x),
         P=torch.where(takes_any[..., None, None], P_init, bank.P),
@@ -249,8 +250,8 @@ def spawn_imm_tracks(imm: IMMModel, bank: IMMBankState, z: torch.Tensor,
     (a fleet: z (S, M, m), unassigned (S, M))."""
     take, takes_any, free_rank = _spawn_plan(bank.active, unassigned)
     x_init = _spawn_init_state(imm.models[0], take, z, dtype)  # shared H
-    P_init = _const(imm.P0, dtype, z.device)
-    mu_init = _const(imm.mu0, dtype, z.device)
+    P_init = device_const(imm, "P0", imm.P0, dtype, z.device)
+    mu_init = device_const(imm, "mu0", imm.mu0, dtype, z.device)
     return bank._replace(
         x=torch.where(takes_any[None, ..., None], x_init[None], bank.x),
         P=torch.where(takes_any[None, ..., None, None], P_init, bank.P),
@@ -326,7 +327,7 @@ def predict_imm_bank(imm: IMMModel, bank: IMMBankState, dtype=torch.float32):
     """IMM mixing + K model-conditioned time updates. Returns (bank',
     z_pred (K, C, m), S, Sinv (K, C, m, m), PHt (K, C, n, m),
     cbar (C, K))."""
-    Pi = _const(imm.trans, dtype, bank.x.device)
+    Pi = device_const(imm, "trans", imm.trans, dtype, bank.x.device)
     x_mix, P_mix, cbar = imm_mix(bank.x, bank.P, bank.mu, Pi)
     outs = [_predict_lanes(model, x_mix[k], P_mix[k], dtype)
             for k, model in enumerate(imm.models)]
@@ -364,7 +365,7 @@ def update_imm_bank(imm: IMMModel, bank: IMMBankState, z: torch.Tensor,
     if Sinv is None:
         Sinv = small_inv(S, m)
     if cbar is None:
-        cbar = bank.mu @ _const(imm.trans, dtype, dev)
+        cbar = bank.mu @ device_const(imm, "trans", imm.trans, dtype, dev)
     has_z = assoc >= 0
     zk = _gather_assigned(z, assoc)
     x_new, P_new, loglik = [], [], []

@@ -16,11 +16,44 @@ on float64 numpy vectors (the scene generator uses them).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+# model -> {key: constant}, dropped with the model; see model_consts
+_MODEL_CONSTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# key -> constant, for constants that belong to no model
+_SHARED_CONSTS: Dict[tuple, object] = {}
+
+
+def model_consts(owner) -> dict:
+    """The cache of ``owner``'s constants: a dict that lives as long as
+    the model ``owner`` (hashed by identity), or, for ``owner=None``, the
+    constants that belong to no model (a few shapes' index tensors)."""
+    if owner is None:
+        return _SHARED_CONSTS
+    return _MODEL_CONSTS.setdefault(owner, {})
+
+
+def device_const(owner, name: str, value, dtype, device) -> torch.Tensor:
+    """``value`` (an array, or a callable returning one) as a tensor of
+    ``dtype`` on ``device``, made at the first call for (owner, name,
+    dtype, device) and returned by every later one while ``owner``
+    lives (``model_consts``). A frame then copies nothing from the host,
+    which is what lets ``torch.cuda.graph`` capture it (a copy from
+    pageable host memory fails under capture). The tensor is shared:
+    callers never write into it."""
+    cache = model_consts(owner)
+    key = (name, dtype, torch.device(device))
+    t = cache.get(key)
+    if t is None:
+        t = torch.as_tensor(np.asarray(value() if callable(value) else value),
+                            dtype=dtype, device=device)
+        cache[key] = t
+    return t
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: usable as a cache key
@@ -48,14 +81,13 @@ class FilterModel:
     def predict_mean(self, x: torch.Tensor) -> torch.Tensor:
         """Propagate the state mean (batched or not)."""
         if self.is_linear:
-            return x @ torch.as_tensor(self.F, dtype=x.dtype,
-                                       device=x.device).T
+            return x @ device_const(self, "F", self.F, x.dtype, x.device).T
         return self.f(x)
 
     def jacobian(self, x: torch.Tensor) -> torch.Tensor:
         """(.., n, n) transition Jacobian at x."""
         if self.is_linear:
-            F = torch.as_tensor(self.F, dtype=x.dtype, device=x.device)
+            F = device_const(self, "F", self.F, x.dtype, x.device)
             return F.expand(x.shape[:-1] + (self.n, self.n))
         return self.F_jac(x)
 

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.filters import FilterModel, as_imm
+from repro_torch.core.filters import FilterModel, as_imm, device_const
 
 STAGES = ("baseline", "opt1", "opt2", "batched_blockdiag", "batched_lanes",
           "fused_scan", "imm_bank", "imm_scan")
@@ -125,10 +125,18 @@ def triu_pack(n: int):
     return rows, cols, mirror
 
 
+def triu_index(n: int, device):
+    """``triu_pack(n)``'s (rows, cols) as index tensors on ``device``,
+    made once per (n, device) (``filters.device_const``)."""
+    rows, cols, _ = triu_pack(n)
+    return (device_const(None, f"triu{n} rows", rows, torch.int64, device),
+            device_const(None, f"triu{n} cols", cols, torch.int64, device))
+
+
 def sym_unpack(tri, n: int):
     """(..., n(n+1)/2) packed upper triangle -> (..., n, n)."""
-    _, _, mirror = triu_pack(n)
-    idx = torch.as_tensor(mirror, device=tri.device)
+    idx = device_const(None, f"triu{n} mirror", lambda: triu_pack(n)[2],
+                       torch.int64, tri.device)
     return tri[..., idx]
 
 
@@ -212,12 +220,15 @@ class StageConstants:
 
 def stage_constants(model: FilterModel, dtype=torch.float32,
                     device="cpu") -> StageConstants:
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    """The model's constants on ``device``, made once per (model, dtype,
+    device) by ``filters.device_const`` and shared (never written
+    into)."""
+    def t(name, a):
+        return device_const(model, name, a, dtype, device)
 
-    F = t(model.F)
-    H = t(model.H)
-    return StageConstants(F=F, H=H, H_neg=-H, Q=t(model.Q), R=t(model.R))
+    return StageConstants(F=t("F", model.F), H=t("H", model.H),
+                          H_neg=t("-H", lambda: -np.asarray(model.H)),
+                          Q=t("Q", model.Q), R=t("R", model.R))
 
 
 def block_diag_batched(blocks: torch.Tensor) -> torch.Tensor:
@@ -421,7 +432,7 @@ def build_batched_lanes(model: FilterModel, N: int, dtype=torch.float32,
     n, m = model.n, model.m
     dev = resolve_device(device)
     C = stage_constants(model, dtype, dev)
-    iu, ju, _ = (torch.as_tensor(a, device=dev) for a in triu_pack(n))
+    iu, ju = triu_index(n, dev)
 
     def step(x, P, z):
         if model.is_linear:

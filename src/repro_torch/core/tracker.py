@@ -12,6 +12,11 @@ plain torch keeps the lifecycle counters, spawn and prune. The einsum
 route (``fused_frame=False``) is the port's own equivalence oracle and
 the route for models the kernels do not serve.
 
+``make_jitted_tracker`` / ``make_jitted_imm_tracker`` are the
+reference's jitted trackers. On a card their step is the frame captured
+once in a ``torch.cuda.CUDAGraph`` and replayed (``JittedStep``); on the
+CPU it is the frame step itself.
+
 ``make_multi_sensor_step`` serves S independent sensors over banks
 stacked on a sensor axis (``bank.bank_sensor_axes``). On the fused route
 the fleet frame is the single-sensor frame step itself: one kernel call
@@ -29,7 +34,8 @@ from repro_torch.core import bank as bank_lib
 from repro_torch.core.bank import BankState, IMMBankState
 from repro_torch.core.filters import FilterModel, IMMModel
 from repro_torch.core.rewrites import imm_combine
-from repro_torch.kernels.katana_bank.ops import (frame_kernel_supported,
+from repro_torch.kernels.katana_bank.ops import (LAUNCHES,
+                                                 frame_kernel_supported,
                                                  katana_frame,
                                                  katana_imm_frame)
 from repro_torch.kernels.katana_bank.ref import F32_MAX, first_argmin
@@ -84,8 +90,10 @@ def greedy_assign(cost: torch.Tensor, valid: torch.Tensor, gate,
     (C,) int32, measurement index or -1."""
     C, M = cost.shape
     dev = cost.device
-    big = torch.tensor(F32_MAX, dtype=cost.dtype, device=dev)
-    gate = torch.as_tensor(gate, dtype=cost.dtype, device=dev)
+    # fills, not copies from the host: a CUDA graph can capture them
+    big = torch.full((), F32_MAX, dtype=cost.dtype, device=dev)
+    gate = (gate.to(cost.dtype, device=dev) if isinstance(gate, torch.Tensor)
+            else torch.full((), gate, dtype=cost.dtype, device=dev))
     masked = torch.where(valid & (cost <= gate), cost, big)
     assoc = torch.full((C,), -1, dtype=torch.int32, device=dev)
     iC = torch.arange(C, device=dev)
@@ -231,3 +239,116 @@ def make_multi_sensor_step(model, cfg: TrackerConfig, device="cuda"):
             for f in zip(*(r[1:] for r in res))))
 
     return one, axes, step
+
+
+def _clone(res: FrameResult) -> FrameResult:
+    """The same FrameResult in fresh tensors."""
+    return FrameResult(type(res.bank)(*(t.clone() for t in res.bank)),
+                       *(None if t is None else t.clone() for t in res[1:]))
+
+
+class _Capture(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple             # static (bank, z, z_valid)
+    out: FrameResult          # static outputs, rewritten by each replay
+    launches: dict            # LAUNCHES a replay adds
+
+
+class JittedStep:
+    """``step(bank, z, z_valid) -> FrameResult`` of ``make_jitted_tracker``
+    and ``make_jitted_imm_tracker``: the counterpart of ``jax.jit`` over
+    one frame.
+
+    On a CUDA device the first call for a signature (the shapes and
+    dtypes of bank, z, valid; a new one captures anew, as ``jax.jit``
+    retraces) runs the frame eagerly on a side stream, which warms up the
+    kernels and gives that call's result, then captures the frame once
+    into a ``torch.cuda.CUDAGraph`` on static copies of its inputs. Every
+    later call copies bank, z and valid into those buffers, replays the
+    graph and returns clones of its outputs, so a result is never
+    overwritten by a later call (the reference's step is a pure
+    function). ``ops.LAUNCHES`` counts the launches the frame makes: the
+    capture's own count is taken back and each replay adds it, so the
+    counts stay those of the kernels run. A capture that fails raises;
+    nothing falls back to eager frames.
+
+    On the CPU (the caller asked for it) a call is the frame step itself.
+    ``captures`` counts the graphs captured, ``replays`` their replays."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = device
+        self.captures = 0
+        self.replays = 0
+        self._graphs = {}
+
+    def __call__(self, bank, z, z_valid) -> FrameResult:
+        z = torch.as_tensor(z, device=self.device)
+        z_valid = torch.as_tensor(z_valid, device=self.device)
+        if self.device.type != "cuda":
+            return self.fn(bank, z, z_valid)
+        inputs = (*bank, z, z_valid)
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+        cap = self._graphs.get(key)
+        if cap is None:
+            res, self._graphs[key] = self._capture(bank, z, z_valid)
+            return res
+        bank_s, z_s, valid_s = cap.inputs
+        for static, t in zip((*bank_s, z_s, valid_s), inputs):
+            static.copy_(t)
+        cap.graph.replay()
+        self.replays += 1
+        for k, n in cap.launches.items():
+            LAUNCHES[k] += n
+        return _clone(cap.out)
+
+    def _capture(self, bank, z, z_valid):
+        static = (type(bank)(*(t.clone() for t in bank)), z.clone(),
+                  z_valid.clone())
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            res = self.fn(*static)
+        main.wait_stream(side)
+        for t in (*res.bank, *res[1:]):
+            if t is not None:
+                t.record_stream(main)
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.fn(*static)
+        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k, n in launches.items():
+            LAUNCHES[k] -= n
+        self.captures += 1
+        return res, _Capture(graph, static, out, launches)
+
+
+def make_jitted_tracker(model: FilterModel, cfg: TrackerConfig,
+                        device="cuda"):
+    """Returns ``(init, step)``: ``init()`` an empty bank on ``device``,
+    ``step(bank, z, z_valid)`` the frame step, captured once into a CUDA
+    graph on a card (``JittedStep``)."""
+    dev = resolve_device(device)
+
+    def init():
+        return bank_lib.init_bank(model, cfg.capacity,
+                                  getattr(torch, cfg.dtype), dev)
+
+    return init, JittedStep(
+        lambda bank, z, v: frame_step(model, cfg, bank, z, v), dev)
+
+
+def make_jitted_imm_tracker(imm: IMMModel, cfg: TrackerConfig,
+                            device="cuda"):
+    """IMM twin of ``make_jitted_tracker``: ``(init, step)`` over an
+    IMMBankState, one captured frame per call on a card."""
+    dev = resolve_device(device)
+
+    def init():
+        return bank_lib.init_imm_bank(imm, cfg.capacity,
+                                      getattr(torch, cfg.dtype), dev)
+
+    return init, JittedStep(
+        lambda bank, z, v: imm_frame_step(imm, cfg, bank, z, v), dev)

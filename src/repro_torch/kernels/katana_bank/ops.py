@@ -65,7 +65,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import rewrites
-from repro_torch.core.filters import FilterModel, IMMModel
+from repro_torch.core.filters import FilterModel, IMMModel, device_const
+from repro_torch.core.filters import model_consts
 from repro_torch.kernels import build
 from repro_torch.kernels.katana_bank import ref
 
@@ -122,32 +123,30 @@ def _check_model(model: FilterModel):
             "the nonlinear kernel path is the CTRA-8 model (n=8, m=4)")
 
 
-_CONSTS: Dict[Tuple[object, str], torch.Tensor] = {}
-_HOST_CONSTS: Dict[Tuple[object, ...], np.ndarray] = {}
-
-
-def _host_consts(models, trans) -> np.ndarray:
-    """The model constants as one float32 array: per model F, Q, R (row
-    major), then the Markov matrix. Cached per model set."""
-    key = tuple(models) + (np.asarray(trans, np.float64).tobytes(),)
-    t = _HOST_CONSTS.get(key)
+def _host_consts(owner) -> np.ndarray:
+    """The constants of ``owner`` (a FilterModel or an IMMModel) as one
+    float32 array: per model F, Q, R (row major), then the Markov matrix
+    (1 for a single model). Cached with the model
+    (``filters.model_consts``)."""
+    cache = model_consts(owner)
+    t = cache.get("host consts")
     if t is None:
+        if isinstance(owner, IMMModel):
+            models, trans = owner.models, owner.trans
+        else:
+            models, trans = (owner,), np.ones((1, 1))
         parts = [np.asarray(getattr(mdl, nm), np.float64).ravel()
                  for mdl in models for nm in ("F", "Q", "R")]
         parts.append(np.asarray(trans, np.float64).ravel())
         t = np.ascontiguousarray(np.concatenate(parts), dtype=np.float32)
-        _HOST_CONSTS[key] = t
+        cache["host consts"] = t
     return t
 
 
-def _consts(models, trans, device) -> torch.Tensor:
-    """``_host_consts`` on ``device``, cached per model set and device."""
-    key = (tuple(models), str(device))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = torch.as_tensor(_host_consts(models, trans), device=device)
-        _CONSTS[key] = t
-    return t
+def _consts(owner, device) -> torch.Tensor:
+    """``_host_consts`` on ``device``, made once per model and device."""
+    return device_const(owner, "consts", lambda: _host_consts(owner),
+                        torch.float32, device)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +308,7 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     _require(z, "z", f32, lead + (M, m), dev)
     _require(z_valid, "z_valid", torch.bool, lead + (M,), dev)
     _require(active, "active", torch.bool, lead + (C,), dev)
-    consts = _host_consts((model,), np.ones((1, 1)))
+    consts = _host_consts(model)
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
     assoc = torch.empty(lead + (C,), dtype=torch.int32, device=dev)
     waves = torch.empty((S,), dtype=torch.int32, device=dev)
@@ -425,7 +424,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     xc = torch.empty(lead + (C, n), dtype=f32, device=dev)
     assoc = torch.empty(lead + (C,), dtype=torch.int32, device=dev)
     waves = torch.empty((S,), dtype=torch.int32, device=dev)
-    consts = _consts(imm.models, imm.trans, dev)
+    consts = _consts(imm, dev)
     # the (S, M, C) cost tile
     cost = torch.empty((S * M * C,), dtype=f32, device=dev)
     # S^-1, z_pred and cbar of every (model, track), from the predict to
@@ -518,7 +517,7 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
     x_fin, P_fin = torch.empty_like(x), torch.empty_like(P)
     if N == 0:
         return x_fin, P_fin
-    consts = _host_consts((model,), np.ones((1, 1)))
+    consts = _host_consts(model)
     # the blocks whose first frame runs ahead of the scan (a seed P that
     # is not symmetric to the bit): a byte for each 128 tracks
     first = torch.empty((N,), dtype=torch.uint8, device=dev)
@@ -552,7 +551,7 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
                             torch.empty_like(mu))
     if N == 0:
         return x_fin, P_fin, mu_fin
-    consts = _host_consts(imm.models, imm.trans)
+    consts = _host_consts(imm)
     lib = build.load("imm_scan.cu")
     code = lib.katana_imm_scan_run(
         K, n, m, pick_pattern(imm.models).id, N, T, x.data_ptr(),
@@ -682,7 +681,7 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool,
     x_out, P_out = torch.empty_like(x), torch.empty_like(P)
     if N == 0:
         return x_out, P_out
-    consts = _consts((model,), np.ones((1, 1)), dev)
+    consts = _consts(model, dev)
     pattern = pick_pattern((model,)).id
     lib = build.load("imm_step.cu")
     common = (x.data_ptr(), P.data_ptr(), z.data_ptr(), consts.data_ptr(),
@@ -745,7 +744,7 @@ def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True):
     ll = torch.empty((K, N), dtype=f32, device=dev)
     if N == 0:
         return x_out, P_out, ll
-    consts = _consts(imm.models, imm.trans, dev)
+    consts = _consts(imm, dev)
     mdl0 = imm.models[0]
     lib = build.load("imm_step.cu")
     code = lib.katana_imm_step_run(

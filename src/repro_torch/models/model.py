@@ -56,6 +56,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def abstract_params(cfg: ModelConfig, dtype=None) -> Dict:
+    """The parameter tree's shapes and dtypes as ``meta`` tensors: nothing
+    is allocated or drawn (the reference's ``jax.eval_shape`` tree)."""
+    return init_params(cfg, torch.Generator(), device="meta", dtype=dtype)
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict, mode: str,
                   pos_offset: int = 0):
     """Returns (x (B, S, d), positions (S,)): the frontend's projected

@@ -65,6 +65,16 @@ def init_train_state(params, compression: bool = False) -> TrainState:
                       ef=zeros() if compression else None)
 
 
+def abstract_train_state(abstract_params,
+                         compression: bool = False) -> TrainState:
+    """``init_train_state``'s tree as ``meta`` tensors (shapes and dtypes
+    only) from a parameter tree on any device, e.g.
+    ``models.model.abstract_params``."""
+    meta = tree_map(lambda p: torch.empty_like(p, device="meta"),
+                    abstract_params)
+    return init_train_state(meta, compression)
+
+
 def compute_params(state: TrainState, dtype) -> Any:
     """The compute view of the master weights in ``dtype`` (bf16 for
     training; a float32 view shares the master's memory)."""

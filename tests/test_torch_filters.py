@@ -88,3 +88,26 @@ def test_maneuvering_and_single_target_identical(seed):
         for a, b in zip(jt.single_target(jf.get_filter(kind), 30, seed=seed),
                         tt.single_target(tf.get_filter(kind), 30, seed=seed)):
             np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "imm"])
+def test_device_constants_live_as_long_as_their_model(kind):
+    """A model's cached constants (``device_const``, the kernels' packed
+    table) are made once, reused, and dropped with the model."""
+    import gc
+    import weakref
+
+    import torch
+    from repro_torch.kernels.katana_bank import ops
+
+    model = tf.make_imm() if kind == "imm" else tf.get_filter(kind)
+    first = (tf.device_const(model, "x", lambda: np.eye(3), torch.float32,
+                             "cpu"), ops._consts(model, "cpu"))
+    again = (tf.device_const(model, "x", np.zeros(3), torch.float32, "cpu"),
+             ops._consts(model, "cpu"))
+    assert all(a is b for a, b in zip(first, again))
+    np.testing.assert_array_equal(first[1].numpy(), ops._host_consts(model))
+    gone = weakref.ref(model)
+    del model
+    gc.collect()
+    assert gone() is None

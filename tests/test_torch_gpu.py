@@ -6,7 +6,9 @@ bit, at small shapes and at the serving size C=1024, M=256 (also C not
 a multiple of a block's tracks, every track inactive, no valid
 measurement, one measurement, the IMM frame's dense instantiation), and
 the events they record around each launch; the engine's fused route on
-the card against its einsum route. The frames over S stacked sensors
+the card against its einsum route; the jitted trackers' CUDA graphs (one
+capture, every frame bit for bit with the eager frame step, launches
+counted a replay, results not overwritten by the next replay). The frames over S stacked sensors
 (S = 1, 3, 8 and a ragged C = 13 at S = 3; K = 4 and K = 1 for the IMM
 frame) bit for bit with their plain versions and with S single-sensor
 calls, one launch count a call; ``ShardedBankEngine`` on the card (one
@@ -59,6 +61,7 @@ import torch
 # the card's machine runs this file without PYTHONPATH=src
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch import profiling  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import tracker as ttr  # noqa: E402
 from repro_torch.core.rewrites import STAGES, run_sequence  # noqa: E402
@@ -330,6 +333,80 @@ def test_engine_fused_route_on_card(cuda, kind):
         torch.testing.assert_close(eng.bank.x, bank_e.x, rtol=0,
                                    atol=5e-4 if kind == "imm" else 1e-4)
     assert ops.LAUNCHES[name] == 40 and ops.LAUNCHES["greedy_assign"] == 40
+
+
+def _jitted(kind, C=64, M=16, T=30):
+    """A captured tracker of ``kind``, the eager frame step it captures
+    and a T-frame scene at (C, M) as CUDA tensors."""
+    model = make_imm() if kind == "imm" else get_filter(kind)
+    smodel = get_filter("cv9") if kind == "imm" else model
+    cfg = ttr.TrackerConfig(capacity=C, max_meas=M)
+    z, valid, _ = mot_scene(smodel, SceneConfig(T=T, max_targets=8,
+                                                clutter_rate=3.0,
+                                                birth_rate=0.3, max_meas=M),
+                            seed=4)
+    make = (ttr.make_jitted_imm_tracker if kind == "imm"
+            else ttr.make_jitted_tracker)
+    eager = ttr.imm_frame_step if kind == "imm" else ttr.frame_step
+    init, step = make(model, cfg, device="cuda")
+    frames = [(torch.as_tensor(z[t], dtype=torch.float32, device="cuda"),
+               torch.as_tensor(valid[t], device="cuda")) for t in range(T)]
+    return init, step, lambda b, zt, vt: eager(model, cfg, b, zt, vt), frames
+
+
+def _result_tensors(res):
+    return [t for t in list(res.bank) + list(res[1:]) if t is not None]
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm"])
+def test_jitted_tracker_captures_once(cuda, kind):
+    """One CUDA-graph capture for 30 frames, and one frame launch (and
+    one greedy) counted a frame: the capture's own count is taken back,
+    each replay adds it."""
+    init, step, _, frames = _jitted(kind)
+    ops.reset_launches()
+    bank = init()
+    for zt, vt in frames:
+        bank = step(bank, zt, vt).bank
+    torch.cuda.synchronize()
+    name = "katana_imm_frame" if kind == "imm" else "katana_frame"
+    assert (step.captures, step.replays) == (1, len(frames) - 1)
+    assert ops.LAUNCHES[name] == len(frames)
+    assert ops.LAUNCHES["greedy_assign"] == len(frames)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm"])
+def test_jitted_tracker_matches_eager_bit_for_bit(cuda, kind):
+    """Every field of every frame (assoc, unassigned, confirmed, the
+    bank's x, P, mu and lifecycle, mode_probs, x_est) of the replayed
+    graph equals the eager frame step's, C = 64, M = 16, 30 frames."""
+    init, step, eager, frames = _jitted(kind)
+    bank_g = bank_e = init()
+    spawned = 0
+    for t, (zt, vt) in enumerate(frames):
+        rg, re = step(bank_g, zt, vt), eager(bank_e, zt, vt)
+        for a, b in zip(_result_tensors(rg), _result_tensors(re)):
+            assert torch.equal(a, b), t
+        spawned += int(re.unassigned.sum())
+        bank_g, bank_e = rg.bank, re.bank
+    assert spawned > 0 and int(bank_e.active.sum()) > 0
+
+
+def test_jitted_tracker_result_is_not_overwritten(cuda):
+    """A result held from frame t is unchanged after frame t + 1: the
+    step hands out clones of the graph's static outputs."""
+    init, step, _, frames = _jitted("imm")
+    bank = init()
+    for zt, vt in frames[:5]:
+        bank = step(bank, zt, vt).bank
+    held = step(bank, *frames[5])
+    saved = [t.clone() for t in _result_tensors(held)]
+    nxt = step(held.bank, *frames[6])
+    torch.cuda.synchronize()
+    for a, b in zip(_result_tensors(held), saved):
+        assert torch.equal(a, b)
+    assert not torch.equal(nxt.bank.x, held.bank.x)
+    assert step.replays == 6
 
 
 SCAN_SHAPES = [(5, 17), (1024, 300)]
@@ -912,24 +989,33 @@ def test_lm_kernels_take_views_off_16_bytes(cuda):
                                atol=1e-5, rtol=1e-4)
 
 
+def _fresh_kernel_events(fn, args, kwargs=None):
+    """{kernel name: events} of one profiled call of ``fn``
+    ("module:function") on ``args`` in a fresh process
+    (``repro_torch.profiling``): later sessions of one long process lose
+    kernel events (PERF.md §7), even with acc_events=True."""
+    return profiling.fresh("repro_torch.profiling:call_events",
+                           (args, kwargs or {}), fn=fn, timeout=600)
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g, device="cuda")
+
+
 def test_flash_attention_runs_the_kernel_of_its_type(cuda):
     """bf16 launches the tensor-core kernel, float32 the CUDA-core one,
-    each and only it (torch.profiler's kernel names)."""
-    rng = np.random.default_rng(5)
+    each and only it (torch.profiler's kernel names, each profile in a
+    fresh process)."""
     for dtype, name in fa_ops.KERNELS.items():
-        q, k, v = _qkv(rng, 1, 128, 128, 2, 2, 32, dtype, cuda)
-        fa_ops.flash_attention(q, k, v, 0.25)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            fa_ops.flash_attention(q, k, v, 0.25)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if getattr(e, "device_time_total", 0) > 0]
-        assert any(name in n for n in names), (dtype, names)
+        g = torch.Generator("cuda").manual_seed(0)
+        q, k, v = (_randn(g, 1, 128, 2, 32).to(dtype) for _ in range(3))
+        events = _fresh_kernel_events(
+            "repro_torch.kernels.flash_attention.ops:flash_attention",
+            (q, k, v, 0.25))
+        assert any(name in n for n in events), (dtype, events)
         others = [o for o in fa_ops.KERNELS.values() if o != name]
-        assert not any(o in n for o in others for n in names), (dtype, names)
+        assert not any(o in n for o in others for n in events), (dtype,
+                                                                 events)
 
 
 def test_reduced_danube_served_on_card(cuda):
@@ -1072,23 +1158,21 @@ def test_ssd_scan_takes_views_off_16_bytes(cuda):
 
 def test_ssd_scan_runs_the_kernels_of_its_type(cuda):
     """bf16 launches the tensor-core schedule, float32 the CUDA-core
-    kernel, each and only it (torch.profiler's kernel names)."""
-    rng = np.random.default_rng(6)
+    kernel, each and only it (torch.profiler's kernel names, each profile
+    in a fresh process: ``_fresh_kernel_events``)."""
     kinds = {torch.bfloat16: ("ssd_chunk_out", "ssd_scan_fwd"),
              torch.float32: ("ssd_scan_fwd", "ssd_chunk_out")}
     for dtype, (name, other) in kinds.items():
-        args = _ssd_inputs(rng, 1, 128, 2, 16, 16, dtype, cuda)
-        ssd_ops.ssd_scan(*args[:5], chunk=64)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            ssd_ops.ssd_scan(*args[:5], chunk=64)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if getattr(e, "device_time_total", 0) > 0]
-        assert any(name in n for n in names), (dtype, names)
-        assert not any(other in n for n in names), (dtype, names)
+        g = torch.Generator("cuda").manual_seed(0)
+        x = _randn(g, 1, 128, 2, 16).to(dtype)
+        dt = torch.nn.functional.softplus(_randn(g, 1, 128, 2)) * 0.5
+        Bm, Cm = (_randn(g, 1, 128, 16).to(dtype) for _ in range(2))
+        A = -torch.exp(_randn(g, 2))
+        events = _fresh_kernel_events(
+            "repro_torch.kernels.ssd_scan.ops:ssd_scan", (x, dt, Bm, Cm, A),
+            {"chunk": 64})
+        assert any(name in n for n in events), (dtype, events)
+        assert not any(other in n for n in events), (dtype, events)
 
 
 def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):

@@ -1,7 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX
 blocked, and no source under ``src/repro_torch/`` (nor the port's
-examples, ``examples/torch_quickstart.py`` and ``torch_train_lm.py``)
-imports ``jax`` or the JAX package ``repro``."""
+examples, ``examples/torch_*.py``) imports ``jax`` or the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -34,8 +34,9 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= len(MODULES)
 
 
-EXAMPLES = [ROOT / "examples" / "torch_quickstart.py",
-            ROOT / "examples" / "torch_train_lm.py"]
+EXAMPLES = [ROOT / "examples" / f"{name}.py" for name in (
+    "torch_quickstart", "torch_train_lm", "torch_tracking_pipeline",
+    "torch_mot_demo", "torch_serve_lm")]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + EXAMPLES,
