@@ -191,11 +191,33 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      (``models/counting.py``) and mfu (FLOPs / (host s x bf16 peak)), and
      for the decode steps the analytic bytes (``roofline/memmodel.py``),
      their bound at the HBM rate and the share of it reached;
-  13. one JSON line with the kernel table (row flash_attention also
+  13. the mesh: granite-moe-1b-a400m on a ('data' 2, 'model' 2) mesh of
+     4 ranks (``repro_torch.launch.local_world``), every rank a process
+     on the one card over a ``gloo`` group (its collectives staged through
+     host buffers but ``all_reduce``): (a) the B=8 x S=4096 bf16 prefill
+     (24 flash_attention launches a rank; serving's weights not
+     FSDP-split, training's are), the logits
+     within max(2^-8, 2x) the single card's bf16 distance from its float32
+     run on the same weights; (b) 32 decode steps on the sequence-split
+     cache (flash_decode_partial on each rank's block, the partials
+     merged), teacher-forced with the single card's tokens, in the "gather"
+     and "tp2d" moe modes, each step to the same limit, 24 x 32
+     flash_decode launches a rank and mode, and rank 0's
+     flash_decode_partial on its block against the plain version; (c) 4
+     of granite-moe's 24 layers trained in float32 (S=2048, batch 8 in 2
+     microbatches), 2 steps, saved from the mesh, restored onto ('data'
+     4, 'model' 1) bit for bit, one more step there: loss and grad norm
+     within 1e-4 relative of the single card's 3 steps; (d)
+     ``compressed_psum`` over the 4 ranks on 2^24 float32 values bit for
+     bit with its plain version, its int8 wire bytes against a float32
+     ring's; the ms a prefill, decode step and train step of each rank
+     and its staged bytes, labelled as a correctness run;
+  14. one JSON line with the kernel table (row flash_attention also
      carries the training launches and the backward times; rows
      flash_attention, flash_decode and ssd_scan phase 11's launches, and
      the first two phase 11's shapes; rows katana_frame, katana_imm_frame
-     and greedy_assign phase 12's), then the status line.
+     and greedy_assign phase 12's; rows flash_attention and flash_decode
+     phase 13's, summed over its ranks), then the status line.
 """
 from __future__ import annotations
 
@@ -365,13 +387,22 @@ def device_ms(fn, iters: int = 20, launches=None):
             _short(count, launches, iters))
 
 
+SERVE_WORKER = profiling.Worker(path=ROOT)
+
+
 def fresh_profile(job, tensors, **spec):
-    """One profiled job (``profile_job``) in a fresh process
-    (``repro_torch.profiling.fresh``): later torch.profiler sessions of
-    one long process lose kernel events (PERF.md §7). Returns the child's
-    result: for "frame" and "ssd_scan" ``device_ms``'s pair, for "serve"
-    {step: ``busy_profile``'s four values}, for "jitted"
-    ``jitted_events``'s dict."""
+    """One profiled job (``profile_job``) in a child process
+    (``repro_torch.profiling``): later torch.profiler sessions of the long
+    main process lose kernel events (PERF.md §7). The "serve" jobs of
+    phases 7, 8 and 11 share one child, ``SERVE_WORKER``, whose nine
+    sessions keep every event (``scripts/profiler_probe.py --serve``);
+    the others run in a fresh process each. Returns the child's result:
+    for "frame" and "ssd_scan" ``device_ms``'s pair, for "serve" {step:
+    ``busy_profile``'s four values}, for "jitted" ``jitted_events``'s
+    dict."""
+    if job == "serve":
+        return SERVE_WORKER.run("chip_smoke:profile_job", tensors, job=job,
+                                **spec)
     return profiling.fresh("chip_smoke:profile_job", tensors, path=ROOT,
                            job=job, **spec)
 
@@ -4291,6 +4322,451 @@ def phase_jitted(lm, mamba, train, moe, card):
                 examples_ms=examples, shares=shares)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh on the card. granite-moe-1b-a400m on a ('data' 2,
+# 'model' 2) mesh of 4 ranks, every rank a process on the one H100 over a
+# ``gloo`` group (NCCL refuses two ranks on one card), its CUDA tensors
+# staged through host buffers for every collective but ``all_reduce``
+# (``distributed/collectives.py``). The parent makes the single-card runs
+# on the same seeded weights; ``repro_torch.launch.local_world`` runs the
+# ranks (``mesh_job``) with a deadline.
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE, MESH_RANKS = (2, 2), 4
+MESH_B, MESH_S, MESH_STEPS = MOE_B, MOE_S, MOE_STEPS  # phase 11's shape
+# serving's weights are not FSDP-split (training's are): gathering
+# granite-moe's experts through host buffers every token would time the
+# staging, not the mesh; tp2d (experts x FFN, no weight movement) is the
+# reference's decode layout
+MESH_SERVE_FSDP = False
+MESH_TRAIN_LAYERS, MESH_TRAIN_S = 4, 2048
+MESH_TRAIN_BATCH, MESH_TRAIN_MB, MESH_TRAIN_STEPS = 8, 2, 2
+MESH_PSUM_N = 2 ** 24
+MESH_DEADLINE = 300.0
+MESH_TRAIN_TOL = 1e-4
+MESH_TIMING = ("4 ranks sharing one H100 over gloo (host-staged): a "
+               "correctness run, not a scaling number")
+
+
+def _mesh_run():
+    """The reference's default schedule (lr 3e-4 after 100 warmup steps):
+    with lr 1e-3 from the first step, AdamW's first updates (lr x the sign
+    of each gradient) turn the float32 sums' order into weight changes of
+    lr where a gradient is rounding noise, and the grad norm of step 3 on
+    the mesh parted from the one card's by 7.3e-4 (PERF.md, PR 27)."""
+    from repro_torch.configs import RunConfig
+
+    return RunConfig(microbatches=MESH_TRAIN_MB, remat="none")
+
+
+def _mesh_train_cfg():
+    return dataclasses.replace(get_config(MOE_ARCH),
+                               n_layers=MESH_TRAIN_LAYERS)
+
+
+def mesh_serve_reference(cfg, prompts, forced=None):
+    """The single card on seed 0's weights: a flash prefill and MESH_STEPS
+    decode steps, greedy in bf16 (their input tokens are the mesh's
+    forced ones), or in float32 on ``forced``. Returns the logits of every
+    step (host) and the tokens."""
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    if forced is not None:
+        params = _tree_map(lambda t: t.float(), params)
+    ctx = ShardingContext(attn_impl="flash")
+    prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
+    logits, caches = prefill(params, {"tokens": prompts})
+    out, toks = [logits.float().cpu()], []
+    for i in range(MESH_STEPS):
+        tok = (logits[:, -1].argmax(-1, keepdim=True) if forced is None
+               else forced[:, i:i + 1].to(DEV))
+        toks.append(tok)
+        logits, caches = decode(params, {"token": tok,
+                                         "cache_pos": MESH_S + i}, caches)
+        out.append(logits.float().cpu())
+    del params, caches
+    torch.cuda.empty_cache()
+    return out, torch.cat(toks, dim=1).cpu()
+
+
+def mesh_train_reference(batches):
+    """The single card: MESH_TRAIN_STEPS + 1 float32 steps of the cut
+    granite-moe on seed 1's weights. In the first MESH_TRAIN_STEPS each of
+    the mesh's microbatches is cut into its 2 data blocks, one microbatch
+    each: on ('data' 2, 'model' 2) the MoE capacity and aux come from each
+    block's tokens (the reference's local capacity and pmean), and every
+    term of the loss is a mean over equal blocks, so this is the mesh's
+    step on one card. The last step, on ('data' 4, 'model' 1), runs the
+    reference's one-device MoE on the whole microbatch: the batch as it
+    is."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg, D = _mesh_train_cfg(), MESH_SHAPE[0]
+    state = adamw.init_train_state(init_params(
+        cfg, torch.Generator(DEV).manual_seed(1), DEV, torch.float32))
+    ctx = ShardingContext(attn_impl="flash")
+    blocks = make_train_step(cfg, dataclasses.replace(
+        _mesh_run(), microbatches=MESH_TRAIN_MB * D), ctx,
+        compute_dtype=torch.float32)
+    whole = make_train_step(cfg, _mesh_run(), ctx,
+                            compute_dtype=torch.float32)
+    out = []
+    for i, b in enumerate(batches):
+        if i < MESH_TRAIN_STEPS:
+            b = {k: v.reshape((MESH_TRAIN_MB * D, -1) + v.shape[2:])
+                 for k, v in b.items()}
+            state, m = blocks(state, b)
+        else:
+            state, m = whole(state, b)
+        out.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_serve(rank, mesh, tensors, out):
+    """(a) the prefill, (b) MESH_STEPS decode steps in each moe mode on the
+    sequence-split cache, and one rank's flash_decode_partial on its block
+    against the plain version."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models.attention import KVCache
+    from repro_torch.sharding import rules
+
+    cfg = get_config(MOE_ARCH)
+    full = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                       torch.bfloat16)
+    ctx = rules.make_context(mesh, fsdp=MESH_SERVE_FSDP, attn_impl="flash")
+    params = rules.shard_tree(full, specs_lib.param_shardings(cfg, ctx), ctx)
+    prompts = tensors["prompts"].to(DEV)
+    prefill = make_prefill_step(cfg, ctx)
+    prefill(params, {"tokens": prompts[:, :128]})  # load, warm up
+    _reset_lm_launches()
+    dist.barrier()
+    (logits, caches), out["prefill_ms"] = _synced_ms(
+        lambda: prefill(params, {"tokens": prompts}))
+    out["prefill_launches"] = _launch_counts()
+    if rank == 0:
+        out["prefill_logits"] = logits.float().cpu()
+    out["cache_block"] = tuple(caches["layer0"].k.shape)
+    del params
+    forced = tensors["forced"].to(DEV)
+    for mode in ("gather", "tp2d"):
+        dctx = rules.make_context(mesh, fsdp=MESH_SERVE_FSDP,
+                                  attn_impl="flash", moe_weight_mode=mode)
+        params = rules.shard_tree(full, specs_lib.param_shardings(cfg, dctx),
+                                  dctx)
+        c = {k: KVCache(v.k.clone(), v.v.clone()) for k, v in caches.items()}
+        decode = make_decode_step(cfg, dctx)
+        _reset_lm_launches()
+        dist.barrier()
+        logits_all, ms = [], []
+        for i in range(MESH_STEPS):
+            (logits, c), t = _synced_ms(lambda: decode(
+                params, {"token": forced[:, i:i + 1],
+                         "cache_pos": MESH_S + i}, c))
+            if rank == 0:  # the mesh's logits (every rank holds them)
+                logits_all.append(logits.float().cpu())
+            ms.append(t)
+        out[f"decode_{mode}"] = dict(logits=logits_all, step_ms=ms,
+                                     launches=_launch_counts())
+        if mode == "gather" and rank == 0:
+            k, v = c["layer0"].k[0], c["layer0"].v[0]
+            B, _, KH, d = k.shape
+            q = torch.randn((B, cfg.attention.n_heads, d),
+                            generator=torch.Generator(DEV).manual_seed(7),
+                            device=DEV).to(k.dtype)
+            fd_ops.reset_launches()
+            acc, m, l = fd_ops.flash_decode_partial(
+                q, k, v, scale=d ** -0.5, block_k=math.gcd(k.shape[1], 1024))
+            assert fd_ops.LAUNCHES["flash_decode"] == 1
+            acc_p, m_p, l_p = fd_ref.flash_decode_partial_plain(q, k, v,
+                                                                d ** -0.5)
+            torch.testing.assert_close(acc / l, acc_p / l_p, atol=1e-5,
+                                       rtol=1e-4)
+            torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(l, l_p, atol=0, rtol=1e-4)
+            out["partial_check"] = dict(
+                shape=f"B={B} T={k.shape[1]} H={q.shape[1]} KH={KH} d={d} "
+                      "bf16, rank 0's block of layer 0",
+                max_abs_err=max_diff(acc / l, acc_p / l_p))
+        del params, c
+    del full, caches
+    torch.cuda.empty_cache()
+
+
+def _mesh_train(rank, mesh, tensors, out, root):
+    """(c) MESH_TRAIN_STEPS float32 steps on the mesh, a save from it (the
+    full arrays gathered on rank 0), the restore onto the same mesh bit
+    for bit with the state, the restore of the same file onto ('data' 4,
+    'model' 1) (each rank's blocks cut from it, as the CPU tests hold to
+    the gathered state) and one more step there."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+
+    cfg, run = _mesh_train_cfg(), _mesh_run()
+    ctx = rules.make_context(mesh, attn_impl="flash")
+    specs = specs_lib.state_shardings(cfg, run, ctx)
+    state = rules.shard_tree(adamw.init_train_state(init_params(
+        cfg, torch.Generator(DEV).manual_seed(1), DEV, torch.float32)),
+        specs, ctx)
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, run, ctx, compute_dtype=torch.float32)
+    metrics, ms = [], []
+    batches = tensors["batches"]
+    _reset_lm_launches()
+    for b in batches[:MESH_TRAIN_STEPS]:
+        (state, m), t = _synced_ms(lambda: step(state, b))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                 "aux")})
+        ms.append(t)
+    launches = _launch_counts()["flash_attention"]
+    _, save_ms = _synced_ms(lambda: ckpt.save(root, MESH_TRAIN_STEPS, state,
+                                              ctx=ctx, specs=specs))
+    like = adamw.abstract_train_state(abstract_params(cfg, torch.float32))
+    # the checkpoint restored onto this mesh is the state, bit for bit
+    (back, _), restore_ms = _synced_ms(lambda: ckpt.restore(
+        root, like, device=DEV, ctx=ctx, specs=specs))
+    same = all(torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(back.master) + adamw.tree_leaves(back.m)
+        + adamw.tree_leaves(back.v) + [back.step],
+        adamw.tree_leaves(state.master) + adamw.tree_leaves(state.m)
+        + adamw.tree_leaves(state.v) + [state.step]))
+    del back, state
+    torch.cuda.empty_cache()
+    # and onto ('data' 4, 'model' 1): each rank's blocks of the same file
+    mesh41 = make_mesh((4, 1), ("data", "model"), DEV)
+    ctx41 = rules.make_context(mesh41, attn_impl="flash")
+    specs41 = specs_lib.state_shardings(cfg, run, ctx41)
+    restored, _ = ckpt.restore(root, like, device=DEV, ctx=ctx41,
+                               specs=specs41)
+    step41 = make_train_step(cfg, run, ctx41, compute_dtype=torch.float32)
+    _reset_lm_launches()
+    (restored, m), t = _synced_ms(lambda: step41(restored,
+                                                 batches[MESH_TRAIN_STEPS]))
+    metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+    ms.append(t)
+    launches += _launch_counts()["flash_attention"]
+    out["train"] = dict(metrics=metrics, step_ms=ms, save_ms=save_ms,
+                        restore_ms=restore_ms, restored_bitwise=same,
+                        flash_launches=launches)
+    del restored
+    torch.cuda.empty_cache()
+    return mesh41
+
+
+def _mesh_psum(rank, mesh41, out):
+    """(d) compressed_psum over the 4 ranks of ('data' 4, 'model' 1) on
+    MESH_PSUM_N float32 values, bit for bit with its plain version."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.compression import compressed_psum
+
+    x = torch.randn(MESH_PSUM_N, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(100 + rank))
+    compressed_psum(x[:1024], mesh41, "data")  # warm up
+    got, ms = _synced_ms(lambda: compressed_psum(x, mesh41, "data"))
+    every = coll.all_gather(x[None], mesh41, "data", dim=0)
+    smax = torch.clamp(every.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(every / smax), -127, 127).to(torch.int8)
+    plain = q.float().sum(0) * smax
+    out["psum"] = dict(bitwise=torch.equal(got, plain), ms=ms,
+                       n=MESH_PSUM_N,
+                       wire_bytes=(MESH_RANKS - 1) * MESH_PSUM_N,
+                       f32_ring_bytes=(MESH_RANKS - 1) * MESH_PSUM_N * 4,
+                       max_abs_err_vs_f32=float(
+                           (got - every.sum(0)).abs().max()))
+
+
+def mesh_job(rank, tensors, ckpt_dir):
+    """One rank of phase 13 (``local_world.run``): (a)-(d) on this rank;
+    returns its numbers, rank 0 also its logits."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+
+    coll.reset_staged()
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), DEV)
+    out = dict(rank=rank)
+    t0 = time.perf_counter()
+    _mesh_serve(rank, mesh, tensors, out)
+    out["serve_s"] = time.perf_counter() - t0
+    mesh41 = _mesh_train(rank, mesh, tensors, out, ckpt_dir)
+    _mesh_psum(rank, mesh41, out)
+    out["staged_bytes"] = coll.STAGED_BYTES["bytes"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh(card):
+    """Phase 13: (a) prefill, (b) decode in both moe modes, (c) training
+    with the save and the restore onto (4, 1), (d) compressed_psum on a
+    4-rank mesh of one card, against the single card."""
+    from repro_torch.launch import local_world
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    prompts = torch.as_tensor(LMDataPipeline(cfg.vocab, MESH_S, MESH_B,
+                                             seed=0).next_batch()["tokens"],
+                              device=DEV).long()
+    ref = {}
+    ref["bf16"], forced = mesh_serve_reference(cfg, prompts)
+    data = LMDataPipeline(cfg.vocab, MESH_TRAIN_S, MESH_TRAIN_BATCH, seed=2,
+                          microbatches=MESH_TRAIN_MB)
+    batches = [data.next_batch() for _ in range(MESH_TRAIN_STEPS + 1)]
+    t_world = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        world = local_world.start(
+            "chip_smoke:mesh_job", MESH_RANKS, dict(ckpt_dir=tmp),
+            tensors=dict(prompts=prompts.cpu(), forced=forced,
+                         batches=batches),
+            path=ROOT, deadline=MESH_DEADLINE)
+        # the float32 and training references while the ranks run
+        try:
+            ref["f32"], _ = mesh_serve_reference(cfg, prompts, forced)
+            train_ref = mesh_train_reference(batches)
+        finally:
+            ref_s = time.perf_counter() - t0
+            ranks = world.wait()
+    world_s = time.perf_counter() - t_world
+    r0 = ranks[0]
+    # (a), (b): the limit of phase 11 against the single card's float32
+    errs, over = {}, []
+    for what, got in [("prefill", [r0["prefill_logits"]])] + [
+            (f"decode {mode}", r0[f"decode_{mode}"]["logits"])
+            for mode in ("gather", "tp2d")]:
+        # every step against phase 11's limit on the one card's bf16
+        # distance from float32 over the run (its largest step): the
+        # distances of two bf16 runs part step by step (the first run had
+        # the mesh at 0.0506 where the one card was at 0.0189 of a run
+        # whose steps span 0.0189-0.0811, PERF.md, PR 27)
+        off = 0 if what == "prefill" else 1
+        e_mesh = [_rel(g, ref["f32"][i + off]) for i, g in enumerate(got)]
+        e_one = [_rel(ref["bf16"][i + off], ref["f32"][i + off])
+                 for i in range(len(got))]
+        limit = max(2 ** -8, ROUTE_SLACK * max(e_one))
+        share = [m / limit for m in e_mesh]
+        over += [(what, i, m, limit) for i, (m, sh) in enumerate(
+            zip(e_mesh, share)) if sh > 1]
+        errs[what] = dict(
+            vs_f32=max(e_mesh), one_card_vs_f32=max(e_one),
+            vs_one_card=max(_rel(g, ref["bf16"][i + off])
+                            for i, g in enumerate(got)),
+            share_of_limit=max(share), steps_vs_f32=e_mesh,
+            steps_one_card_vs_f32=e_one,
+            steps_over_twice_the_one_card=sum(
+                m > max(2 ** -8, ROUTE_SLACK * o)
+                for m, o in zip(e_mesh, e_one)))
+        print(f"[mesh] {what}: max|d| / max|f32| a step, mesh "
+              f"{[round(x, 4) for x in e_mesh]}, one card "
+              f"{[round(x, 4) for x in e_one]}; the worst step at "
+              f"{max(share):.3f} of the limit {limit:.4g}; steps past 2x "
+              f"the one card's same step "
+              f"{errs[what]['steps_over_twice_the_one_card']}")
+    n_layers, bad = cfg.n_layers, []
+    for r in ranks:
+        want = {"flash_attention": n_layers, "flash_decode": 0}
+        if {k: r["prefill_launches"][k] for k in want} != want:
+            bad.append(("prefill launches", r["rank"], r["prefill_launches"]))
+        for mode in ("gather", "tp2d"):
+            got = r[f"decode_{mode}"]["launches"]
+            if (got["flash_decode"], got["flash_attention"]) != (
+                    n_layers * MESH_STEPS, 0):
+                bad.append((f"decode {mode} launches", r["rank"], got))
+        for flag in ("restored_bitwise",):
+            if not r["train"][flag]:
+                bad.append((flag, r["rank"]))
+        if not r["psum"]["bitwise"]:
+            bad.append(("compressed_psum not bit for bit", r["rank"]))
+        # every rank reports the same global training metrics
+        if r["train"]["metrics"] != r0["train"]["metrics"]:
+            bad.append(("train metrics differ between ranks", r["rank"]))
+    # (c): loss and grad norm within MESH_TRAIN_TOL of the single card
+    train_rel = [{k: abs(got[k] - want[k]) / abs(want[k])
+                  for k in ("loss", "grad_norm")}
+                 for got, want in zip(r0["train"]["metrics"], train_ref)]
+    bad += [("train", i, rel) for i, rel in enumerate(train_rel)
+            if max(rel.values()) > MESH_TRAIN_TOL]
+    staged = [r["staged_bytes"] for r in ranks]
+    prefill_ms = [r["prefill_ms"] for r in ranks]
+    decode_ms = {mode: [float(np.mean(r[f"decode_{mode}"]["step_ms"][1:]))
+                        for r in ranks] for mode in ("gather", "tp2d")}
+    train_ms = [r["train"]["step_ms"] for r in ranks]
+    print(f"[mesh] {MOE_ARCH} on ('data' 2, 'model' 2), B={MESH_B} "
+          f"S={MESH_S}, bf16, cache block {r0['cache_block']} a rank: "
+          f"prefill logits max|d| / max|f32| {errs['prefill']['vs_f32']:.4g}"
+          f" (one card {errs['prefill']['one_card_vs_f32']:.4g}; held: <= "
+          f"max(2^-8, {ROUTE_SLACK} x one card)); {MESH_STEPS} decode "
+          f"steps, worst step vs f32: gather "
+          f"{errs['decode gather']['vs_f32']:.4g}, tp2d "
+          f"{errs['decode tp2d']['vs_f32']:.4g} (one card "
+          f"{errs['decode gather']['one_card_vs_f32']:.4g}); launches a "
+          f"rank: flash_attention {n_layers} a prefill, flash_decode "
+          f"{n_layers * MESH_STEPS} a mode | {card}")
+    print(f"[mesh] rank 0's flash_decode_partial on its block "
+          f"({r0['partial_check']['shape']}): out max|d| vs plain "
+          f"{r0['partial_check']['max_abs_err']:.3g} (1e-5 + 1e-4|x|)")
+    print(f"[mesh] training {MESH_TRAIN_LAYERS} of {n_layers} layers, "
+          f"float32, S={MESH_TRAIN_S}, batch {MESH_TRAIN_BATCH} in "
+          f"{MESH_TRAIN_MB}: loss / grad norm mesh "
+          + ", ".join(f"{m['loss']:.6f} / {m['grad_norm']:.6f}"
+                      for m in r0["train"]["metrics"])
+          + " against one card " + ", ".join(
+              f"{m['loss']:.6f} / {m['grad_norm']:.6f}" for m in train_ref)
+          + f" (step {MESH_TRAIN_STEPS + 1} on ('data' 4, 'model' 1) after "
+          f"the restore; saved and restored onto (2, 2) bit for bit: "
+          f"{r0['train']['restored_bitwise']}; "
+          f"held within {MESH_TRAIN_TOL} relative); save "
+          f"{r0['train']['save_ms']:.0f} ms, restore "
+          f"{r0['train']['restore_ms']:.0f} ms | {card}")
+    ps = r0["psum"]
+    print(f"[mesh] compressed_psum over 4 ranks, {ps['n']} float32: bit for "
+          f"bit with its plain version on every rank; int8 wire "
+          f"{ps['wire_bytes']} B a rank against {ps['f32_ring_bytes']} B "
+          f"for a float32 ring; max|d| vs the float32 sum "
+          f"{ps['max_abs_err_vs_f32']:.4g}; {ps['ms']:.1f} ms")
+    print(f"[mesh] {MESH_TIMING} | {card}: prefill ms a rank "
+          f"{[round(x, 1) for x in prefill_ms]}; decode ms a step (mean of "
+          f"steps 2-{MESH_STEPS}) gather "
+          f"{[round(x, 2) for x in decode_ms['gather']]}, tp2d "
+          f"{[round(x, 2) for x in decode_ms['tp2d']]}; train ms a step "
+          f"{[[round(x, 1) for x in t] for t in train_ms]}; staged bytes a "
+          f"rank {staged}; the one-card references {ref_s:.1f} s, the world "
+          f"{world_s:.1f} s (the ranks' work "
+          f"{max(r['seconds'] for r in ranks):.1f} s, of it serving "
+          f"{max(r['serve_s'] for r in ranks):.1f} s)")
+    print(f"[mesh] training's relative distance from the one card a step: "
+          f"{train_rel}")
+    assert not over and not bad, (
+        "phase 13", "logits past max(2^-8, 2 x the one card's)", over, bad)
+    return dict(errs=errs, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                train_ms=train_ms, train=r0["train"]["metrics"],
+                train_ref=train_ref, staged_bytes=staged, psum=ps,
+                partial_check=r0["partial_check"],
+                cache_block=list(r0["cache_block"]),
+                launches=dict(
+                    flash_attention=sum(
+                        r["prefill_launches"]["flash_attention"]
+                        + r["train"]["flash_launches"] for r in ranks),
+                    flash_decode=sum(
+                        r[f"decode_{m}"]["launches"]["flash_decode"]
+                        for r in ranks for m in ("gather", "tp2d"))),
+                timing=MESH_TIMING, seconds=time.perf_counter() - t0)
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4368,9 +4844,12 @@ def main() -> int:
     train = phase_train(card)
     lap("10")
     moe = phase_moe(card)
+    SERVE_WORKER.close()  # phase 11's were the last serving profiles
     lap("11")
     jitted = phase_jitted(lm, mamba, train, moe, card)
     lap("12")
+    mesh = phase_mesh(card)
+    lap("13")
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
@@ -4388,6 +4867,11 @@ def main() -> int:
         moe_launches=moe["launches"]["flash_decode"],
         moe_shapes=moe["decode_shapes"])
     lm_kern["ssd_scan"].update(moe_launches=moe["launches"]["ssd_scan"])
+    # phase 13's own launches, summed over its 4 ranks
+    lm_kern["flash_attention"].update(
+        mesh_launches=mesh["launches"]["flash_attention"])
+    lm_kern["flash_decode"].update(
+        mesh_launches=mesh["launches"]["flash_decode"])
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     # the sensor fleet's own launches (phase 3b), apart from the main
@@ -4538,7 +5022,8 @@ def main() -> int:
                  per_frame=per_frame,
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
-                 train=train, moe=moe, jitted=jitted, kernels=kernels,
+                 train=train, moe=moe, jitted=jitted, mesh=mesh,
+                 kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -18,6 +18,18 @@ counts fall short of the launches dropped events.
 
 The last line is one JSON object with both children's sessions and the
 card's name and power limit; ``--out`` gets it too.
+
+    python3 scripts/profiler_probe.py --serve [--out FILE]
+
+runs instead the serving profiles of ``chip_smoke.py`` (its "serve" job:
+one prefill and one decode step of h2o-danube-1.8b, mamba2-130m,
+granite-moe-1b-a400m and internvl2-2b, one encode of hubert-xlarge, at
+the phases' full sizes) one after another in ONE child, each profile its
+own torch.profiler session, and counts the events of the kernels the
+step launched (flash_attention's ``flash_fwd``, flash_decode's
+``decode_split``, the four ``ssd_`` launches) against the launches: a
+session after the first that records fewer lost events. It prints each
+profile's host seconds (weights, warm-up and the session) and the child's.
 """
 from __future__ import annotations
 
@@ -125,14 +137,104 @@ def child(sessions: int) -> dict:
                 calls=CALLS, events_ms=events_ms, sessions=out)
 
 
+SERVE = [  # (arch, batch kind, B, S) at chip_smoke.py's sizes
+    ("h2o-danube-1.8b", "tokens", 4, 8192),
+    ("mamba2-130m", "tokens", 8, 32768),
+    ("granite-moe-1b-a400m", "tokens", 8, 4096),
+    ("internvl2-2b", "vlm", 4, 3840),
+    ("hubert-xlarge", "audio", 4, 1500),
+]
+
+
+def serve_child() -> dict:
+    """Every serving profile in this one process: per profile, the events
+    of the step's kernels against the launches it made."""
+    import time
+
+    import torch
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+
+    build.build()
+    out = []
+    t_child = time.perf_counter()
+    for arch, kind, B, S in SERVE:
+        cfg = cs.get_config(arch)
+        gen = torch.Generator("cuda").manual_seed(5)
+        if kind == "audio":
+            batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=gen,
+                                           device="cuda").bfloat16()}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                             generator=gen, device="cuda")}
+        if kind == "vlm":
+            batch["embeds"] = torch.randn(
+                (B, cfg.frontend_positions, cfg.d_model), generator=gen,
+                device="cuda").bfloat16()
+            S += cfg.frontend_positions
+        t0 = time.perf_counter()
+        res = cs.profile_job(batch, "serve", arch=arch, S=S)
+        seconds = time.perf_counter() - t0
+        attn = sum(k == "attn" for k in cfg.layer_kinds())
+        ssm = cfg.n_layers - attn
+        for step, (_, _, _, count) in res.items():
+            def events(part):
+                return sum(n for name, n in count.items() if part in name)
+
+            decode = step == "decode_step"
+            want = {"flash_fwd": 0 if decode else attn,
+                    "decode_split": attn if decode else 0,
+                    "ssd_": 0 if decode else 4 * ssm}
+            got = {k: events(k) for k in want}
+            out.append(dict(arch=arch, step=step, events=got, want=want,
+                            lost={k: want[k] - got[k] for k in want
+                                  if got[k] < want[k]},
+                            seconds=seconds))
+            print(f"  {arch} {step}: events {got} against launches {want}"
+                  f" ({seconds:.1f} s with the weights and warm-up)",
+                  flush=True)
+        del batch
+        torch.cuda.empty_cache()
+    return dict(profiles=out, child_s=time.perf_counter() - t_child)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sessions", type=int, default=6)
     ap.add_argument("--out")
     ap.add_argument("--child", action="store_true")
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--serve-child", action="store_true")
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.sessions)))
+        return 0
+    if args.serve_child:
+        print(json.dumps(serve_child()))
+        return 0
+    if args.serve:
+        import time
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, __file__, "--serve-child"],
+                              capture_output=True, text=True, timeout=1200)
+        print(proc.stdout.rsplit("\n", 2)[0])
+        if proc.returncode:
+            print(proc.stderr[-4000:])
+            return proc.returncode
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        lost = [p for p in run["profiles"] if p["lost"]]
+        result = dict(card=smi_line(), serve=run,
+                      wall_s=time.perf_counter() - t0,
+                      sessions_that_lost_events=lost)
+        print(f"one child, {len(run['profiles'])} sessions: "
+              f"{len(lost)} lost events; child {run['child_s']:.1f} s, "
+              f"wall {result['wall_s']:.1f} s")
+        if args.out:
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
         return 0
     runs = []
     for env in ({}, {"TEARDOWN_CUPTI": "0"}):

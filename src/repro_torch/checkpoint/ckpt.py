@@ -12,6 +12,12 @@ Trees are NamedTuples (the banks), dicts (in sorted key order), lists
 and tuples, with tensors, numpy arrays or scalars as leaves; ``None`` is
 an empty subtree.
 
+On a mesh (``ctx`` with a mesh and ``specs`` the tree's spec tree,
+``launch/specs.py``) ``save`` gathers the full logical arrays from every
+rank's blocks on rank 0, in host memory, and rank 0 writes them, so a
+mesh checkpoint is the same files as a one-card one; ``restore`` gives
+each rank its blocks of any mesh shape (the elastic restore).
+
 Failure contract (the serving/training loops depend on every clause):
 
 * a crash mid-save leaves only a ``.tmp_step_*`` dir — the committed
@@ -31,9 +37,11 @@ Failure contract (the serving/training loops depend on every clause):
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
+import struct
 import threading
 import warnings
 import zipfile
@@ -124,9 +132,23 @@ def _sweep_stale_tmp(root: Path) -> None:
         shutil.rmtree(p, ignore_errors=True)
 
 
-def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None
-         ) -> Path:
-    """Blocking atomic save of a tree (+ json-serializable extras)."""
+def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None,
+         ctx=None, specs=None) -> Path:
+    """Blocking atomic save of a tree (+ json-serializable extras). With
+    a mesh every rank calls it: the full arrays are gathered on rank 0,
+    which writes them; every rank returns once the step is committed."""
+    if ctx is not None and ctx.mesh is not None:
+        import torch.distributed as dist
+
+        from repro_torch.sharding import rules
+
+        full = rules.gather_tree(state, specs, ctx, dst=0)
+        final = Path(ckpt_dir) / f"step_{step:08d}"
+        if full is not None:
+            save(ckpt_dir, step, full, extra)
+        del full
+        dist.barrier()
+        return final
     root = Path(ckpt_dir)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -191,10 +213,40 @@ def _validate(manifest: Dict, like, leaves) -> None:
                 f"shape {tuple(want_shape)}")
 
 
-def _load_step(d: Path, like):
+def _stored(path: Path, n: int) -> List[np.ndarray]:
+    """The n arrays of an .npz as read-only memory maps where the zip
+    stores them uncompressed (``np.savez`` does), so a rank that restores
+    its blocks reads those pages alone; an array stored otherwise, 0-d or
+    empty is read whole."""
+    out = []
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for i in range(n):
+            info = zf.getinfo(f"a{i}.npy")
+            f.seek(info.header_offset + 26)
+            name_len, extra_len = struct.unpack("<HH", f.read(4))
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            if (info.compress_type != zipfile.ZIP_STORED or dtype.hasobject
+                    or not shape or 0 in shape):
+                out.append(np.load(io.BytesIO(zf.read(info))))
+                continue
+            out.append(np.memmap(path, dtype=dtype, mode="r",
+                                 offset=f.tell(), shape=shape,
+                                 order="F" if fortran else "C"))
+    return out
+
+
+def _load_step(d: Path, like, lazy: bool = False):
     manifest = json.loads((d / "manifest.json").read_text())
-    data = np.load(d / "arrays.npz")
-    leaves = [data[f"a{i}"] for i in range(len(manifest["names"]))]
+    n = len(manifest["names"])
+    if lazy:
+        leaves = _stored(d / "arrays.npz", n)
+    else:
+        data = np.load(d / "arrays.npz")
+        leaves = [data[f"a{i}"] for i in range(n)]
     _validate(manifest, like, leaves)
     return _unflatten(like, leaves), manifest
 
@@ -210,7 +262,7 @@ def _place(arr: np.ndarray, leaf, device):
 
 
 def restore(ckpt_dir: str, like, step: Optional[int] = None,
-            device=None) -> Tuple[Any, Dict]:
+            device=None, ctx=None, specs=None) -> Tuple[Any, Dict]:
     """Restore into the structure of `like` (a tree of tensors, arrays
     or anything with shape and dtype).
 
@@ -225,7 +277,10 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
 
     Each leaf comes back as a tensor on its ``like`` leaf's device when
     that leaf is a tensor (a numpy array otherwise); ``device``, when
-    given, puts every leaf there instead (restore onto another device)."""
+    given, puts every leaf there instead (restore onto another device).
+    With a mesh (``ctx``; ``like`` the full logical tree and ``specs`` its
+    spec tree) each leaf comes back as this rank's block, read from the
+    file's memory map (only the block's pages)."""
     explicit = step is not None
     tried: set = set()
     while True:
@@ -235,7 +290,10 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
         use = step if explicit else steps[-1]
         d = Path(ckpt_dir) / f"step_{use:08d}"
         try:
-            restored, manifest = _load_step(d, like)
+            restored, manifest = (
+                _load_step(d, like, lazy=True)
+                if ctx is not None and ctx.mesh is not None
+                else _load_step(d, like))
             break
         except CheckpointMismatchError:
             raise  # a real tree mismatch, not corruption — never retry
@@ -249,7 +307,15 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
             if not [s for s in available_steps(ckpt_dir)
                     if s not in tried]:
                 raise
-    placed = [_place(a, leaf, device) for (_, a), (_, leaf)
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.sharding import rules
+
+        restored = rules.map_specs(
+            lambda spec, a: np.array(a[rules.local_slices(spec, a.shape,
+                                                          ctx.mesh)]),
+            specs, restored, is_leaf=rules.is_spec)
+    placed = [_place(a, leaf, device)
+              for (_, a), (_, leaf)
               in zip(_flatten(restored), _flatten(like))]
     return _unflatten(like, placed), manifest["extra"]
 

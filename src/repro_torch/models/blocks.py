@@ -17,6 +17,11 @@ in ``torch.utils.checkpoint`` (non-reentrant) and keeps only its input,
 ``"selective"`` does the same but keeps the outputs of the 2-D matrix
 products (``aten.mm``: the projections against the weights), the
 counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
+
+On a mesh each layer's parameters are this rank's blocks; the layer
+gathers its FSDP dims first (``rules.fsdp_gather``, inside the recompute
+under remat), except the MoE experts', which ``apply_moe`` gathers.
+Attention and MoE take whether the batch is split over the data axes.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMCache
+from repro_torch.sharding import rules
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -79,6 +85,54 @@ def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
         p["moe"] = moe_lib.moe_init(gen, cfg.moe, cfg.d_model, cfg.act,
                                     device, dtype)
     return p
+
+
+def _layer_spec(cfg: ModelConfig, mixer: str, ffn: str) -> Dict:
+    p: Dict[str, Any] = {"norm1": L._norm_spec(cfg.norm)}
+    if mixer == "attn":
+        p["attn"] = attn_lib.attn_spec(cfg.attention)
+    else:
+        p["ssm"] = ssm_lib.ssm_spec()
+    if ffn != "none":
+        p["norm2"] = L._norm_spec(cfg.norm)
+        p["mlp" if ffn == "mlp" else "moe"] = (
+            L.mlp_spec(cfg.act) if ffn == "mlp" else moe_lib.moe_spec(cfg.act))
+    return p
+
+
+def group_spec(cfg: ModelConfig) -> Dict:
+    """The logical axes of one layer group (``param_spec`` prepends the
+    stacked "layers" axis)."""
+    return {f"layer{j}": _layer_spec(cfg, mixer, ffn)
+            for j, (mixer, ffn) in enumerate(group_plan(cfg))}
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_specs(cfg: ModelConfig, ctx) -> Tuple[Dict, Dict]:
+    """(logical axes, spec) of one group's leaves on ``ctx``'s mesh, from
+    the full shapes (``meta`` tensors)."""
+    axes = group_spec(cfg)
+    full = {f"layer{j}": _layer_init(None, cfg, mixer, ffn, "meta",
+                                     torch.float32)
+            for j, (mixer, ffn) in enumerate(group_plan(cfg))}
+    return axes, rules.tree_specs(axes, full, ctx)
+
+
+def _gather_layer(pg: Dict, cfg: ModelConfig, ctx) -> Dict:
+    """A group's leaves with the FSDP dims gathered, but the experts'."""
+    if ctx.mesh is None:
+        return pg
+    axes, specs = _layer_specs(cfg, ctx)
+    out = {}
+    for name, layer in pg.items():
+        moe = layer.get("moe")
+        rest = {k: v for k, v in layer.items() if k != "moe"}
+        out[name] = rules.fsdp_gather(
+            rest, {k: axes[name][k] for k in rest},
+            {k: specs[name][k] for k in rest}, ctx)
+        if moe is not None:
+            out[name]["moe"] = moe
+    return out
 
 
 _CACHES = (KVCache, SSMCache)
@@ -149,12 +203,13 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device,
 
 
 def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
-                 mode: str, ctx, cache, positions, cache_pos):
+                 mode: str, ctx, cache, positions, cache_pos,
+                 batch_sharded: bool = True):
     h = L.apply_norm(p["norm1"], x, cfg.norm)
     if mixer == "attn":
         out, new_cache = attn_lib.apply_attention(
             p["attn"], h, cfg.attention, positions, mode, cache, cache_pos,
-            impl=ctx.attn_impl)
+            impl=ctx.attn_impl, ctx=ctx, batch_sharded=batch_sharded)
     else:
         out, new_cache = ssm_lib.apply_ssm(p["ssm"], h, cfg.ssm, mode, cache)
     x = x + out
@@ -162,11 +217,11 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
     if ffn != "none":
         h = L.apply_norm(p["norm2"], x, cfg.norm)
         if ffn == "mlp":
-            out = L.apply_mlp(p["mlp"], h, cfg.act)
+            out = L.apply_mlp(p["mlp"], h, cfg.act, ctx, cfg.d_ff)
         else:
             cap_mode = "factor" if mode == "train" else "full"
             out, aux = moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.act, ctx,
-                                         cap_mode)
+                                         cap_mode, batch_sharded)
         x = x + out
     return x, new_cache, aux
 
@@ -188,7 +243,7 @@ REMAT = {
 
 def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
                 caches: Optional[Dict], positions, cache_pos,
-                remat: str = "selective"):
+                remat: str = "selective", batch_sharded: bool = True):
     """The layer stack. Returns (x, caches | None, aux): prefill stacks
     the layers' new caches; decode writes into ``caches`` in place and
     returns them; train returns None and recomputes each layer group in
@@ -207,12 +262,13 @@ def stack_apply(groups: Dict, x, cfg: ModelConfig, mode: str, ctx,
         def group(x, pg=pg, cg=cg):
             out = {}
             aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+            pg = _gather_layer(pg, cfg, ctx)
             for j, (mixer, ffn) in enumerate(plan):
                 name = f"layer{j}"
                 x, out[name], a = _layer_apply(
                     pg[name], x, cfg, mixer, ffn, mode, ctx,
                     cg[name] if cg is not None else None, positions,
-                    cache_pos)
+                    cache_pos, batch_sharded)
                 aux_g = aux_g + a
             return x, out, aux_g
 

@@ -21,6 +21,10 @@ def frontend_init(gen, cfg: ModelConfig, device, dtype) -> Dict:
             "norm": L.norm_init(d, cfg.norm, device, dtype)}
 
 
+def frontend_spec(cfg: ModelConfig) -> Dict:
+    return {"proj": ("embed", None), "norm": L._norm_spec(cfg.norm)}
+
+
 def apply_frontend(p: Dict, embeds: torch.Tensor, cfg: ModelConfig):
     """embeds: (B, T_front, d) precomputed patch / frame features, in the
     parameters' dtype."""

@@ -4,7 +4,27 @@ Params are plain dicts of tensors in the JAX package's layouts
 (``w_in`` (d, d_ff), ``tokens`` (vocab, d), ...), so a parameter tree
 carries over as a copy (``repro_torch.convert.lm_params_from_numpy``).
 Initializers take an explicit ``torch.Generator``; they give other
-numbers than ``jax.random`` from the same seed.
+numbers than ``jax.random`` from the same seed. Every initializer has a
+``*_spec`` giving the same tree with logical-axis tuples, which
+``sharding/rules.py`` maps to mesh axes:
+
+  "vocab"   — vocabulary dim            -> model
+  "embed"   — residual-stream dim       -> FSDP over the data axes
+  "heads"   — attention head dim        -> model
+  "kv"      — kv-head dim               -> model if divisible
+  "mlp"     — FFN hidden dim            -> model
+  "experts" — MoE expert dim            -> model (expert parallel)
+  "ssm"     — SSM inner-head dim        -> model if divisible
+  None and the *_noshard names          -> replicated
+
+On a mesh a layer gets its local blocks with the FSDP dims already
+gathered (``rules.fsdp_gather``): the embedding is vocab-parallel where
+the vocab divides the model axis (a masked lookup, one sum over
+``model``); the MLP is column-parallel in ``w_in`` / ``w_gate`` and
+row-parallel in ``w_out``, then one sum over ``model`` (the layout the
+reference's ``pin_h`` asks GSPMD for). A sum over ``model`` adds the
+ranks' parts in float32 and rounds to the activations' type once, as the
+one-card product does.
 """
 from __future__ import annotations
 
@@ -13,6 +33,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as coll
 
 
 def randn(gen: torch.Generator, shape, scale: float, device, dtype):
@@ -30,6 +52,13 @@ def norm_init(d: int, kind: str, device, dtype) -> Dict:
     p = {"scale": torch.ones((d,), device=device, dtype=dtype)}
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), device=device, dtype=dtype)
+    return p
+
+
+def _norm_spec(kind: str) -> Dict:
+    p = {"scale": ("embed_noshard",)}
+    if kind == "layernorm":
+        p["bias"] = ("embed_noshard",)
     return p
 
 
@@ -55,8 +84,36 @@ def embed_init(gen, vocab: int, d: int, device, dtype,
     return p
 
 
-def apply_embed(p: Dict, tokens: torch.Tensor, positions=None):
-    x = p["tokens"][tokens]
+def embed_spec(max_pos: int = 0) -> Dict:
+    p = {"tokens": ("vocab", "embed")}
+    if max_pos:
+        p["positions"] = (None, "embed")
+    return p
+
+
+def model_split(dim: int, ctx) -> bool:
+    """Whether a dim of ``dim`` is sharded over the model axis of ``ctx``
+    (a mesh, a model axis of more than one rank, and the dim divides)."""
+    return (ctx is not None and ctx.mesh is not None and ctx.model_size > 1
+            and dim % ctx.model_size == 0)
+
+
+def apply_embed(p: Dict, tokens: torch.Tensor, positions=None, ctx=None,
+                vocab: int = 0):
+    """The token (and learned position) embedding. On a mesh whose model
+    axis splits ``vocab``, ``p["tokens"]`` is this rank's block of rows:
+    ids outside it look up zeros, and one sum over ``model`` completes
+    the rows."""
+    table = p["tokens"]
+    if model_split(vocab, ctx):
+        lo = coll.index(ctx.mesh, ctx.model_axis) * table.shape[0]
+        local = tokens - lo
+        ok = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * ok[..., None].to(
+            table.dtype)
+        x = coll.all_reduce(x, ctx.mesh, ctx.model_axis)
+    else:
+        x = table[tokens]
     if "positions" in p and positions is not None:
         x = x + p["positions"][positions]
     return x
@@ -89,7 +146,18 @@ def mlp_init(gen, d: int, d_ff: int, act: str, device, dtype) -> Dict:
     return p
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_spec(act: str) -> Dict:
+    p = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if act == "swiglu":
+        p["w_gate"] = ("embed", "mlp")
+    return p
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, act: str, ctx=None,
+              d_ff: int = 0) -> torch.Tensor:
+    """On a mesh whose model axis splits ``d_ff``, ``p`` holds this rank's
+    columns of ``w_in`` / ``w_gate`` and rows of ``w_out``, and one sum
+    over ``model`` completes the output."""
     h = x @ p["w_in"]
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
@@ -101,4 +169,10 @@ def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise KeyError(act)
+    if model_split(d_ff, ctx):
+        # the parts summed in float32 and rounded once (the attention's
+        # output projection does the same)
+        y = coll.all_reduce(h.float() @ p["w_out"].float(), ctx.mesh,
+                            ctx.model_axis)
+        return y.to(x.dtype)
     return h @ p["w_out"]

@@ -20,9 +20,24 @@ expert index comes first (a stable descending sort, then the first k).
 The flat (token, slot) order decides each entry's queue position, and so
 which entries drop at ``"factor"`` capacity.
 
-The expert-parallel paths of the reference (the shard_map "gather" path
-and ``_apply_moe_tp2d``) need a device mesh and are not ported
-(ROADMAP.md §1): ``apply_moe`` raises for a context with a mesh.
+On a mesh (a ``ShardingContext`` from ``sharding.rules.make_context``)
+``apply_moe`` takes the reference's choice of path:
+
+  * a model axis of one rank, or experts that do not divide it: the
+    one-device path on the whole batch (the tokens gathered over the data
+    axes, the rank's block kept), as GSPMD runs the reference's;
+  * "gather" (``ShardingContext.moe_weight_mode``): the experts split
+    over ``model``, their embed dim FSDP over the data axes and gathered
+    here, one sum of the output over ``model``; the capacity comes from
+    the rank's own tokens, so at "factor" capacity other entries drop
+    than on one device, and the aux is the mean of the data blocks'
+    estimates (the reference's pmean);
+  * "tp2d" (where the FFN dim divides the data axes): the experts over
+    ``model`` x the FFN dim over the data axes, the tokens gathered whole
+    and one sum over data + ``model``.
+
+Each rank's part of the output is summed over the ranks in float32 and
+rounded to x's dtype once, as the one-device combine rounds once.
 """
 from __future__ import annotations
 
@@ -33,7 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models.layers import randn
+from repro_torch.sharding.rules import (ShardingContext, axes_of,
+                                        logical_to_spec)
 
 
 def moe_init(gen, cfg: MoEConfig, d: int, act: str, device, dtype) -> Dict:
@@ -47,6 +65,18 @@ def moe_init(gen, cfg: MoEConfig, d: int, act: str, device, dtype) -> Dict:
          "w_out": randn(gen, (E, f, d), s_out, device, dtype)}
     if act == "swiglu":
         p["w_gate"] = randn(gen, (E, d, f), s_in, device, dtype)
+    return p
+
+
+def moe_spec(act: str) -> Dict:
+    """moe_d / moe_f resolve by ``ShardingContext.moe_weight_mode``:
+    gather: moe_d -> FSDP data axes, moe_f -> replicated; tp2d: moe_d ->
+    replicated, moe_f -> the data axes."""
+    p = {"router": (None, None),
+         "w_in": ("experts", "moe_d", "moe_f"),
+         "w_out": ("experts", "moe_f", "moe_d")}
+    if act == "swiglu":
+        p["w_gate"] = ("experts", "moe_d", "moe_f")
     return p
 
 
@@ -106,9 +136,11 @@ def _dispatch(topi, E: int, capacity: int, e_first: int, e_local: int):
 
 
 def _moe_shard(x, p, cfg: MoEConfig, act: str, e_first: int, e_local: int,
-               capacity: int):
+               capacity: int, out_dtype=None):
     """MoE over x (T, d) with the experts e_first .. e_first + e_local - 1
-    of ``p``. Returns (out (T, d) in x's dtype, aux () float32)."""
+    of ``p``. Returns (out (T, d) in x's dtype, or ``out_dtype``: the
+    weighted slots summed in it, a part the mesh sums before rounding;
+    aux () float32)."""
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     probs, topw, topi = _route(x, p["router"], k)
@@ -127,7 +159,8 @@ def _moe_shard(x, p, cfg: MoEConfig, act: str, e_first: int, e_local: int,
 
     gathered = y[slot_c, pos_c]                          # (T*k, d)
     w = (topw.reshape(-1) * mine.float()).to(x.dtype)
-    out = (gathered * w[:, None]).reshape(T, k, d).sum(dim=1)
+    out = (gathered * w[:, None]).reshape(T, k, d)
+    out = out.sum(dim=1) if out_dtype is None else out.to(out_dtype).sum(1)
 
     # load-balance auxiliary (Switch-style): every routed slot counts
     frac = onehot.float().mean(dim=0) * k
@@ -137,20 +170,77 @@ def _moe_shard(x, p, cfg: MoEConfig, act: str, e_first: int, e_local: int,
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: MoEConfig, act: str,
-              ctx: Optional[object] = None,
-              capacity_mode: str = "factor"
+              ctx: Optional[ShardingContext] = None,
+              capacity_mode: str = "factor", batch_sharded: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> ((B, S, d), the aux loss, a float32 scalar).
 
-    ctx: ``repro_torch.sharding.ShardingContext`` or None. A context with
-    a mesh raises: the expert-parallel paths are not ported."""
-    if getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "apply_moe: the expert-parallel paths (a device mesh) are not "
-            "ported (ROADMAP.md §1)")
+    ctx: a ``ShardingContext`` (``make_context``) or None. With a mesh,
+    ``p`` holds this rank's blocks of the leaves (``moe_spec``'s layout)
+    and x its block of the batch (``batch_sharded``) or the whole batch;
+    the output is x's block. Any other context is refused."""
+    if ctx is not None and not isinstance(ctx, ShardingContext):
+        raise TypeError(f"apply_moe: ctx must be a ShardingContext "
+                        f"(sharding.rules.make_context), got {ctx!r}")
     B, S, d = x.shape
-    t_loc = B * S
-    cap = _capacity(cfg, t_loc, capacity_mode)
-    out, aux = _moe_shard(x.reshape(t_loc, d), p, cfg, act, 0,
-                          cfg.num_experts, cap)
+    E = cfg.num_experts
+    if ctx is None or ctx.mesh is None:
+        cap = _capacity(cfg, B * S, capacity_mode)
+        out, aux = _moe_shard(x.reshape(B * S, d), p, cfg, act, 0, E, cap)
+        return out.reshape(B, S, d), aux
+    mesh, data, model = ctx.mesh, ctx.data_axes, ctx.model_axis
+    if ctx.model_size == 1 or E % ctx.model_size:
+        # the reference's one-device path runs on the global batch
+        xg = coll.all_gather(x, mesh, data, 0) if batch_sharded else x
+        p = _gather_data(p, ctx, E, d, cfg.d_ff_expert, ("moe_d", "moe_f"))
+        cap = _capacity(cfg, xg.shape[0] * S, capacity_mode)
+        out, aux = _moe_shard(xg.reshape(-1, d), p, cfg, act, 0, E, cap)
+        return _own_rows(out.reshape(-1, S, d), ctx, batch_sharded), aux
+    e_local = E // ctx.model_size
+    e_first = coll.index(mesh, model) * e_local
+    if (ctx.moe_weight_mode == "tp2d"
+            and cfg.d_ff_expert % ctx.data_size == 0 and ctx.data_size > 1):
+        # tokens whole on every rank; the output partial over the experts
+        # (model) and the FFN dim (data): one sum over the whole mesh
+        xg = coll.all_gather(x, mesh, data, 0) if batch_sharded else x
+        cap = _capacity(cfg, xg.shape[0] * S, capacity_mode)
+        out, aux = _moe_shard(xg.reshape(-1, d), p, cfg, act, e_first,
+                              e_local, cap, torch.float32)
+        out = coll.all_reduce(out, mesh, data + (model,)).to(x.dtype)
+        return _own_rows(out.reshape(-1, S, d), ctx, batch_sharded), aux
+    p = _gather_data(p, ctx, E, d, cfg.d_ff_expert, ("moe_d",))
+    cap = _capacity(cfg, B * S, capacity_mode)
+    out, aux = _moe_shard(x.reshape(B * S, d), p, cfg, act, e_first, e_local,
+                          cap, torch.float32)
+    out = coll.all_reduce(out, mesh, model).to(x.dtype)
+    if batch_sharded:
+        # the mean of the data blocks' estimates
+        aux = coll.all_reduce(aux, mesh, data) / ctx.data_size
     return out.reshape(B, S, d), aux
+
+
+def _gather_data(p: Dict, ctx: ShardingContext, E: int, d: int, f: int,
+                 names: Tuple[str, ...]):
+    """The expert weights with their ``names`` dims (moe_d, moe_f)
+    gathered over the data axes where they are split there (the gather's
+    backward reduce-scatters)."""
+    shapes = {"moe_d": d, "moe_f": f, "experts": E}
+    out = dict(p)
+    for name, axes in moe_spec("swiglu").items():
+        if name not in p or name == "router":
+            continue
+        spec = logical_to_spec(axes, tuple(shapes[a] for a in axes), ctx)
+        for dim, (a, e) in enumerate(zip(axes, spec)):
+            if a in names and axes_of(e) == ctx.data_axes:
+                out[name] = coll.all_gather(out[name], ctx.mesh,
+                                            ctx.data_axes, dim)
+    return out
+
+
+def _own_rows(out, ctx: ShardingContext, batch_sharded: bool):
+    """This rank's block of a whole batch's rows."""
+    if not batch_sharded:
+        return out
+    blk = out.shape[0] // ctx.data_size
+    i = coll.index(ctx.mesh, ctx.data_axes)
+    return out[i * blk:(i + 1) * blk]

@@ -69,6 +69,22 @@ def ssm_init(gen, cfg: SSMConfig, d: int, device, dtype) -> Dict:
     }
 
 
+def ssm_spec() -> Dict:
+    return {"wz": ("embed", "ssm", None),
+            "wx": ("embed", "ssm", None),
+            "wB": ("embed", None),
+            "wC": ("embed", None),
+            "wdt": ("embed", "ssm_noshard"),
+            "conv_x": (None, "ssm", None),
+            "conv_B": (None, None),
+            "conv_C": (None, None),
+            "A_log": ("ssm_noshard",),
+            "D": ("ssm_noshard",),
+            "dt_bias": ("ssm_noshard",),
+            "norm_scale": ("ssm", None),
+            "w_out": ("ssm", None, "embed")}
+
+
 def _causal_conv(x, w, tail: Optional[torch.Tensor] = None):
     """Depthwise causal conv via shifted adds (width is small), in x's
     dtype: not ``conv1d``, which goes through cuDNN (TF32 by default).

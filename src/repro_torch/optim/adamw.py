@@ -87,10 +87,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` in place to a global norm of at most ``max_norm``.
-    Returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    Returns (grads, the norm before clipping). ``norm``, when given, is
+    that norm (on a mesh: of the full logical gradients,
+    ``launch.steps.mesh_global_norm``)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)

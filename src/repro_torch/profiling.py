@@ -14,6 +14,13 @@ card), ``spec`` as JSON. The child imports ``target``
 calls ``function(tensors, **spec)`` and prints its JSON result as its
 last line, which ``fresh`` returns. ``call_events`` is a ready job: the
 kernel events of calls of one function.
+
+``Worker`` keeps one such child for a series of jobs (``python -m
+repro_torch.profiling --worker``, a job a line on its standard input, its
+result a line back): the serving profiles of ``chip_smoke.py``, five
+archs' prefills and decode steps in nine sessions, keep every kernel
+event in one child (``scripts/profiler_probe.py --serve``), and one child
+saves a process start and its imports a profile.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
+import traceback
 from pathlib import Path
 
 import torch
@@ -86,6 +95,81 @@ def fresh(target: str, tensors=None, path=None, timeout: float = 900,
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+class Worker:
+    """One child process on the card that runs jobs ("module:function",
+    tensors, spec) one after another, started at the first job; ``close``
+    ends it. A job that raises in the child raises here with its
+    traceback."""
+
+    MARK = "@@repro-job@@ "
+
+    def __init__(self, path=None, timeout: float = 900):
+        self.path, self.timeout = path, timeout
+        self.proc = self.tmp = None
+
+    def run(self, target: str, tensors=None, **spec):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if self.proc is None:
+            self.tmp = tempfile.TemporaryDirectory()
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                              if p]))
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.profiling", "--worker"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                env=env)
+        path = Path(self.tmp.name) / "tensors.pt"
+        torch.save(tensors, path)
+        self.proc.stdin.write(json.dumps(dict(
+            target=target, spec=spec, tensors=str(path),
+            path=None if self.path is None else str(self.path))) + "\n")
+        self.proc.stdin.flush()
+        t_end = time.monotonic() + self.timeout
+        while True:
+            line = self.proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"job child ended during {target} {spec}")
+            if line.startswith(self.MARK):
+                break
+            if time.monotonic() > t_end:
+                self.close()
+                raise TimeoutError(f"{target} {spec} past {self.timeout} s")
+        out = json.loads(line[len(self.MARK):])
+        if "error" in out:
+            raise RuntimeError(f"job child {target} {spec} failed:\n"
+                               f"{out['error']}")
+        return out["result"]
+
+    def close(self) -> None:
+        if self.proc is not None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.proc = None
+        if self.tmp is not None:
+            self.tmp.cleanup()
+            self.tmp = None
+
+
+def _worker() -> None:
+    for line in sys.stdin:
+        job = json.loads(line)
+        if job["path"] and job["path"] not in sys.path:
+            sys.path.insert(0, job["path"])
+        try:
+            tensors = torch.load(job["tensors"], map_location="cuda")
+            out = dict(result=_resolve(job["target"])(tensors, **job["spec"]))
+            del tensors
+            torch.cuda.empty_cache()
+        except Exception:  # noqa: BLE001 - the parent raises it
+            out = dict(error=traceback.format_exc())
+        print(Worker.MARK + json.dumps(out), flush=True)
+
+
 def _child(tmp: str) -> None:
     job = json.loads((Path(tmp) / "job.json").read_text())
     if job["path"]:
@@ -96,4 +180,7 @@ def _child(tmp: str) -> None:
 
 
 if __name__ == "__main__":
-    _child(sys.argv[1])
+    if sys.argv[1] == "--worker":
+        _worker()
+    else:
+        _child(sys.argv[1])

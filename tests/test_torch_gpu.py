@@ -44,8 +44,14 @@ for bit with the uninterrupted run, one frame launch a dispatch or a
 replayed WAL frame. flash_attention's gradient through the kernel's
 forward bit for bit with the plain forward's (and the float64 oracle in
 float32, a ragged tail included); the IMM scan on the saved lane of
-tests/data/imm_scan_lane.npz bit for bit with its plain version. Needs an
-NVIDIA GPU; run
+tests/data/imm_scan_lane.npz bit for bit with its plain version. The mesh
+paths on 2 ranks of a ``gloo`` world on the one card
+(``tests/_torch_mesh_worker.py:card_job``): ``apply_moe`` with the experts
+split over 'model' and in "tp2d" mode on a 'data' axis of 2, reduced
+granite-moe decoded on flash_decode over a cache whose sequence is split
+over 'model' (and, for a batch of 1, over 'data'), each against the same
+call in one process on the card; ``compressed_psum`` bit for bit with its
+plain version. Needs an NVIDIA GPU; run
 with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
@@ -1576,3 +1582,100 @@ def test_imm_scan_lane_kernel_is_its_plain_version(cuda):
         plain = ops.katana_imm_sequence(imm, zs, x0, P0, **kw)
     same = (kern == plain) | (torch.isnan(kern) & torch.isnan(plain))
     assert bool(same.all())
+
+
+# -- the mesh paths on 2 ranks of one card ---------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_on_card(tmp_path_factory):
+    """Every case of ``card_job`` in one 2-rank ``gloo`` world on the card
+    (a deadline of 300 s), and the inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from _torch_mesh_worker import make_inputs
+    from repro_torch.launch import local_world
+
+    d = tmp_path_factory.mktemp("card_mesh")
+    inp = make_inputs(np.random.default_rng(0))
+    np.savez(d / "inputs.npz", **inp)
+    ranks = local_world.run("_torch_mesh_worker:card_job", 2,
+                            dict(inputs=str(d / "inputs.npz")),
+                            path=Path(__file__).resolve().parent,
+                            deadline=300)
+    return inp, ranks
+
+
+def _card_params(inp, prefix):
+    from _mesh_cases import unflat
+
+    return {k: (_card_params(v, "") if isinstance(v, dict)
+                else torch.as_tensor(v).cuda())
+            for k, v in (unflat(inp, prefix) if prefix else inp).items()}
+
+
+@pytest.mark.parametrize("cap", ["full", "factor"])
+@pytest.mark.parametrize("act", ["swiglu", "squared_relu"])
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_mesh_moe_on_card_matches_one_process(mesh_on_card, mesh, act, cap):
+    """Tolerance: 1e-5 + 1e-4|x| (the experts' partial sums add in another
+    order). Experts split over 'model' (1 x 2, "gather"): with one data
+    block the capacity is the whole batch's, so one process's output;
+    "tp2d" on a model axis of one rank (2 x 1) is the reference's one-device
+    path on the gathered batch."""
+    from _mesh_cases import MOE_CFG
+    from repro_torch.configs.base import MoEConfig
+
+    inp, ranks = mesh_on_card
+    p = _card_params(inp, f"moe/{act}/p/")
+    x = torch.as_tensor(inp[f"moe/{act}/x"]).cuda()
+    want, aux = moe_lib.apply_moe(p, x, MoEConfig(**MOE_CFG), act, None, cap)
+    for r in ranks:
+        key = f"moe/{mesh}/{act}/{cap}"
+        torch.testing.assert_close(r[key], want.cpu(), atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(r[key + "/aux"], aux.cpu(), atol=1e-6,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("mesh,B", [("1x2", 4), ("2x1", 1)])
+def test_mesh_decode_on_card_matches_one_process(mesh_on_card, mesh, B):
+    """Tolerance: 1e-5 + 1e-5|x|. Reduced granite-moe in float32 on
+    attn_impl "flash": the prefill and 3 teacher-forced decode steps over
+    the sequence-split cache (each rank's flash_decode_partial on its
+    block, the partials merged) against one process on the card; each
+    rank launches flash_decode once a layer a step."""
+    from _mesh_cases import LM_REDUCE
+
+    inp, ranks = mesh_on_card
+    cfg = reduced(get_config("granite-moe-1b-a400m"), **LM_REDUCE)
+    params = _card_params(inp, "lm/granite-moe-1b-a400m/p/")
+    tokens = torch.as_tensor(inp[f"card/{B}/tokens"]).long().cuda()
+    forced = torch.as_tensor(inp[f"card/{B}/forced"]).long().cuda()
+    ctx = ShardingContext(attn_impl="flash")
+    logits, caches = make_prefill_step(cfg, ctx)(params, {"tokens": tokens})
+    want = [logits]
+    for i in range(forced.shape[1]):
+        logits, caches = make_decode_step(cfg, ctx)(
+            params, {"token": forced[:, i:i + 1],
+                     "cache_pos": tokens.shape[1] + i}, caches)
+        want.append(logits)
+    names = ["prefill"] + [f"decode{i}" for i in range(forced.shape[1])]
+    for r in ranks:
+        for name, w in zip(names, want):
+            torch.testing.assert_close(r[f"lm/{mesh}/{name}"], w.cpu(),
+                                       atol=1e-5, rtol=1e-5)
+        assert r[f"lm/{mesh}/flash_decode"] == cfg.n_layers * len(names[1:])
+
+
+def test_mesh_compressed_psum_on_card(mesh_on_card):
+    """Tolerance: none. compressed_psum over 2 ranks of the card equals
+    its plain version (the int8 codes summed on one rank, times the
+    scale); the ranks' CUDA tensors went through host buffers."""
+    inp, ranks = mesh_on_card
+    x = torch.as_tensor(inp["psum/x"])
+    rows = x.shape[0] // 2
+    smax = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / smax), -127, 127).to(torch.int8)
+    plain = (q[:rows].float() + q[rows:].float()) * smax
+    for r in ranks:
+        assert torch.equal(r["psum"], plain.repeat(2, 1))
+        assert r["staged_bytes"] > 0

@@ -1,0 +1,159 @@
+"""The port's mesh paths in a 4-process ``gloo`` world on the CPU, held
+against the JAX package on a mesh of 4 XLA host devices.
+
+The module spawns the world once (``_torch_mesh_worker.worker`` on 4
+ranks through ``repro_torch.launch.local_world``) and the reference once
+(``_jax_mesh_reference.py`` under
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``), side by side,
+from one numpy input file, with one deadline: past it every child is
+killed and the tests fail, so a deadlock cannot hang the suite. The
+parametrised tests then read both results.
+
+The cases, on a ('data' 2, 'model' 2) mesh unless named:
+
+  * ``apply_moe`` "gather" and "tp2d" at float32, swiglu and
+    squared_relu, capacity "full" and "factor", with a router skewed to
+    one expert so that "factor" drops entries: the local capacity of the
+    gather path drops other entries than one device does, and its aux is
+    the mean of the data blocks' estimates (atol 1e-5, rtol 1e-4, as
+    ``tests/test_sharding.py:124``);
+  * ``compressed_psum`` over 4 ranks, bit for bit with the reference and
+    with its plain version; ``ef_compress`` on the mesh (each leaf's
+    scale from the full tensor's max), bit for bit;
+  * reduced granite-moe-1b-a400m ("gather" and "tp2d") and granite-20b
+    (MQA, kv replicated; also a batch of 1, the cache's sequence over data
+    + model) prefilled and decoded 4 steps with ``attn_impl="flash"``
+    (the kernels' plain versions on the CPU), teacher-forced, the logits
+    within 1e-5;
+  * reduced granite-moe trained 3 float32 steps on (2, 2), saved from the
+    mesh, restored onto (4, 1) and onto (1, 4) bit for bit and trained 2
+    more steps on each (``tests/test_sharding.py:150`` at 4 devices):
+    metrics within 1e-5 relative, the master weights within 1e-5 of each
+    leaf's largest entry;
+  * ``make_production_mesh`` refused in a world of 4.
+"""
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+import _mesh_cases as mc
+from _torch_mesh_worker import make_inputs
+from repro_torch.launch import local_world
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DEADLINE = 180.0  # seconds for the world and the reference together
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh")
+    inputs = d / "inputs.npz"
+    np.savez(inputs, **make_inputs(np.random.default_rng(0)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(HERE), "src"), HERE,
+         os.environ.get("PYTHONPATH", "")]),
+        XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    t_end = time.monotonic() + DEADLINE
+    with open(d / "reference.log", "w") as log:
+        ref = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "_jax_mesh_reference.py"),
+             str(inputs), str(d / "reference.npz")], env=env, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            port = local_world.run(
+                "_torch_mesh_worker:worker", mc.WORLD,
+                dict(inputs=str(inputs), outdir=str(d)), path=HERE,
+                deadline=DEADLINE)[0]
+            ref.wait(timeout=max(1.0, t_end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pytest.fail(f"the reference passed the {DEADLINE:.0f} s "
+                        "deadline")
+        finally:
+            if ref.poll() is None:
+                os.killpg(ref.pid, signal.SIGKILL)
+                ref.wait()
+    if ref.returncode != 0:
+        pytest.fail("the reference failed:\n"
+                    + (d / "reference.log").read_text()[-3000:])
+    return port, dict(np.load(d / "reference.npz"))
+
+
+@pytest.mark.parametrize("mode,act,cap", mc.MOE_CASES)
+def test_apply_moe_on_the_mesh_matches_the_reference(results, mode, act,
+                                                     cap):
+    port, ref = results
+    name = f"moe/{mode}/{act}/{cap}"
+    np.testing.assert_allclose(port[name + "/out"], ref[name + "/out"],
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(port[name + "/aux"], ref[name + "/aux"],
+                               atol=1e-5, rtol=1e-4)
+    one, one_aux = port[name + "/one_device"], port[name + "/one_device_aux"]
+    if mode == "gather" and cap == "factor":
+        # the local queues (128 entries a data block, capacity 80) drop
+        # other entries than one device's (256, capacity 160), and the aux
+        # is the mean of the blocks' estimates: both packages differ from
+        # one device alike
+        assert np.abs(port[name + "/out"] - one).max() > 1e-3
+        assert np.abs(ref[name + "/out"] - one).max() > 1e-3
+        assert abs(float(port[name + "/aux"]) - float(one_aux)) > 1e-4
+    elif mode == "tp2d":
+        # tp2d's capacity and aux are the whole batch's: one device's
+        np.testing.assert_allclose(port[name + "/out"], one, atol=1e-5,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(port[name + "/aux"], one_aux, rtol=1e-5)
+
+
+def test_compressed_psum_is_bit_for_bit(results):
+    port, ref = results
+    np.testing.assert_array_equal(port["psum"], ref["psum"])
+    np.testing.assert_array_equal(port["psum"], port["psum_plain"])
+
+
+def test_ef_compress_takes_the_full_tensors_max(results):
+    port, ref = results
+    keys = [k for k in ref if k.startswith("ef/")]
+    assert len(keys) > 10
+    for k in keys:
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch,B,mode", mc.LM_CASES)
+def test_prefill_and_decode_on_the_mesh(results, arch, B, mode):
+    port, ref = results
+    name = f"lm/{arch}/{B}/{mode}"
+    steps = ["prefill"] + [f"decode{i}" for i in range(mc.DECODE_STEPS)]
+    for s in steps:
+        assert port[f"{name}/{s}"].shape == ref[f"{name}/{s}"].shape
+        np.testing.assert_allclose(port[f"{name}/{s}"], ref[f"{name}/{s}"],
+                                   atol=1e-5, rtol=1e-5, err_msg=s)
+
+
+@pytest.mark.parametrize("leg", [leg for leg, _, _ in mc.TRAIN_LEGS])
+def test_training_across_mesh_shapes(results, leg):
+    port, ref = results
+    steps = dict((k, n) for k, _, n in mc.TRAIN_LEGS)[leg]
+    for i in range(steps):
+        for k in mc.TRAIN_METRICS:
+            key = f"train/{leg}/{i}/{k}"
+            got, want = port[key], ref[key]
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12,
+                                       err_msg=f"step {i} {k}")
+    masters = [k for k in ref if k.startswith(f"train/{leg}/master/")]
+    assert masters
+    for k in masters:
+        err = np.abs(port[k] - ref[k]).max() / np.abs(ref[k]).max()
+        assert err <= 1e-5, (k, err)
+    if leg == "a":
+        assert bool(port["train/a/saved_bitwise"])
+    else:
+        assert bool(port[f"train/{leg}/restored_bitwise"])
+
+
+def test_production_mesh_needs_its_world(results):
+    port, _ = results
+    assert "needs 256 ranks" in str(port["production_mesh_refused"])
