@@ -212,12 +212,27 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      bit with its plain version, its int8 wire bytes against a float32
      ring's; the ms a prefill, decode step and train step of each rank
      and its staged bytes, labelled as a correctness run;
+  13b. the SSM mixer and the frontends on the same mesh, each against the
+     single card's same call on the same weights: (a) mamba2-130m's bf16
+     prefill of B=8 x S=8192 (24 ssd_scan launches a rank, each on the
+     rank's 4 rows and 12 of 24 heads; rank 0's layer-0 call against the
+     plain versions by phase 8's rule) and 32 teacher-forced decode steps
+     on each rank's block of the SSM state (no launch); (b) mamba2-130m
+     trained in float32 (S=2048, batch 8 in 2 microbatches, 2 steps, FSDP
+     on): loss and grad norm within 1e-4 relative; (c) internvl2-2b served
+     on 4 x (256 patch embeddings + 3,840 tokens), 32 decode steps (24
+     flash_attention a prefill, 24 flash_decode_partial a step a rank);
+     (d) hubert-xlarge encoding 4 x 1,500 frames (48 flash_attention a
+     rank); every prefill, decode step and encode within max(2^-8, 2x) the
+     single card's bf16 distance from float32; the ms of each step a rank
+     and the bytes staged a rank, labelled as a correctness run;
   14. one JSON line with the kernel table (row flash_attention also
      carries the training launches and the backward times; rows
      flash_attention, flash_decode and ssd_scan phase 11's launches, and
      the first two phase 11's shapes; rows katana_frame, katana_imm_frame
      and greedy_assign phase 12's; rows flash_attention and flash_decode
-     phase 13's, summed over its ranks), then the status line.
+     phase 13's, and those and ssd_scan phase 13b's, summed over the
+     ranks), then the status line.
 """
 from __future__ import annotations
 
@@ -4364,29 +4379,59 @@ def _mesh_train_cfg():
                                n_layers=MESH_TRAIN_LAYERS)
 
 
-def mesh_serve_reference(cfg, prompts, forced=None):
-    """The single card on seed 0's weights: a flash prefill and MESH_STEPS
-    decode steps, greedy in bf16 (their input tokens are the mesh's
-    forced ones), or in float32 on ``forced``. Returns the logits of every
-    step (host) and the tokens."""
+def mesh_serve_reference(cfg, batch, S, steps, forced=None):
+    """The single card on seed 0's weights: a flash prefill of ``batch``
+    (S positions) and ``steps`` decode steps, greedy in bf16 (their input
+    tokens are the mesh's forced ones), or in float32 on ``forced``.
+    Returns the logits of every step (host) and the tokens."""
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
                          torch.bfloat16)
     if forced is not None:
         params = _tree_map(lambda t: t.float(), params)
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
     ctx = ShardingContext(attn_impl="flash")
     prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
-    logits, caches = prefill(params, {"tokens": prompts})
+    logits, caches = prefill(params, batch)
     out, toks = [logits.float().cpu()], []
-    for i in range(MESH_STEPS):
+    for i in range(steps):
         tok = (logits[:, -1].argmax(-1, keepdim=True) if forced is None
                else forced[:, i:i + 1].to(DEV))
         toks.append(tok)
-        logits, caches = decode(params, {"token": tok,
-                                         "cache_pos": MESH_S + i}, caches)
+        logits, caches = decode(params, {"token": tok, "cache_pos": S + i},
+                                caches)
         out.append(logits.float().cpu())
     del params, caches
     torch.cuda.empty_cache()
     return out, torch.cat(toks, dim=1).cpu()
+
+
+def hold_steps(what, got, one, f32, errs, over):
+    """Every step's logits of the mesh (``got``) held to phase 11's limit
+    on the one card's bf16 distance (``one``) from float32 (``f32``) over
+    the run, its largest step: the distances of two bf16 runs part step by
+    step (the first run had the mesh at 0.0506 where the one card was at
+    0.0189 of a run whose steps span 0.0189-0.0811, PERF.md §6).
+    Records the distances in ``errs[what]`` and each step past the limit
+    in ``over``."""
+    e_mesh = [_rel(g, w) for g, w in zip(got, f32)]
+    e_one = [_rel(o, w) for o, w in zip(one, f32)]
+    limit = max(2 ** -8, ROUTE_SLACK * max(e_one))
+    share = [m / limit for m in e_mesh]
+    over += [(what, i, m, limit) for i, (m, sh) in enumerate(
+        zip(e_mesh, share)) if sh > 1]
+    errs[what] = dict(
+        vs_f32=max(e_mesh), one_card_vs_f32=max(e_one),
+        vs_one_card=max(_rel(g, o) for g, o in zip(got, one)),
+        share_of_limit=max(share), steps_vs_f32=e_mesh,
+        steps_one_card_vs_f32=e_one, steps=len(e_mesh),
+        steps_over_twice_the_one_card=sum(
+            m > max(2 ** -8, ROUTE_SLACK * o) for m, o in zip(e_mesh, e_one)))
+    print(f"[mesh] {what}: max|d| / max|f32| a step, mesh "
+          f"{[round(x, 4) for x in e_mesh]}, one card "
+          f"{[round(x, 4) for x in e_one]}; the worst step at "
+          f"{max(share):.3f} of the limit {limit:.4g}; steps past 2x the one "
+          f"card's same step {errs[what]['steps_over_twice_the_one_card']}")
 
 
 def mesh_train_reference(batches):
@@ -4623,7 +4668,8 @@ def phase_mesh(card):
                                              seed=0).next_batch()["tokens"],
                               device=DEV).long()
     ref = {}
-    ref["bf16"], forced = mesh_serve_reference(cfg, prompts)
+    ref["bf16"], forced = mesh_serve_reference(cfg, {"tokens": prompts},
+                                               MESH_S, MESH_STEPS)
     data = LMDataPipeline(cfg.vocab, MESH_TRAIN_S, MESH_TRAIN_BATCH, seed=2,
                           microbatches=MESH_TRAIN_MB)
     batches = [data.next_batch() for _ in range(MESH_TRAIN_STEPS + 1)]
@@ -4636,7 +4682,8 @@ def phase_mesh(card):
             path=ROOT, deadline=MESH_DEADLINE)
         # the float32 and training references while the ranks run
         try:
-            ref["f32"], _ = mesh_serve_reference(cfg, prompts, forced)
+            ref["f32"], _ = mesh_serve_reference(cfg, {"tokens": prompts},
+                                                 MESH_S, MESH_STEPS, forced)
             train_ref = mesh_train_reference(batches)
         finally:
             ref_s = time.perf_counter() - t0
@@ -4645,37 +4692,11 @@ def phase_mesh(card):
     r0 = ranks[0]
     # (a), (b): the limit of phase 11 against the single card's float32
     errs, over = {}, []
-    for what, got in [("prefill", [r0["prefill_logits"]])] + [
-            (f"decode {mode}", r0[f"decode_{mode}"]["logits"])
-            for mode in ("gather", "tp2d")]:
-        # every step against phase 11's limit on the one card's bf16
-        # distance from float32 over the run (its largest step): the
-        # distances of two bf16 runs part step by step (the first run had
-        # the mesh at 0.0506 where the one card was at 0.0189 of a run
-        # whose steps span 0.0189-0.0811, PERF.md, PR 27)
-        off = 0 if what == "prefill" else 1
-        e_mesh = [_rel(g, ref["f32"][i + off]) for i, g in enumerate(got)]
-        e_one = [_rel(ref["bf16"][i + off], ref["f32"][i + off])
-                 for i in range(len(got))]
-        limit = max(2 ** -8, ROUTE_SLACK * max(e_one))
-        share = [m / limit for m in e_mesh]
-        over += [(what, i, m, limit) for i, (m, sh) in enumerate(
-            zip(e_mesh, share)) if sh > 1]
-        errs[what] = dict(
-            vs_f32=max(e_mesh), one_card_vs_f32=max(e_one),
-            vs_one_card=max(_rel(g, ref["bf16"][i + off])
-                            for i, g in enumerate(got)),
-            share_of_limit=max(share), steps_vs_f32=e_mesh,
-            steps_one_card_vs_f32=e_one,
-            steps_over_twice_the_one_card=sum(
-                m > max(2 ** -8, ROUTE_SLACK * o)
-                for m, o in zip(e_mesh, e_one)))
-        print(f"[mesh] {what}: max|d| / max|f32| a step, mesh "
-              f"{[round(x, 4) for x in e_mesh]}, one card "
-              f"{[round(x, 4) for x in e_one]}; the worst step at "
-              f"{max(share):.3f} of the limit {limit:.4g}; steps past 2x "
-              f"the one card's same step "
-              f"{errs[what]['steps_over_twice_the_one_card']}")
+    hold_steps("prefill", [r0["prefill_logits"]], ref["bf16"][:1],
+               ref["f32"][:1], errs, over)
+    for mode in ("gather", "tp2d"):
+        hold_steps(f"decode {mode}", r0[f"decode_{mode}"]["logits"],
+                   ref["bf16"][1:], ref["f32"][1:], errs, over)
     n_layers, bad = cfg.n_layers, []
     for r in ranks:
         want = {"flash_attention": n_layers, "flash_decode": 0}
@@ -4767,6 +4788,372 @@ def phase_mesh(card):
                 timing=MESH_TIMING, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13b: the SSM mixer and the frontends on the mesh. mamba2-130m served
+# (phase 8's arch, S cut) and trained, internvl2-2b served and hubert-xlarge
+# encoded (phase 11's shapes) on phase 13's ('data' 2, 'model' 2) mesh of 4
+# ranks on the one H100 over ``gloo``, each held to the single card's same
+# call on the same seeded weights. Serving's weights are not FSDP-split
+# (phase 13's rule), training's are.
+# ---------------------------------------------------------------------------
+
+# S cut from phase 8's 32,768: each layer's float32 partial sum crosses
+# gloo at 0.26-0.62 GB/s (PERF.md §6)
+MF_SSM_B, MF_SSM_S, MF_SSM_STEPS = MAMBA_B, 8192, MAMBA_STEPS
+MF_TRAIN_S, MF_TRAIN_BATCH, MF_TRAIN_STEPS = 2048, 8, 2
+MF_DEADLINE = 300.0
+
+
+def _mf_inputs():
+    """The prompts of (a), (c), (d) on the card and (b)'s batches."""
+    gen = torch.Generator(DEV).manual_seed(5)
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    mamba = get_config(MAMBA_ARCH)
+    data = LMDataPipeline(mamba.vocab, MF_TRAIN_S, MF_TRAIN_BATCH, seed=2,
+                          microbatches=MESH_TRAIN_MB)
+    return dict(
+        mamba={"tokens": torch.as_tensor(LMDataPipeline(
+            mamba.vocab, MF_SSM_S, MF_SSM_B, seed=0).next_batch()["tokens"],
+            device=DEV).long()},
+        vlm={"embeds": torch.randn(
+                (VLM_B, vlm.frontend_positions, vlm.d_model), generator=gen,
+                device=DEV).bfloat16(),
+             "tokens": torch.as_tensor(LMDataPipeline(
+                 vlm.vocab, VLM_TEXT, VLM_B, seed=1).next_batch()["tokens"],
+                 device=DEV).long()},
+        audio={"embeds": torch.randn((AUDIO_B, AUDIO_S, audio.d_model),
+                                     generator=gen, device=DEV).bfloat16()},
+        batches=[data.next_batch() for _ in range(MF_TRAIN_STEPS)])
+
+
+def _mf_serve(mesh, arch, batch, forced, spy=None):
+    """One rank's prefill of ``batch`` and the decode steps fed ``forced``
+    on the mesh (bf16, flash): each step's logits (every rank holds the
+    global ones), ms a step and the launches of the prefill and of the
+    decode steps, the counters reset just before each and read just
+    after. ``spy`` wraps ssd_scan in the prefill (it launches nothing of
+    its own)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.sharding import rules
+
+    cfg = get_config(arch)
+    ctx = rules.make_context(mesh, fsdp=MESH_SERVE_FSDP, attn_impl="flash")
+    params = rules.shard_tree(
+        init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                    torch.bfloat16), specs_lib.param_shardings(cfg, ctx),
+        ctx)
+    torch.cuda.empty_cache()
+    prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
+    prefill(params, {k: v[:, :64] for k, v in batch.items()})  # warm up
+    S = sum(v.shape[1] for v in batch.values())
+    _reset_lm_launches()
+    dist.barrier()
+    with (mock.patch.object(ssm_lib.ops, "ssd_scan", spy) if spy
+          else contextlib.nullcontext()):
+        (logits, caches), prefill_ms = _synced_ms(
+            lambda: prefill(params, batch))
+    out = dict(prefill_ms=prefill_ms, prefill_launches=_launch_counts(),
+               logits=[logits.float().cpu()], step_ms=[],
+               cache_block=[list(t.shape) for t in caches["layer0"]])
+    forced = forced.to(DEV)
+    _reset_lm_launches()
+    for i in range(forced.shape[1]):
+        (logits, caches), t = _synced_ms(lambda: decode(
+            params, {"token": forced[:, i:i + 1], "cache_pos": S + i},
+            caches))
+        out["logits"].append(logits.float().cpu())
+        out["step_ms"].append(t)
+    out["decode_launches"] = _launch_counts()
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mf_ssd_check(args, kw):
+    """Rank 0's ssd_scan on layer 0's prefill inputs (its block of rows and
+    its 12 of 24 heads) against the plain versions, phase 8's rule: y
+    within one bf16 ulp of the hi/lo plain version and of the float32 one,
+    the state within 1e-4 of its scale."""
+    cfg = get_config(MAMBA_ARCH)
+    _, H, P = ssm_lib.ssm_dims(cfg.ssm, cfg.d_model)
+    x, dt, Bm, Cm, A = args[:5]
+    assert x.shape == (MF_SSM_B // MESH_SHAPE[0], MF_SSM_S,
+                       H // MESH_SHAPE[1], P), x.shape
+    Q = min(cfg.ssm.chunk, MF_SSM_S)
+    y, st = ssd_ops.ssd_scan(*args, **kw)
+    y_p, st_p = ssd_ref.ssd_scan_hilo_plain(x, dt, Bm, Cm, A, Q)
+    y_f, st_f = ssd_ref.ssd_scan_plain(x, dt, Bm, Cm, A, Q)
+    out = dict(shape=list(x.shape), ulps=bf16_ulp_excess(y, y_p),
+               state_rel_err=_rel(st, st_p),
+               ulps_vs_f32_plain=bf16_ulp_excess(y, y_f),
+               state_rel_err_vs_f32_plain=_rel(st, st_f),
+               max_abs_err=max_diff(y, y_p))
+    assert (out["ulps"] <= 1.0 and out["state_rel_err"] <= 1e-4
+            and out["ulps_vs_f32_plain"] <= 1.0
+            and out["state_rel_err_vs_f32_plain"] <= 1e-4), out
+    return out
+
+
+def _mf_train(mesh, batches):
+    """(b) MF_TRAIN_STEPS float32 steps of mamba2-130m on the mesh, FSDP
+    on: each step's metrics and ms, and its ssd_scan launches (0: training
+    runs ``ssd_chunked``)."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+
+    cfg, run = get_config(MAMBA_ARCH), _mesh_run()
+    ctx = rules.make_context(mesh)
+    state = rules.shard_tree(adamw.init_train_state(init_params(
+        cfg, torch.Generator(DEV).manual_seed(1), DEV, torch.float32)),
+        specs_lib.state_shardings(cfg, run, ctx), ctx)
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, run, ctx, compute_dtype=torch.float32)
+    metrics, ms = [], []
+    _reset_lm_launches()
+    for b in batches:
+        (state, m), t = _synced_ms(lambda: step(state, b))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        ms.append(t)
+    out = dict(metrics=metrics, step_ms=ms, launches=_launch_counts())
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mf_encode(mesh, batch):
+    """(d) hubert-xlarge's encode step on the mesh: every position's
+    logits, its ms and launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.steps import make_encode_step
+    from repro_torch.sharding import rules
+
+    cfg = get_config(AUDIO_ARCH)
+    ctx = rules.make_context(mesh, fsdp=MESH_SERVE_FSDP, attn_impl="flash")
+    params = rules.shard_tree(
+        init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                    torch.bfloat16), specs_lib.param_shardings(cfg, ctx),
+        ctx)
+    encode = make_encode_step(cfg, ctx)
+    encode(params, {"embeds": batch["embeds"][:, :100]})  # warm up
+    _reset_lm_launches()
+    dist.barrier()
+    logits, ms = _synced_ms(lambda: encode(params, batch))
+    out = dict(ms=ms, launches=_launch_counts(), logits=logits.float().cpu())
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_front_job(rank, tensors):
+    """One rank of phase 13b (``local_world.run``): (a)-(d) on this rank;
+    returns its numbers, rank 0 also its logits and its ssd_scan check."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+
+    coll.reset_staged()
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), DEV)
+    out, captured = dict(rank=rank), []
+    real = ssm_lib.ops.ssd_scan
+
+    def spy(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return real(*args, **kw)
+
+    t0 = time.perf_counter()
+    inp = {k: _tree_map(lambda t: t.to(DEV), v) if isinstance(v, dict)
+           else v for k, v in tensors.items()}
+    out["mamba"] = _mf_serve(mesh, MAMBA_ARCH, inp["mamba"],
+                             tensors["forced_mamba"], spy)
+    if rank == 0:
+        out["ssd_check"] = _mf_ssd_check(*captured[0])
+    del captured[:]
+    out["train"] = _mf_train(mesh, tensors["batches"])
+    out["vlm"] = _mf_serve(mesh, VLM_ARCH, inp["vlm"], tensors["forced_vlm"])
+    out["audio"] = _mf_encode(mesh, inp["audio"])
+    if rank:  # every rank holds the global logits: rank 0's are kept
+        for k in ("mamba", "vlm", "audio"):
+            out[k].pop("logits")
+    out["staged_bytes"] = coll.STAGED_BYTES["bytes"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_front_train_reference(batches):
+    """(b) on the single card: the same steps from the same weights."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get_config(MAMBA_ARCH)
+    state = adamw.init_train_state(init_params(
+        cfg, torch.Generator(DEV).manual_seed(1), DEV, torch.float32))
+    step = make_train_step(cfg, _mesh_run(), ShardingContext(),
+                           compute_dtype=torch.float32)
+    out = []
+    for b in batches:
+        state, m = step(state, b)
+        out.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_front_encode_reference(batch):
+    """(d) on the single card: the bf16 and float32 encodes."""
+    from repro_torch.launch.steps import make_encode_step
+
+    cfg = get_config(AUDIO_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0), DEV,
+                         torch.bfloat16)
+    encode = make_encode_step(cfg, ShardingContext(attn_impl="flash"))
+    bf16 = encode(params, batch).float().cpu()
+    params = _tree_map(lambda t: t.float(), params)
+    f32 = encode(params, {"embeds": batch["embeds"].float()}).float().cpu()
+    del params
+    torch.cuda.empty_cache()
+    return bf16, f32
+
+
+def phase_mesh_front(card):
+    """Phase 13b: (a) mamba2-130m served, (b) trained, (c) internvl2-2b
+    served, (d) hubert-xlarge encoded on a 4-rank mesh of one card, against
+    the single card."""
+    from repro_torch.launch import local_world
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = _mf_inputs()
+    cfgs = {k: get_config(a) for k, a in (("mamba", MAMBA_ARCH),
+                                          ("vlm", VLM_ARCH))}
+    steps = {"mamba": MF_SSM_STEPS, "vlm": VLM_STEPS}
+    S = {k: sum(v.shape[1] for v in inp[k].values()) for k in steps}
+    ref, forced = {}, {}
+    for k in steps:
+        ref[k + "/bf16"], forced[k] = mesh_serve_reference(
+            cfgs[k], inp[k], S[k], steps[k])
+    host = {k: _tree_map(lambda t: t.cpu(), inp[k])
+            for k in ("mamba", "vlm", "audio")}
+    t_world = time.perf_counter()
+    world = local_world.start(
+        "chip_smoke:mesh_front_job", MESH_RANKS, {},
+        tensors=dict(host, batches=inp["batches"],
+                     forced_mamba=forced["mamba"], forced_vlm=forced["vlm"]),
+        path=ROOT, deadline=MF_DEADLINE)
+    # the single card's float32 runs and the training while the ranks run
+    try:
+        for k in steps:
+            ref[k + "/f32"], _ = mesh_serve_reference(
+                cfgs[k], inp[k], S[k], steps[k], forced[k])
+        train_ref = mesh_front_train_reference(inp["batches"])
+        ref["audio/bf16"], ref["audio/f32"] = mesh_front_encode_reference(
+            inp["audio"])
+    finally:
+        ref_s = time.perf_counter() - t0
+        ranks = world.wait()
+    world_s = time.perf_counter() - t_world
+    r0 = ranks[0]
+    errs, over, bad = {}, [], []
+    for k, name in (("mamba", MAMBA_ARCH), ("vlm", VLM_ARCH)):
+        got = r0[k]["logits"]
+        hold_steps(f"{name} prefill", got[:1], ref[k + "/bf16"][:1],
+                   ref[k + "/f32"][:1], errs, over)
+        hold_steps(f"{name} decode", got[1:], ref[k + "/bf16"][1:],
+                   ref[k + "/f32"][1:], errs, over)
+    hold_steps(f"{AUDIO_ARCH} encode", [r0["audio"]["logits"]],
+               [ref["audio/bf16"]], [ref["audio/f32"]], errs, over)
+    # the launches of every rank: ssd_scan a layer in mamba2's prefill and
+    # none in its decode steps or training; flash_attention a layer in
+    # internvl2's prefill and hubert's encode, flash_decode a layer a step
+    m_layers, v_layers = cfgs["mamba"].n_layers, cfgs["vlm"].n_layers
+    a_layers = get_config(AUDIO_ARCH).n_layers
+    for r in ranks:
+        want = {("mamba", "prefill_launches"): (m_layers, 0, 0),
+                ("mamba", "decode_launches"): (0, 0, 0),
+                ("train", "launches"): (0, 0, 0),
+                ("vlm", "prefill_launches"): (0, v_layers, 0),
+                ("vlm", "decode_launches"): (0, 0, v_layers * VLM_STEPS),
+                ("audio", "launches"): (0, a_layers, 0)}
+        for (k, f), w in want.items():
+            got = r[k][f]
+            if (got["ssd_scan"], got["flash_attention"],
+                    got["flash_decode"]) != w:
+                bad.append((k, f, r["rank"], got))
+        if r["train"]["metrics"] != r0["train"]["metrics"]:
+            bad.append(("train metrics differ between ranks", r["rank"]))
+    train_rel = [{k: abs(got[k] - want[k]) / abs(want[k])
+                  for k in ("loss", "grad_norm")}
+                 for got, want in zip(r0["train"]["metrics"], train_ref)]
+    bad += [("train", i, rel) for i, rel in enumerate(train_rel)
+            if max(rel.values()) > MESH_TRAIN_TOL]
+    n_checked = sum(e["steps"] for e in errs.values()) + len(train_rel)
+    sc = r0["ssd_check"]
+    print(f"[mesh] rank 0's ssd_scan on layer 0's prefill block "
+          f"{sc['shape']} bf16: y vs the hi/lo plain {sc['ulps']:.3g} bf16 "
+          f"ulp, state {sc['state_rel_err']:.3g} of its scale (float32 "
+          f"plain: {sc['ulps_vs_f32_plain']:.3g} ulp, "
+          f"{sc['state_rel_err_vs_f32_plain']:.3g}; held: 1 ulp, 1e-4)")
+    print(f"[mesh] {MAMBA_ARCH} trained on ('data' 2, 'model' 2), float32, "
+          f"S={MF_TRAIN_S}, batch {MF_TRAIN_BATCH} in {MESH_TRAIN_MB}: loss "
+          "/ grad norm mesh " + ", ".join(
+              f"{m['loss']:.6f} / {m['grad_norm']:.6f}"
+              for m in r0["train"]["metrics"]) + " against one card "
+          + ", ".join(f"{m['loss']:.6f} / {m['grad_norm']:.6f}"
+                      for m in train_ref)
+          + f"; relative distance {train_rel} (held within "
+          f"{MESH_TRAIN_TOL}) | {card}")
+    print(f"[mesh] phase 13b on ('data' 2, 'model' 2): {MAMBA_ARCH} B="
+          f"{MF_SSM_B} S={MF_SSM_S} (state block "
+          f"{r0['mamba']['cache_block'][0]} a rank), {VLM_ARCH} B={VLM_B} "
+          f"S={S['vlm']}, {AUDIO_ARCH} B={AUDIO_B} S={AUDIO_S}; "
+          f"{n_checked} steps checked, every one within its limit: "
+          f"{not over and not bad}; launches a rank: ssd_scan {m_layers} a "
+          f"prefill, flash_attention {v_layers} / {a_layers}, flash_decode "
+          f"{v_layers * VLM_STEPS} | {card}")
+
+    def per_rank(k, f):
+        return [r[k][f] for r in ranks]
+
+    print(f"[mesh] {MESH_TIMING} | {card}: {MAMBA_ARCH} prefill ms a rank "
+          f"{[round(x, 1) for x in per_rank('mamba', 'prefill_ms')]}, "
+          f"decode ms a step (mean of steps 2-{MF_SSM_STEPS}) "
+          f"{[round(float(np.mean(r['mamba']['step_ms'][1:])), 2) for r in ranks]}"
+          f", train ms a step "
+          f"{[[round(x, 1) for x in r['train']['step_ms']] for r in ranks]}; "
+          f"{VLM_ARCH} prefill "
+          f"{[round(x, 1) for x in per_rank('vlm', 'prefill_ms')]}, decode "
+          f"{[round(float(np.mean(r['vlm']['step_ms'][1:])), 2) for r in ranks]}"
+          f"; {AUDIO_ARCH} encode "
+          f"{[round(x, 1) for x in per_rank('audio', 'ms')]}; staged bytes a "
+          f"rank {[r['staged_bytes'] for r in ranks]}; the one-card "
+          f"references {ref_s:.1f} s, the world {world_s:.1f} s (the ranks' "
+          f"work {max(r['seconds'] for r in ranks):.1f} s)")
+    assert not over and not bad, (
+        "phase 13b", "logits past max(2^-8, 2 x the one card's)", over, bad)
+    launches = {k: sum(r[p][f][k] for r in ranks for p, f in (
+        ("mamba", "prefill_launches"), ("mamba", "decode_launches"),
+        ("train", "launches"), ("vlm", "prefill_launches"),
+        ("vlm", "decode_launches"), ("audio", "launches")))
+        for k in ("ssd_scan", "flash_attention", "flash_decode")}
+    return dict(
+        errs=errs, train=r0["train"]["metrics"], train_ref=train_ref,
+        train_rel=train_rel, steps_checked=n_checked, ssd_check=sc,
+        prefill_ms={k: per_rank(k, "prefill_ms") for k in ("mamba", "vlm")},
+        decode_ms={k: [float(np.mean(r[k]["step_ms"][1:])) for r in ranks]
+                   for k in ("mamba", "vlm")},
+        train_ms=[r["train"]["step_ms"] for r in ranks],
+        encode_ms=per_rank("audio", "ms"),
+        staged_bytes=[r["staged_bytes"] for r in ranks],
+        cache_block=r0["mamba"]["cache_block"], launches=launches,
+        timing=MESH_TIMING, seconds=time.perf_counter() - t0)
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4850,6 +5237,8 @@ def main() -> int:
     lap("12")
     mesh = phase_mesh(card)
     lap("13")
+    mesh_front = phase_mesh_front(card)
+    lap("13b")
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
@@ -4872,6 +5261,11 @@ def main() -> int:
         mesh_launches=mesh["launches"]["flash_attention"])
     lm_kern["flash_decode"].update(
         mesh_launches=mesh["launches"]["flash_decode"])
+    # phase 13b's own launches, summed over its 4 ranks
+    for name in ("ssd_scan", "flash_attention", "flash_decode"):
+        lm_kern[name].update(
+            mesh_front_launches=mesh_front["launches"][name])
+    lm_kern["ssd_scan"].update(mesh_front_check=mesh_front["ssd_check"])
     errs.update({k: v.pop("max_abs_err") for k, v in lm_kern.items()})
 
     # the sensor fleet's own launches (phase 3b), apart from the main
@@ -5023,6 +5417,7 @@ def main() -> int:
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
                  train=train, moe=moe, jitted=jitted, mesh=mesh,
+                 mesh_front=mesh_front,
                  kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))

@@ -25,8 +25,6 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.compression import ef_compress
-from repro_torch.models import blocks
-from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules
@@ -116,7 +114,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     docstring)."""
     mesh = _on_mesh(ctx)
     if mesh:
-        model_lib.check_mesh(cfg, ctx)
         specs = model_lib.param_specs(cfg, ctx)
 
     def train_step(state: adamw.TrainState, batch: Dict[str, Any]):
@@ -189,16 +186,16 @@ def _batch_leaf(key: str, v, dev) -> torch.Tensor:
 
 
 def _serve(cfg: ModelConfig, ctx: Optional[ShardingContext], mode: str):
-    """The forward of a serve step: on a mesh this rank's rows of the
+    """The forward of a serve step (``mode`` "train" is the encode step:
+    every position, no recompute): on a mesh this rank's rows of the
     batch in, the global logits out (gathered over the data axes)."""
     mesh = _on_mesh(ctx)
-    if mesh:
-        model_lib.check_mesh(cfg, ctx)
 
     @torch.no_grad()
     def step(params, batch, caches=None):
         if not mesh:
-            return model_lib.forward(params, cfg, batch, mode, ctx, caches)
+            return model_lib._forward(params, cfg, batch, mode, ctx, caches,
+                                      "none")[:2]
         rows = next(v for k, v in batch.items() if k != "cache_pos")
         split = rows.shape[0] % ctx.data_size == 0
         local = {k: (_rows(v, ctx, 0) if split and k != "cache_pos" else v)
@@ -230,16 +227,12 @@ def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardingContext] = None):
 
 def make_encode_step(cfg: ModelConfig, ctx: Optional[ShardingContext] = None):
     """Encoder-only archs (hubert): encode_step(params, batch) -> logits
-    (B, S, vocab) of every position, no cache. The stack runs in train
-    mode without recompute, under ``no_grad``."""
-    ctx = ctx or ShardingContext()
+    (B, S, vocab) of every position, no cache: the stack in train mode
+    without recompute, under ``no_grad``; on a mesh as the serve steps
+    (this rank's rows in, the global logits out)."""
+    step = _serve(cfg, ctx, "train")
 
-    @torch.no_grad()
     def encode_step(params, batch):
-        x, positions = model_lib._embed_inputs(params, cfg, batch, "prefill")
-        x, _, _ = blocks.stack_apply(params["groups"], x, cfg, "train", ctx,
-                                     None, positions, None, remat="none")
-        x = L.apply_norm(params["final_norm"], x, cfg.norm)
-        return model_lib._head(params, cfg, x)
+        return step(params, batch)[0]
 
     return encode_step

@@ -20,8 +20,10 @@ counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
 
 On a mesh each layer's parameters are this rank's blocks; the layer
 gathers its FSDP dims first (``rules.fsdp_gather``, inside the recompute
-under remat), except the MoE experts', which ``apply_moe`` gathers.
-Attention and MoE take whether the batch is split over the data axes.
+under remat; the SSM mixer's ``embed`` dims too), except the MoE
+experts', which ``apply_moe`` gathers. Attention and MoE take whether the
+batch is split over the data axes; an SSM layer runs on whatever rows it
+is given, so its cache holds the whole batch where it does not divide.
 """
 from __future__ import annotations
 
@@ -211,7 +213,8 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, mixer: str, ffn: str,
             p["attn"], h, cfg.attention, positions, mode, cache, cache_pos,
             impl=ctx.attn_impl, ctx=ctx, batch_sharded=batch_sharded)
     else:
-        out, new_cache = ssm_lib.apply_ssm(p["ssm"], h, cfg.ssm, mode, cache)
+        out, new_cache = ssm_lib.apply_ssm(p["ssm"], h, cfg.ssm, mode, cache,
+                                           ctx)
     x = x + out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":

@@ -14,8 +14,7 @@ rank's block of rows (``batch_sharded``; the whole batch where it does not
 divide the data axes; ``launch/steps.py`` cuts it). The logits are the
 full vocab on every rank of a data group, vocab-parallel (then gathered
 over ``model``) only where the vocab divides. The loss is the mean over
-the global batch: local sums, summed over the data axes. An arch with an
-SSM mixer or a frontend is not served on a mesh yet (ROADMAP.md §1).
+the global batch: local sums, summed over the data axes.
 """
 from __future__ import annotations
 
@@ -89,16 +88,6 @@ def param_specs(cfg: ModelConfig, ctx: ShardingContext) -> Dict:
     return rules.tree_specs(param_spec(cfg), abstract_params(cfg), ctx)
 
 
-def check_mesh(cfg: ModelConfig, ctx: Optional[ShardingContext]) -> None:
-    """Raise for what a mesh does not run yet: an SSM mixer, a frontend."""
-    if ctx is None or ctx.mesh is None:
-        return
-    if "ssm" in cfg.layer_kinds() or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM mixer and the frontends are not ported to "
-            "a mesh yet (ROADMAP.md §1); serve it without a mesh")
-
-
 def abstract_params(cfg: ModelConfig, dtype=None) -> Dict:
     """The parameter tree's shapes and dtypes as ``meta`` tensors: nothing
     is allocated or drawn (the reference's ``jax.eval_shape`` tree)."""
@@ -139,13 +128,13 @@ def _head(params, cfg: ModelConfig, x, ctx: Optional[ShardingContext] = None):
 
 
 def _gathered_embed(params, cfg: ModelConfig, ctx: ShardingContext):
-    """``params`` with the embedding's (and an untied head's) FSDP dims
-    gathered over the data axes."""
+    """``params`` with the embedding's, an untied head's and the
+    frontend's FSDP dims gathered over the data axes."""
     if ctx.mesh is None:
         return params
     axes, specs = param_spec(cfg), param_specs(cfg, ctx)
     out = dict(params)
-    for name in ("embed", "head"):
+    for name in ("embed", "head", "frontend"):
         if name in params:
             out[name] = rules.fsdp_gather(params[name], axes[name],
                                           specs[name], ctx)
@@ -174,7 +163,6 @@ def _forward(params, cfg: ModelConfig, batch: Dict, mode: str,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     ctx = ctx or ShardingContext()
-    check_mesh(cfg, ctx)
     params = _gathered_embed(params, cfg, ctx)
     cache_pos = batch.get("cache_pos")
     pos_offset = int(cache_pos) if mode == "decode" else 0

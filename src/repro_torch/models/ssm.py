@@ -10,6 +10,17 @@ function (also the kernel's float32 yardstick), under autograd, as the
 reference does; the kernel stays forward only. Decode is the
 reference's one-step recurrence in torch ops (the reference has no
 kernel for it) and writes the cache in place.
+
+On a mesh whose model axis splits the H heads (``ssm_spec``'s "ssm"
+axis), ``wz``, ``wx``, ``conv_x``, ``norm_scale`` and ``w_out`` are this
+rank's block of heads and the ``ssm_noshard`` leaves (``wdt``, ``A_log``,
+``D``, ``dt_bias``) whole: each rank takes its heads of them. ``wB``,
+``wC`` and their convolutions are replicated, so every model rank
+computes the same B and C. The scan, the per-head norm and the cache run
+on the local heads (the state's heads are the rank's block of
+``cache_shardings``); ``w_out`` is row-parallel, and one sum over
+``model`` (the parts in float32, rounded once) completes the output.
+Where H does not divide the model axis every rank computes every head.
 """
 from __future__ import annotations
 
@@ -20,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.models.layers import randn
+from repro_torch.models.layers import model_split, randn
 
 
 class SSMCache(NamedTuple):
@@ -157,21 +169,29 @@ def ssd_chunked(x, dt, Bm, Cm, A, chunk: int, state0=None):
 
 
 def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
-              cache: Optional[SSMCache] = None):
+              cache: Optional[SSMCache] = None, ctx=None):
     """x: (B, S, d). mode: train | prefill | decode (S = 1; ``cache``
     written in place and returned). Returns (out (B, S, d), cache; None
-    in train mode)."""
+    in train mode). On a mesh (``ctx``) ``p`` and ``cache`` hold this
+    rank's heads (the module's docstring)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     B, S, d = x.shape
     w = cfg.conv_width
+    split = model_split(ssm_dims(cfg, d)[1], ctx)
+    wdt, dt_bias, A_log, D = p["wdt"], p["dt_bias"], p["A_log"], p["D"]
+    if split:
+        Hl = p["wz"].shape[1]
+        h0 = coll.index(ctx.mesh, ctx.model_axis) * Hl
+        wdt = wdt[:, h0:h0 + Hl]
+        dt_bias, A_log, D = (t[h0:h0 + Hl] for t in (dt_bias, A_log, D))
     z = torch.einsum("bsd,dhp->bshp", x, p["wz"])
     xs = torch.einsum("bsd,dhp->bshp", x, p["wx"])
     Bm = x @ p["wB"]                                      # (B, S, N)
     Cm = x @ p["wC"]
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p["wdt"]).float()
-    dt = F.softplus(dt_raw + p["dt_bias"])
-    A = -torch.exp(p["A_log"])                            # (H,) negative
+    dt_raw = torch.einsum("bsd,dh->bsh", x, wdt).float()
+    dt = F.softplus(dt_raw + dt_bias)
+    A = -torch.exp(A_log)                                 # (H,) negative
 
     if mode == "decode":
         assert cache is not None and S == 1
@@ -183,7 +203,7 @@ def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
         S_new = (cache.state * a[..., None, None]
                  + torch.einsum("bhp,bn->bhpn", xbar, Bm_c[:, 0].float()))
         y = torch.einsum("bn,bhpn->bhp", Cm_c[:, 0].float(), S_new)
-        y = y + p["D"][:, None] * xs_c[:, 0].float()
+        y = y + D[:, None] * xs_c[:, 0].float()
         y = y[:, None].to(x.dtype)                        # (B, 1, H, P)
         # in place, as the KV caches: the tails shift by one (torch.cat
         # builds the new tail before the overlapping copy)
@@ -198,7 +218,7 @@ def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
         Cm_c = F.silu(_causal_conv(Cm, p["conv_C"]))
         scan = ssd_chunked if mode == "train" else ops.ssd_scan
         y, S_fin = scan(xs_c, dt, Bm_c, Cm_c, A, cfg.chunk)
-        y = y + (p["D"][:, None] * xs_c.float()).to(y.dtype)
+        y = y + (D[:, None] * xs_c.float()).to(y.dtype)
         new_cache = None
         if mode == "prefill":
             # the tails are copies: a view would keep the whole (B, S, ...)
@@ -208,5 +228,10 @@ def apply_ssm(p: Dict, x, cfg: SSMConfig, mode: str,
                                  conv_B=Bm[:, S - (w - 1):].clone(),
                                  conv_C=Cm[:, S - (w - 1):].clone())
     y = _per_head_norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
+    if split:
+        out = coll.all_reduce(torch.einsum(
+            "bshp,hpd->bsd", y.to(x.dtype).float(), p["w_out"].float()),
+            ctx.mesh, ctx.model_axis)
+        return out.to(x.dtype), new_cache
     out = torch.einsum("bshp,hpd->bsd", y.to(x.dtype), p["w_out"])
     return out, new_cache

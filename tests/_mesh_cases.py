@@ -23,9 +23,27 @@ LM_CASES = [("granite-moe-1b-a400m", 4, "gather"),
             ("granite-moe-1b-a400m", 4, "tp2d"),
             ("granite-20b", 4, "gather"),
             ("granite-20b", 1, "gather")]
+# the same, for the SSM mixer: reduced mamba2 (H = 8 heads of 16 over
+# model) and jamba (Mamba-2, attention and MoE layers), both batches; and
+# the vision frontend: internvl2 (8 patch embeddings before the tokens,
+# the projection FSDP-split)
+SSM_FRONTEND_CASES = [("mamba2-130m", 4, "gather"),
+                      ("mamba2-130m", 1, "gather"),
+                      ("jamba-1.5-large-398b", 4, "gather"),
+                      ("jamba-1.5-large-398b", 1, "gather"),
+                      ("internvl2-2b", 4, "gather")]
 LM_REDUCE = dict(n_layers=2, d_model=64, vocab=64, seq=16)
 PROMPT = 16
 DECODE_STEPS = 4
+# reduced mamba2 at d 48: H = 6 heads, which a model axis of 4 does not
+# divide, so every SSM leaf is replicated (logical_to_spec degrades it)
+HEADS_REPLICATED = dict(arch="mamba2-130m", B=4, mesh=(1, 4), d_model=48)
+# the audio frontend: reduced hubert's make_encode_step, every position
+ENCODE_ARCH, ENCODE_B = "hubert-xlarge", 4
+# (arch, steps): float32 training on (2, 2) from one start, as TRAIN_LEGS'
+# first leg: the SSM leaves, the hybrid's MoE and the vision projection
+TRAIN_CASES = [("mamba2-130m", 3), ("jamba-1.5-large-398b", 3),
+               ("internvl2-2b", 2)]
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_RUN = dict(microbatches=2, remat="none", learning_rate=1e-3,
                  warmup_steps=2, total_steps=10)

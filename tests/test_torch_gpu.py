@@ -49,9 +49,9 @@ paths on 2 ranks of a ``gloo`` world on the one card
 (``tests/_torch_mesh_worker.py:card_job``): ``apply_moe`` with the experts
 split over 'model' and in "tp2d" mode on a 'data' axis of 2, reduced
 granite-moe decoded on flash_decode over a cache whose sequence is split
-over 'model' (and, for a batch of 1, over 'data'), each against the same
-call in one process on the card; ``compressed_psum`` bit for bit with its
-plain version. Needs an NVIDIA GPU; run
+over 'model' (and, for a batch of 1, over 'data'), reduced mamba2 with
+ssd_scan on each rank's heads, each against the same call in one process
+on the card; ``compressed_psum`` bit for bit with its plain version. Needs an NVIDIA GPU; run
 with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
@@ -1664,6 +1664,37 @@ def test_mesh_decode_on_card_matches_one_process(mesh_on_card, mesh, B):
             torch.testing.assert_close(r[f"lm/{mesh}/{name}"], w.cpu(),
                                        atol=1e-5, rtol=1e-5)
         assert r[f"lm/{mesh}/flash_decode"] == cfg.n_layers * len(names[1:])
+
+
+def test_mesh_ssm_on_card_matches_one_process(mesh_on_card):
+    """Tolerance: 1e-5 + 1e-5|x|. Reduced mamba2 in float32 on ('data' 1,
+    'model' 2): the prefill (each rank's ssd_scan on its 4 of 8 heads,
+    w_out's parts summed over 'model') and 3 teacher-forced decode steps
+    on each rank's block of the SSM state, against one process on the
+    card; one ssd_scan launch a layer in the prefill, none in a decode
+    step."""
+    from _mesh_cases import LM_REDUCE
+
+    inp, ranks = mesh_on_card
+    cfg = reduced(get_config("mamba2-130m"), **LM_REDUCE)
+    params = _card_params(inp, "lm/mamba2-130m/p/")
+    tokens = torch.as_tensor(inp["card/4/tokens"]).long().cuda()
+    forced = torch.as_tensor(inp["card/4/forced"]).long().cuda()
+    logits, caches = make_prefill_step(cfg)(params, {"tokens": tokens})
+    want = [logits]
+    for i in range(forced.shape[1]):
+        logits, caches = make_decode_step(cfg)(
+            params, {"token": forced[:, i:i + 1],
+                     "cache_pos": tokens.shape[1] + i}, caches)
+        want.append(logits)
+    names = ["prefill"] + [f"decode{i}" for i in range(forced.shape[1])]
+    G, B, H, P, N = caches["layer0"].state.shape
+    for r in ranks:
+        for name, w in zip(names, want):
+            torch.testing.assert_close(r[f"ssm/{name}"], w.cpu(), atol=1e-5,
+                                       rtol=1e-5)
+        assert r["ssm/prefill_ssd_scan"] == r["ssm/ssd_scan"] == cfg.n_layers
+        assert r["ssm/state_block"] == (G, B, H // 2, P, N)
 
 
 def test_mesh_compressed_psum_on_card(mesh_on_card):

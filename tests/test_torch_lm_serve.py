@@ -250,17 +250,15 @@ def test_mamba2_init_shapes_and_caches():
 
 def test_what_one_card_does_not_serve():
     cfg = _danube(get_config, reduced)
-    # a mesh serves the attention archs; an SSM mixer (the reference's
-    # mamba2 train step on a mesh, tests/test_sharding.py:53) waits for
-    # its slice
+    # a mesh serves every arch: the SSM mixer's train step builds on the
+    # reference's (4, 2) mesh (tests/test_sharding.py:53)
     from repro_torch.configs import RunConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.sharding.rules import AbstractMesh, make_context
 
-    mesh_ctx = make_context(AbstractMesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(reduced(get_config("mamba2-130m")), RunConfig(),
-                        mesh_ctx)
+    mesh_ctx = make_context(AbstractMesh((4, 2), ("data", "model")))
+    assert callable(make_train_step(reduced(get_config("mamba2-130m")),
+                                    RunConfig(), mesh_ctx))
     with pytest.raises(ValueError, match="attn_impl"):
         ShardingContext(attn_impl="xla")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",

@@ -25,11 +25,21 @@ The cases, on a ('data' 2, 'model' 2) mesh unless named:
     + model) prefilled and decoded 4 steps with ``attn_impl="flash"``
     (the kernels' plain versions on the CPU), teacher-forced, the logits
     within 1e-5;
+  * the SSM mixer and the frontends: reduced mamba2-130m (8 heads of 16
+    over model) and jamba-1.5-large (Mamba-2, attention and MoE layers)
+    prefilled and decoded 4 steps at B = 4 and B = 1, reduced internvl2-2b
+    from patch embeddings and tokens, the same way, and every rank's
+    caches the blocks ``cache_shardings`` names; reduced mamba2 at d 48
+    on ('data' 1, 'model' 4), whose 6 heads do not divide the model axis
+    and replicate; reduced hubert-xlarge's ``make_encode_step``, every
+    position's logits within 1e-5;
   * reduced granite-moe trained 3 float32 steps on (2, 2), saved from the
     mesh, restored onto (4, 1) and onto (1, 4) bit for bit and trained 2
     more steps on each (``tests/test_sharding.py:150`` at 4 devices):
     metrics within 1e-5 relative, the master weights within 1e-5 of each
-    leaf's largest entry;
+    leaf's largest entry; reduced mamba2 and jamba trained 3 steps and
+    internvl2 2 (the frontend's FSDP projection) on (2, 2), to the same
+    bars;
   * ``make_production_mesh`` refused in a world of 4.
 """
 import os
@@ -43,7 +53,11 @@ import pytest
 
 import _mesh_cases as mc
 from _torch_mesh_worker import make_inputs
+from repro_torch.configs import get_config, reduced
 from repro_torch.launch import local_world
+from repro_torch.models import model as model_lib
+from repro_torch.models.ssm import ssm_dims
+from repro_torch.sharding import rules
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEADLINE = 180.0  # seconds for the world and the reference together
@@ -122,32 +136,67 @@ def test_ef_compress_takes_the_full_tensors_max(results):
         np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
 
 
-@pytest.mark.parametrize("arch,B,mode", mc.LM_CASES)
-def test_prefill_and_decode_on_the_mesh(results, arch, B, mode):
-    port, ref = results
-    name = f"lm/{arch}/{B}/{mode}"
+def _served(port, ref, name):
     steps = ["prefill"] + [f"decode{i}" for i in range(mc.DECODE_STEPS)]
     for s in steps:
         assert port[f"{name}/{s}"].shape == ref[f"{name}/{s}"].shape
         np.testing.assert_allclose(port[f"{name}/{s}"], ref[f"{name}/{s}"],
                                    atol=1e-5, rtol=1e-5, err_msg=s)
+    assert bool(port[f"{name}/cache_blocks"])
+
+
+@pytest.mark.parametrize("arch,B,mode", mc.LM_CASES + mc.SSM_FRONTEND_CASES)
+def test_prefill_and_decode_on_the_mesh(results, arch, B, mode):
+    _served(*results, f"lm/{arch}/{B}/{mode}")
+
+
+def test_ssm_heads_that_do_not_divide_the_model_axis_replicate(results):
+    hr = mc.HEADS_REPLICATED
+    cfg = reduced(get_config(hr["arch"]), **dict(mc.LM_REDUCE,
+                                                  d_model=hr["d_model"]))
+    assert ssm_dims(cfg.ssm, cfg.d_model)[1] % hr["mesh"][1]
+    ctx = rules.make_context(rules.AbstractMesh(hr["mesh"],
+                                                ("data", "model")))
+    ssm = model_lib.param_specs(cfg, ctx)["groups"]["layer0"]["ssm"]
+    assert all("model" not in rules.spec_axes(s) for s in ssm.values())
+    _served(*results, "heads")
+
+
+def test_encode_on_the_mesh(results):
+    """Reduced hubert's encode step: every position's logits over the whole
+    vocab (the rank's 32 of 64 columns, or the frontend's matmul on a
+    split projection, before the step gathered as the serve steps do)."""
+    port, ref = results
+    assert port["encode/logits"].shape == ref["encode/logits"].shape == (
+        mc.ENCODE_B, mc.LM_REDUCE["seq"], mc.LM_REDUCE["vocab"])
+    np.testing.assert_allclose(port["encode/logits"], ref["encode/logits"],
+                               atol=1e-5, rtol=1e-5)
+
+
+def _trained(port, ref, prefix, steps):
+    for i in range(steps):
+        for k in mc.TRAIN_METRICS:
+            key = f"{prefix}/{i}/{k}"
+            got, want = port[key], ref[key]
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12,
+                                       err_msg=f"step {i} {k}")
+    masters = [k for k in ref if k.startswith(f"{prefix}/master/")]
+    assert masters
+    for k in masters:
+        err = np.abs(port[k] - ref[k]).max() / np.abs(ref[k]).max()
+        assert err <= 1e-5, (k, err)
+
+
+@pytest.mark.parametrize("arch,steps", mc.TRAIN_CASES)
+def test_ssm_and_frontend_training_on_the_mesh(results, arch, steps):
+    _trained(*results, f"ssm_train/{arch}", steps)
 
 
 @pytest.mark.parametrize("leg", [leg for leg, _, _ in mc.TRAIN_LEGS])
 def test_training_across_mesh_shapes(results, leg):
     port, ref = results
-    steps = dict((k, n) for k, _, n in mc.TRAIN_LEGS)[leg]
-    for i in range(steps):
-        for k in mc.TRAIN_METRICS:
-            key = f"train/{leg}/{i}/{k}"
-            got, want = port[key], ref[key]
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12,
-                                       err_msg=f"step {i} {k}")
-    masters = [k for k in ref if k.startswith(f"train/{leg}/master/")]
-    assert masters
-    for k in masters:
-        err = np.abs(port[k] - ref[k]).max() / np.abs(ref[k]).max()
-        assert err <= 1e-5, (k, err)
+    _trained(port, ref, f"train/{leg}",
+             dict((k, n) for k, _, n in mc.TRAIN_LEGS)[leg])
     if leg == "a":
         assert bool(port["train/a/saved_bitwise"])
     else:

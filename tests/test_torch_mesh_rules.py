@@ -37,8 +37,8 @@ from repro_torch.core import bank as t_bank
 from repro_torch.core import filters as t_filters
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as specs_lib
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_train_step)
+from repro_torch.launch.steps import (make_decode_step, make_encode_step,
+                                      make_prefill_step, make_train_step)
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.optim import adamw
@@ -206,10 +206,17 @@ def test_contexts_refuse_what_they_cannot_run():
     assert ctx.data_axes == ("pod", "data")
     assert (ctx.data_size, ctx.model_size) == (32, 16)
     assert rules.make_context(None).mesh is None
-    # an SSM mixer or a frontend is not served on a mesh yet
+    # every arch builds its steps on the mesh, the SSM mixer and the
+    # frontends too, and hubert its encode step
+    run = RunConfig()
     for arch in ("mamba2-130m", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_prefill_step(reduced(get_config(arch)), ctx)
+        cfg = reduced(get_config(arch))
+        for step in (make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx),
+                     make_train_step(cfg, run, ctx)):
+            assert callable(step)
+    assert callable(make_encode_step(reduced(get_config("hubert-xlarge")),
+                                     ctx))
+    assert not hasattr(model_lib, "check_mesh")
 
 
 def test_make_production_mesh_refuses_a_world_of_four(monkeypatch):
@@ -234,15 +241,51 @@ def world_of_one(tmp_path):
         dist.destroy_process_group()
 
 
+def _served_and_trained(cfg, params, ctx, mesh, tokens):
+    """A prefill, 3 greedy decode steps and 2 float32 train steps of
+    ``cfg``: the logits, the metrics and the master weights."""
+    p = (rules.shard_tree(params, specs_lib.param_shardings(cfg, ctx), ctx)
+         if mesh else params)
+    logits, caches = make_prefill_step(cfg, ctx)(p, {"tokens": tokens})
+    out = [logits]
+    for i in range(3):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, caches = make_decode_step(cfg, ctx)(
+            p, {"token": tok, "cache_pos": tokens.shape[1] + i}, caches)
+        out.append(logits)
+    run = RunConfig(microbatches=2, remat="none", learning_rate=1e-3,
+                    warmup_steps=1)
+    state = adamw.init_train_state(params)
+    step = make_train_step(cfg, run, ctx, compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 2, tokens.shape[1]),
+                              generator=gen) for k in ("tokens", "labels")}
+    for _ in range(2):
+        state, m = step(state, batch)
+        out += [m[k] for k in ("loss", "grad_norm")]
+    return out + adamw.tree_leaves(state.master)
+
+
 def test_a_one_rank_mesh_is_the_path_without_a_mesh(world_of_one):
     """Prefill, decode (flash), apply_moe and two train steps on a (1, 1)
-    mesh equal the same calls without a mesh bit for bit."""
+    mesh equal the same calls without a mesh bit for bit; so do reduced
+    mamba2's prefill, decode and train steps (the SSM mixer) and reduced
+    hubert's encode step (the audio frontend)."""
     cfg = reduced(get_config("granite-moe-1b-a400m"), d_model=64, vocab=64,
                   seq=16)
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu", torch.float32)
     tokens = torch.randint(0, 64, (2, 16),
                            generator=torch.Generator().manual_seed(1))
+    mamba = reduced(get_config("mamba2-130m"), d_model=64, vocab=64, seq=16)
+    m_params = model_lib.init_params(mamba, torch.Generator().manual_seed(5),
+                                     "cpu", torch.float32)
+    hubert = reduced(get_config("hubert-xlarge"), d_model=64, vocab=64,
+                     seq=16)
+    h_params = model_lib.init_params(hubert,
+                                     torch.Generator().manual_seed(6), "cpu",
+                                     torch.float32)
+    embeds = torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(7))
     runs = []
     for mesh in (None, world_of_one):
         ctx = rules.make_context(mesh, attn_impl="flash")
@@ -274,6 +317,10 @@ def test_a_one_rank_mesh_is_the_path_without_a_mesh(world_of_one):
             state, m = step(state, batch)
             out += [m[k] for k in ("loss", "grad_norm", "aux")]
         out += adamw.tree_leaves(state.master) + adamw.tree_leaves(state.ef)
+        out += _served_and_trained(mamba, m_params, ctx, mesh, tokens)
+        hp = (rules.shard_tree(h_params, specs_lib.param_shardings(
+            hubert, ctx), ctx) if mesh else h_params)
+        out.append(make_encode_step(hubert, ctx)(hp, {"embeds": embeds}))
         runs.append(out)
     assert len(runs[0]) == len(runs[1])
     for a, b in zip(*runs):
