@@ -41,7 +41,8 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      device ms a launch (events between launches, device queued), its
      bound at S=8 and the ptxas lines of its S-aware kernels; the fleet
      replay (T=300 over 8 x 1024 lanes, 30% invalid) as one
-     ``katana_imm_sequence`` launch bit for bit with 8 per-sensor calls;
+     ``katana_imm_sequence`` launch a time chunk (the tile table's) bit for
+     bit with 8 per-sensor calls;
   4. the replay path: ``TrackingEngine(..., device="cuda").replay`` over
      N=131,072 tracks (the batch of katana-lkf-pod / katana-ekf-pod) for
      T=300 frames, lkf, ekf and imm: launch counters, every frame of 64
@@ -226,13 +227,30 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      rank); every prefill, decode step and encode within max(2^-8, 2x) the
      single card's bf16 distance from float32; the ms of each step a rank
      and the bytes staged a rank, labelled as a correctness run;
-  14. one JSON line with the kernel table (row flash_attention also
+  14. the tile table (kernels/katana_bank/autotune.py): (a) every
+     instantiated tile of scan.cu (64, 128, 256 tracks a block; lkf, ekf,
+     cv9 at both symmetrize values, with and without a valid stream, one
+     track's seed P asymmetric among symmetric ones), imm_step.cu (64,
+     128, 256 lanes; K = 1 in both layouts, K = 4; both symmetrize
+     values) and imm_scan.cu (32, 64 tracks) bit for bit with the plain
+     version over 17 frames, and every (tile, time chunk) the tuner races
+     bit for bit with one launch over 300 frames, at N = 1,000 and
+     131,072; (b) ``tune.tune`` at N = 131,072, T = 300 into a temporary
+     table: every candidate's device ms, the winner against the static
+     default's; (c) the checked-in table's row for this card at the
+     replay size (or none: the static defaults) and ``ops.LAST_CONFIG``
+     showing the launch used it, with the tabled and static configs'
+     times of the four bank kernels (phases 2-5b ran at the tabled
+     configs);
+  then one JSON line with the kernel table (row flash_attention also
      carries the training launches and the backward times; rows
      flash_attention, flash_decode and ssd_scan phase 11's launches, and
      the first two phase 11's shapes; rows katana_frame, katana_imm_frame
      and greedy_assign phase 12's; rows flash_attention and flash_decode
      phase 13's, and those and ssd_scan phase 13b's, summed over the
-     ranks), then the status line.
+     ranks; rows katana_bank_sequence, katana_imm_sequence, katana_bank
+     and katana_bank_imm their tabled lane_tile and time_chunk, and
+     phase 14's tuned_ms and static_ms), then the status line.
 """
 from __future__ import annotations
 
@@ -271,6 +289,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.katana_bank import ops, ref  # noqa: E402
+from repro_torch.kernels.katana_bank import autotune, tune  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.steps import make_decode_step  # noqa: E402
@@ -1226,7 +1245,9 @@ def phase_fleet(kind, single):
     xs = eng.replay(zs, vmask)
     replay_ms = (time.perf_counter() - t0) * 1e3
     r_launches = dict(ops.LAUNCHES)
-    assert r_launches["katana_imm_sequence"] == 1, r_launches
+    assert r_launches["katana_imm_sequence"] == chunk_launches(
+        "katana_imm_sequence", Tr), r_launches
+    r_tile = ops.LAST_CONFIG["katana_imm_sequence"]["lane_tile"]
     assert all(torch.equal(a, b) for a, b in zip(before, eng.banks))
     assert np.isfinite(xs).all()
     zs_t, v_t = torch.from_numpy(zs).cuda(), torch.from_numpy(vmask).cuda()
@@ -1238,8 +1259,10 @@ def phase_fleet(kind, single):
         assert torch.equal(torch.from_numpy(xs[:, s]), want.cpu()), s
     src = "imm_scan.cu" if is_imm else "scan.cu"
     print(f"[fleet {kind}] replay (T={Tr}, {S} x {C} = {S * C} lanes, "
-          f"{FLEET_DROP:.0%} of the entries invalid, NaN): one "
-          f"katana_imm_sequence launch ({src}), bit for bit with {S} "
+          f"{FLEET_DROP:.0%} of the entries invalid, NaN): "
+          f"{r_launches['katana_imm_sequence']} katana_imm_sequence "
+          f"launch(es) ({src}, {r_tile} tracks a block), bit for bit with "
+          f"{S} "
           f"per-sensor calls; {replay_ms:.1f} ms numpy in to numpy out; live "
           "banks unchanged")
     phase_s = time.perf_counter() - t_phase
@@ -1515,7 +1538,6 @@ def phase_replay(kind, plain_ms):
     model = replay_model(kind)
     is_imm = kind == "imm"
     name = "katana_imm_sequence" if is_imm else "katana_bank_sequence"
-    chunk = ops.IMM_SCAN_TIME_CHUNK if is_imm else ops.SCAN_TIME_CHUNK
     zs, x0, P0 = replay_stream(kind)
     T, N, _ = zs.shape
     eng = TrackingEngine(model, tracker.TrackerConfig(capacity=C_SERVE,
@@ -1529,7 +1551,10 @@ def phase_replay(kind, plain_ms):
     out = eng.replay(zs)
     host_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    assert launches[name] == -(-T // chunk), (kind, launches)
+    # the launch shape the tile table gave this card at this N
+    tile, chunk = (ops.LAST_CONFIG[name][k] for k in ("lane_tile",
+                                                       "time_chunk"))
+    assert launches[name] == chunk_launches(name, T), (kind, launches)
     assert eng.stats.frames == 0 and eng.stats.replay_frames == T
     assert out.shape == (T, N, model.n) and np.isfinite(out).all()
     fps = T / host_s
@@ -1597,38 +1622,42 @@ def phase_replay(kind, plain_ms):
                d2h_xs_ms=d2h_ms, kernel_ms=ms, one_launch_ms=ms_one,
                plain_ms=plain_ms[f"scan_{kind}"], bound_ms=bms, bound_by=by,
                bytes=nb, operations=nops, launches=launches[name],
-               time_chunk=chunk, oracle=check)
+               lane_tile=tile, time_chunk=chunk, oracle=check)
     if is_imm:
         inst = ops.pick_pattern(model.models).name
         row.update(instantiation=inst, chunk64_ms=ms_64,
                    bound_share=bms / ms,
                    registers=ptxas_registers("imm_scan.cu", "imm_scan",
-                                             f"{len(inst)}{inst}"))
-        print(f"[replay imm] katana_imm_sequence, instantiation {inst} "
-              f"({row['registers']} registers): {ms:.3f} ms by events "
+                                             f"{len(inst)}{inst}",
+                                             tile_part(tile)))
+        print(f"[replay imm] katana_imm_sequence, instantiation {inst}, "
+              f"{tile} tracks a block ({row['registers']} registers): "
+              f"{ms:.3f} ms by events "
               f"(device queued) in {launches[name]} launch(es) of up to "
               f"{chunk} frames; in chunks of 64: {ms_64:.3f} ms; bound "
               f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it reached")
     else:
         inst = ops.pick_pattern((model,)).name
         nl = "Lb0" if model.is_linear else "Lb1"
-        entry = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0ELb1E")
+        entry = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0ELb1E",
+                 tile_part(tile))
         regs = ptxas_registers("scan.cu", *entry)
-        # resident blocks of 128 threads an SM at these registers, and the
-        # waves of the launch's blocks on the card's SMs
-        per_sm = min(16, 65536 // (128 * regs)) if regs else None
+        # resident blocks of `tile` threads an SM at these registers, and
+        # the waves of the launch's blocks on the card's SMs
+        per_sm = min(2048 // tile, 65536 // (tile * regs)) if regs else None
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        waves = -(-N // 128) / (per_sm * sms) if per_sm else None
+        waves = -(-N // tile) / (per_sm * sms) if per_sm else None
         row.update(instantiation=inst, bound_share=bms / ms,
                    registers=regs, blocks_per_sm=per_sm, waves=waves)
         waves_s = "?" if waves is None else f"{waves:.2f}"
         print(f"[replay {kind}] katana_bank_sequence, instantiation {inst} "
-              f"({regs} registers, {per_sm} blocks of 128 an SM, {waves_s} "
+              f"({regs} registers, {per_sm} blocks of {tile} an SM, {waves_s} "
               f"waves on {sms} SMs): {ms:.3f} ms by events (device queued) "
               f"in {launches[name]} launch(es); bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of it reached")
         _print_ptxas_of("scan.cu", entry,
-                        ("first_frame", f"{len(inst)}{inst}E{nl}ELb0EE"))
+                        ("first_frame", f"{len(inst)}{inst}E{nl}ELb0E",
+                         tile_part(tile)))
     print(f"[replay {kind}] N={N} T={T}: {fps:.1f} frames/s, "
           f"{fps * N:.4g} track-frames/s (host clock from numpy in to numpy "
           f"out: {host_s * 1e3:.1f} ms; the engine's span, zs in to the "
@@ -1637,8 +1666,8 @@ def phase_replay(kind, plain_ms):
           f"{h2d_ms:.1f} ms in, {d2h_ms:.1f} ms out) | "
           f"{name}: {ms:.3f} ms (plain {row['plain_ms']:.1f} ms, bound "
           f"{bms:.4f} ms by {by}: {both_bounds(nb, nops)}), "
-          f"{launches[name]} launches; the stream in one launch "
-          f"{ms_one:.3f} ms")
+          f"{launches[name]} launch(es) of up to {chunk} frames, {tile} "
+          f"tracks a block; the stream in one launch {ms_one:.3f} ms")
     return row
 
 
@@ -1673,16 +1702,19 @@ def phase_per_frame(plain_ms):
         work = step_work(model, N)
         bms, by = bound(*work)
         inst = ops.pick_pattern((model,)).name
+        tile = ops.LAST_CONFIG["katana_bank"]["lane_tile"]
+        soa_tile = ops.LAST_CONFIG["katana_bank_soa"]["lane_tile"]
         rows[kind] = dict(kernel_ms=ms, plain_ms=plain_ms[f"step_{kind}"],
                           bound_ms=bms, bound_by=by, launches=launches,
                           bound_share=bms / ms, soa_ms=soa_ms,
                           soa_bound_share=bms / soa_ms, instantiation=inst,
+                          lane_tile=tile, soa_lane_tile=soa_tile,
                           registers=ptxas_registers(
                               "imm_step.cu", "imm_step",
-                              f"{len(inst)}{inst}ELb0ELb1E"),
+                              f"{len(inst)}{inst}ELb0ELb1E", tile_part(tile)),
                           soa_registers=ptxas_registers(
                               "imm_step.cu", "bank_step_soa",
-                              f"{len(inst)}{inst}ELb1E"))
+                              f"{len(inst)}{inst}ELb1E", tile_part(soa_tile)))
         print(f"[per-frame {kind}] {T} katana_bank calls == the scan's final "
               f"(x, P) bitwise; instantiation {inst}: {ms:.4f} ms a call by "
               f"events (device queued), {bms / ms:.1%} of the bound; "
@@ -1690,8 +1722,10 @@ def phase_per_frame(plain_ms):
               f"{rows[kind]['plain_ms']:.2f} ms, bound {bms:.5f} ms by {by}: "
               f"{both_bounds(*work)})")
         _print_ptxas_of("imm_step.cu",
-                        ("imm_step", f"{len(inst)}{inst}ELb0ELb1E"),
-                        ("bank_step_soa", f"{len(inst)}{inst}ELb1E"))
+                        ("imm_step", f"{len(inst)}{inst}ELb0ELb1E",
+                         tile_part(tile)),
+                        ("bank_step_soa", f"{len(inst)}{inst}ELb1E",
+                         tile_part(soa_tile)))
     imm = replay_model("imm")
     zs, x0, P0 = dev_(*replay_stream("imm"))
     T, N, _ = zs.shape
@@ -1735,14 +1769,16 @@ def phase_per_frame(plain_ms):
     work = step_work(imm, N)
     bms, by = bound(*work)
     inst = ops.pick_pattern(imm.models).name
+    tile = ops.LAST_CONFIG["katana_bank_imm"]["lane_tile"]
     rows["imm"] = dict(kernel_ms=ms, plain_ms=plain_ms["step_imm"],
                        bound_ms=bms, bound_by=by, launches=launches,
                        driver_ms=drv_ms, driver_vs_scan_max_abs=gap,
                        outside_ref_tolerance=int(over.sum()),
                        instantiation=inst, bound_share=bms / ms,
+                       lane_tile=tile,
                        registers=ptxas_registers("imm_step.cu", "imm_step",
                                                  f"{len(inst)}{inst}"
-                                                 "ELb1ELb1E"))
+                                                 "ELb1ELb1E", tile_part(tile)))
     print(f"[per-frame imm] katana_bank_imm, instantiation {inst} "
           f"({rows['imm']['registers']} registers): {ms:.4f} ms a launch by "
           f"events (device queued); {launches} launches in "
@@ -1803,12 +1839,13 @@ STAGE_TIERS = (("single", ("baseline", "opt1", "opt2")),
                         "imm_scan")))
 _TIER_SUFFIX = {"single": "", "batched": "-batched", "pod": "-pod"}
 # the kernels of the ladder's main path: stage -> (the wrapper ops.LAUNCHES
-# counts, its launches a run, the kernels row of the kernel it launches):
-# imm_scan's K = 1 katana_imm_sequence launches scan.cu's bank_scan
-STAGE_KERNELS = {"fused_scan": ("katana_bank_sequence", 1,
+# counts, its launches a run (None: one a time chunk of the tile table's),
+# the kernels row of the kernel it launches): imm_scan's K = 1
+# katana_imm_sequence launches scan.cu's bank_scan
+STAGE_KERNELS = {"fused_scan": ("katana_bank_sequence", None,
                                 "katana_bank_sequence"),
                  "imm_bank": ("katana_bank_imm", STAGE_T, "katana_bank_imm"),
-                 "imm_scan": ("katana_imm_sequence", 1,
+                 "imm_scan": ("katana_imm_sequence", None,
                               "katana_bank_sequence")}
 
 
@@ -1854,6 +1891,18 @@ def ptxas_spill(source, *parts):
     return None
 
 
+def tile_part(tile):
+    """The part of a mangled kernel name that its last template argument,
+    the tile (tracks or lanes a block), makes."""
+    return f"Li{tile}EE"
+
+
+def chunk_launches(name, T):
+    """Launches of wrapper ``name``'s last call over T frames: one a time
+    chunk, the chunk the tile table (or the caller) chose."""
+    return -(-T // ops.LAST_CONFIG[name]["time_chunk"])
+
+
 def phase_stages():
     """The stage ladder through ``rewrites.run_sequence`` / ``build_stage``
     on the card: every (filter, stage, N) within TOL of the float64
@@ -1891,15 +1940,16 @@ def phase_stages():
                 xs, ms = timed_host(lambda: rewrites.run_sequence(
                     model, stage, zs, x0, P0, device=DEV))
                 counts = dict(ops.LAUNCHES)
+                want = 0
                 if stage in STAGE_KERNELS:
                     name, want, kernel = STAGE_KERNELS[stage]
+                    if want is None:  # a scan: one launch a time chunk
+                        want = chunk_launches(name, STAGE_T)
                     assert counts[name] == want, (stage, counts)
                     by_stage = launches.setdefault(kernel, {})
                     by_stage[stage] = by_stage.get(stage, 0) + counts[name]
                     timed[stage] = xs
-                assert sum(counts.values()) == (
-                    STAGE_KERNELS[stage][1] if stage in STAGE_KERNELS
-                    else 0), (stage, counts)
+                assert sum(counts.values()) == want, (stage, counts)
                 err = max_rel(xs[:, torch.as_tensor(pick, device=DEV)].cpu(),
                               torch.as_tensor(exact))
                 assert err <= TOL[kind], (kind, stage, N, err)
@@ -1932,7 +1982,7 @@ def phase_stages():
     return rows, launches, full
 
 
-def _plain_bank_imm(imm, x, P, z, symmetrize=True):
+def _plain_bank_imm(imm, x, P, z, symmetrize=True, lane_tile=0):
     return ref.katana_bank_imm_step_plain(imm, x, P, z, symmetrize)
 
 
@@ -1996,12 +2046,15 @@ def stage_kernels_bitwise(model, zs, x0, P0, timed):
         b = f"Lb{int(sym)}E"
         scan_ms = cuda_ms(lambda: ops.katana_bank_sequence(
             model, zs, x0, P0, symmetrize=sym), 10, spin=True)
+        scan_t = ops.LAST_CONFIG["katana_bank_sequence"]["lane_tile"]
         step_ms = cuda_ms(lambda: ops.katana_bank(
             model, x0, P0, zs[0], symmetrize=sym), 50, spin=True)
+        step_t = ops.LAST_CONFIG["katana_bank"]["lane_tile"]
         scan_b = bound(*scan_work(model, N, zs.shape[0], sym))
         step_b = bound(*step_work(model, N, sym))
-        scan_e = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0E{b}")
-        step_e = ("imm_step", f"{len(inst)}{inst}ELb0E{b}")
+        scan_e = ("bank_scan", f"{len(inst)}{inst}E{nl}ELb0E{b}",
+                  tile_part(scan_t))
+        step_e = ("imm_step", f"{len(inst)}{inst}ELb0E{b}", tile_part(step_t))
         out["sym" if sym else "full_square"] = dict(
             scan_ms=scan_ms, scan_bound_ms=scan_b[0], scan_bound_by=scan_b[1],
             scan_registers=ptxas_registers("scan.cu", *scan_e),
@@ -2012,7 +2065,8 @@ def stage_kernels_bitwise(model, zs, x0, P0, timed):
             step_spill=ptxas_spill("imm_step.cu", *step_e))
         _print_ptxas_of("scan.cu", scan_e)
         _print_ptxas_of("imm_step.cu", step_e,
-                        ("bank_step_soa", f"{len(inst)}{inst}E{b}"))
+                        ("bank_step_soa", f"{len(inst)}{inst}E{b}",
+                         tile_part(step_t)))
     for key, r in out.items():
         print(f"[stages] {kind} {key} (instantiation {inst}): "
               f"katana_bank_sequence {r['scan_ms']:.3f} ms (bound "
@@ -2055,7 +2109,8 @@ def imm_step_full_square():
                                                  symmetrize=sym), 50,
                      spin=True)
         bms, by = bound(*step_work(imm, N, sym))
-        e = ("imm_step", f"{len(inst)}{inst}ELb1ELb{int(sym)}E")
+        e = ("imm_step", f"{len(inst)}{inst}ELb1ELb{int(sym)}E",
+             tile_part(ops.LAST_CONFIG["katana_bank_imm"]["lane_tile"]))
         out["sym" if sym else "full_square"] = dict(
             step_ms=ms, step_bound_ms=bms, step_bound_by=by,
             step_registers=ptxas_registers("imm_step.cu", *e),
@@ -3205,7 +3260,8 @@ def imm_scan_lane():
     kw_on = {k: v.to(DEV) for k, v in kw.items()}
     ops.reset_launches()
     kern = ops.katana_imm_sequence(imm, *on, **kw_on)
-    assert ops.LAUNCHES["katana_imm_sequence"] == 1, ops.LAUNCHES
+    assert ops.LAUNCHES["katana_imm_sequence"] == chunk_launches(
+        "katana_imm_sequence", on[0].shape[0]), ops.LAUNCHES
     with mock.patch.object(build, "on_cuda", lambda t: False):
         plain = ops.katana_imm_sequence(imm, *on, **kw_on)
     cpu = ops.katana_imm_sequence(imm, *args, **kw)
@@ -5154,6 +5210,235 @@ def phase_mesh_front(card):
         timing=MESH_TIMING, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14, the tile table (kernels/katana_bank/autotune.py, tune.py): the
+# launch shapes of scan.cu, imm_step.cu and imm_scan.cu bit for bit at
+# every tile and chunk, a race at the replay size, and the checked-in
+# table's rows driving this card's launches.
+# ---------------------------------------------------------------------------
+
+TUNE_NS = (1000, None)  # (a)'s bank sizes: None is N_REPLAY
+TUNE_T = 17             # (a)'s frames of the tile sweep
+TUNE_KINDS = {"katana_bank_sequence": "lkf", "katana_imm_sequence": "imm",
+              "katana_bank": "lkf", "katana_bank_imm": "imm"}
+
+
+def _one_asymmetric(P0, seed=47):
+    """P0 with its middle track's P symmetric only to rounding, among
+    tracks symmetric to the bit (first_frame marks a whole block)."""
+    P0 = P0.clone()
+    c = P0.shape[0] // 2
+    rng = np.random.default_rng(seed)
+    P0[c] += torch.as_tensor(1e-3 * rng.standard_normal(
+        tuple(P0[c].shape), dtype=np.float32), device=P0.device)
+    return P0.contiguous()
+
+
+def _same(got, want, what):
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    want = [want] if isinstance(want, torch.Tensor) else list(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), what
+
+
+def tile_sweep(N):
+    """(a) at bank size N: every tile of scan.cu (lkf, ekf, cv9; both
+    symmetrize values; with and without a valid stream, through the
+    K = 1 IMM replay; one track's seed P asymmetric), imm_step.cu (K = 1
+    both layouts, K = 4; both symmetrize values, an asymmetric P) and
+    imm_scan.cu (with and without a valid stream) over TUNE_T frames bit
+    for bit with the plain version; then every (tile, chunk) the tuner
+    races over T_REPLAY frames bit for bit with one launch at the static
+    tile (lkf, ekf, imm). Returns the count of cases."""
+    cases = 0
+    scan_tiles = ops.LANE_TILES["katana_bank_sequence"]
+    for kind in ("lkf", "ekf", "cv9"):
+        model = filters.get_filter(kind)
+        src = "imm" if kind == "cv9" else kind
+        zs, x0, P0 = dev_(*replay_stream(src, N, TUNE_T))
+        P0 = _one_asymmetric(P0)
+        valid = torch.as_tensor(np.random.default_rng(N).random(
+            (TUNE_T, N)) >= DROP, device=DEV)
+        a1 = filters.as_imm(model)
+        for sym in (True, False):
+            want = ref.katana_bank_scan_plain(model, x0, P0, zs,
+                                              symmetrize=sym)
+            inputs = ops.imm_sequence_inputs(a1, zs, x0, P0, None, valid)
+            want_v = ref.katana_bank_scan_plain(model, x0, P0, inputs[3],
+                                                inputs[4], symmetrize=sym)
+            for tile in scan_tiles:
+                got = ops.katana_bank_sequence(model, zs, x0, P0,
+                                               return_final=True,
+                                               symmetrize=sym, lane_tile=tile)
+                _same((got[0],) + got[1], want, (kind, sym, tile))
+                got = ops.katana_imm_sequence(a1, zs, x0, P0, valid=valid,
+                                              return_final=True,
+                                              symmetrize=sym, lane_tile=tile)
+                _same((got[0], got[1][0][0], got[1][1][0]), want_v,
+                      (kind, sym, tile, "valid"))
+                cases += 2
+            z0 = zs[0]
+            want = ref.katana_bank_step_plain(model, x0, P0, z0, sym)
+            layout = (x0.T.contiguous(), P0.permute(1, 2, 0).contiguous(),
+                      z0.T.contiguous())
+            for tile in ops.LANE_TILES["katana_bank"]:
+                _same(ops.katana_bank(model, x0, P0, z0, symmetrize=sym,
+                                      lane_tile=tile), want,
+                      (kind, sym, tile, "step"))
+                soa = ops.katana_bank_soa(model, *layout, symmetrize=sym,
+                                          lane_tile=tile)
+                _same((soa[0].T, soa[1].permute(2, 0, 1)), want,
+                      (kind, sym, tile, "soa"))
+                cases += 2
+    imm = replay_model("imm")
+    zs_np, x0_np, P0_np = replay_stream("imm", N, TUNE_T)
+    rng = np.random.default_rng(N + 1)
+    vmask = rng.random((TUNE_T, N)) >= DROP
+    zs, x0, P0, valid = dev_(zs_np, x0_np, P0_np, vmask)
+    mu0 = torch.as_tensor(rng.dirichlet(np.ones(imm.K), size=N),
+                          dtype=torch.float32, device=DEV)
+    for vs in (None, valid):
+        want = ref.katana_bank_imm_scan_plain(
+            imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, vs))
+        for tile in ops.LANE_TILES["katana_imm_sequence"]:
+            got = ops.katana_imm_sequence(imm, zs, x0, P0, mu0, vs,
+                                          return_final=True, lane_tile=tile)
+            _same((got[0],) + got[1], want, ("imm scan", vs is None, tile))
+            cases += 1
+    K, n = imm.K, imm.n
+    xK = (x0[None] + torch.as_tensor(0.05 * rng.standard_normal(
+        (K, N, n), dtype=np.float32), device=DEV)).contiguous()
+    PK = (P0[None].expand(K, N, n, n) + torch.as_tensor(
+        1e-3 * rng.standard_normal((K, N, n, n), dtype=np.float32),
+        device=DEV)).contiguous()
+    for sym in (True, False):
+        want = ref.katana_bank_imm_step_plain(imm, xK, PK, zs[0], sym)
+        for tile in ops.LANE_TILES["katana_bank_imm"]:
+            _same(ops.katana_bank_imm(imm, xK, PK, zs[0], symmetrize=sym,
+                                      lane_tile=tile), want,
+                  ("imm step", sym, tile))
+            cases += 1
+    # every raced (tile, chunk) against one launch at the static tile
+    for kind in ("lkf", "ekf", "imm"):
+        model = replay_model(kind)
+        name = "katana_imm_sequence" if kind == "imm" else (
+            "katana_bank_sequence")
+        seq = getattr(ops, name)
+        zs, x0, P0 = dev_(*replay_stream(kind, N, T_REPLAY))
+        one = seq(model, zs, x0, P0, return_final=True,
+                  time_chunk=T_REPLAY,
+                  lane_tile=tune.static_config(name)["lane_tile"])
+        for cfg in tune.candidates(name):
+            _same((lambda r: (r[0],) + r[1])(seq(model, zs, x0, P0,
+                                                 return_final=True, **cfg)),
+                  (one[0],) + one[1], (kind, cfg))
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def tabled_vs_static(name):
+    """(tabled ms, static ms, the tabled config) of wrapper ``name`` at the
+    replay size (T_REPLAY frames for the scans, one frame for the steps),
+    CUDA events with the device queued, in turns tabled, static, static,
+    tabled; the tabled call at lane_tile=0 / time_chunk=0."""
+    model = replay_model(TUNE_KINDS[name])
+    zs, x0, P0 = dev_(*replay_stream(TUNE_KINDS[name]))
+    static = dict(autotune.STATIC_DEFAULTS[name])
+    if name == "katana_bank_imm":
+        K, N, n = model.K, x0.shape[0], model.n
+        xK = x0[None].expand(K, N, n).contiguous()
+        PK = P0[None].expand(K, N, n, n).contiguous()
+        call = (lambda **kw: ops.katana_bank_imm(model, xK, PK, zs[0],
+                                                 **kw))
+    elif name == "katana_bank":
+        call = lambda **kw: ops.katana_bank(model, x0, P0, zs[0], **kw)
+    else:
+        call = lambda **kw: getattr(ops, name)(model, zs, x0, P0, **kw)
+    call()
+    cfg = dict(ops.LAST_CONFIG[name])
+    iters = 50 if "time_chunk" not in static else 3
+    times = {"tabled": [], "static": []}
+    for which in ("tabled", "static", "static", "tabled"):
+        kw = {} if which == "tabled" else static
+        times[which].append(cuda_ms(lambda: call(**kw), iters, spin=True))
+    return (float(np.mean(times["tabled"])), float(np.mean(times["static"])),
+            cfg)
+
+
+def phase_autotune(card):
+    """Phase 14: (a) ``tile_sweep`` at N = 1,000 and N_REPLAY; (b)
+    ``tune.tune`` at N_REPLAY, T_REPLAY frames, into a temporary table,
+    every candidate's device ms and the winner against the static
+    default's; (c) for each tuned kernel the checked-in table's row for
+    this card's key at N_REPLAY and the configuration ``ops.LAST_CONFIG``
+    shows the launch used (the static defaults where the card has no
+    row), and the tabled and static configs' times of the four bank
+    kernels. Returns {kernel: its row of numbers}."""
+    t_phase = time.perf_counter()
+    sweep = {}
+    for N in TUNE_NS:
+        N = N or N_REPLAY
+        t0 = time.perf_counter()
+        sweep[N] = tile_sweep(N)
+        print(f"[autotune] (a) N={N}: {sweep[N]} cases bit for bit at every "
+              f"tile (scan.cu {ops.LANE_TILES['katana_bank_sequence']}, "
+              f"imm_step.cu {ops.LANE_TILES['katana_bank']}, imm_scan.cu "
+              f"{ops.LANE_TILES['katana_imm_sequence']}) and chunk "
+              f"{tune.TIME_CHUNKS} ({time.perf_counter() - t0:.1f} s)")
+    report = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tuned.json"
+        entries = tune.tune(Ns=(N_REPLAY,), T=T_REPLAY, rounds=5,
+                            device=DEV, report=report)
+        autotune.write_table(entries, path)
+        raced = {k: autotune.best_config(k, N_REPLAY, DEV, path=path)
+                 for k in tune.KERNELS}
+    race_s = time.perf_counter() - t0
+    key = autotune.device_key(DEV)
+    out = {"key": key, "sweep_cases": sweep, "race_s": race_s}
+    for kernel in tune.KERNELS:
+        frames = 1 if kernel == "katana_bank" else T_REPLAY
+        ms = {json.dumps(c, sort_keys=True): us * frames / 1e3
+              for k, _, c, us in report
+              if k == kernel and isinstance(us, float)}
+        best = raced[kernel]
+        static_ms = ms[json.dumps(tune.static_config(kernel),
+                                  sort_keys=True)]
+        print(f"[autotune] (b) {kernel} N={N_REPLAY}: device ms a call "
+              + ", ".join(f"{c} {v:.4f}" for c, v in ms.items()))
+        won = {k: best[k] for k in ("lane_tile", "time_chunk") if k in best}
+        print(f"[autotune] (b) {kernel}: winner {won} "
+              f"{best['us_per_frame'] * frames / 1e3:.4f} ms against the "
+              f"static default's {static_ms:.4f} ms ({card})")
+        out[kernel] = dict(race_ms=ms, race_best=best, race_static_ms=static_ms)
+    t0 = time.perf_counter()
+    for name in TUNE_KINDS:
+        tabled_ms, static_ms, cfg = tabled_vs_static(name)
+        N = cfg["N"]
+        row = autotune.best_config(name, N, key)
+        want = dict(autotune.STATIC_DEFAULTS[name])
+        want.update({k: row[k] for k in ("lane_tile", "time_chunk")
+                     if k in row})
+        assert cfg["key"] == key and all(
+            cfg[k] == v for k, v in want.items()), (name, cfg, row)
+        print(f"[autotune] (c) {name} N={N}: "
+              + (f"the table's row for {key} (N={row['N']}): {row}"
+                 if row else f"no row for {key}: the static defaults")
+              + f"; the launch used lane_tile {cfg['lane_tile']}"
+              + (f", time_chunk {cfg['time_chunk']}"
+                 if cfg["time_chunk"] else "")
+              + f" (ops.LAST_CONFIG); {tabled_ms:.4f} ms tabled, "
+              f"{static_ms:.4f} ms at the static defaults ({card})")
+        out.setdefault(name, {}).update(
+            lane_tile=cfg["lane_tile"], time_chunk=cfg["time_chunk"],
+            tuned_ms=tabled_ms, static_ms=static_ms, table_row=row or None)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[autotune] phase 14: {out['seconds']:.1f} s ((b)'s race "
+          f"{race_s:.1f} s, (c) {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -5239,6 +5524,8 @@ def main() -> int:
     lap("13")
     mesh_front = phase_mesh_front(card)
     lap("13b")
+    tuned = phase_autotune(card)
+    lap("14")
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
@@ -5308,7 +5595,11 @@ def main() -> int:
         # the stage ladder's, the sensor fleet's, the stream's and the
         # jitted trackers' own launches of the kernel (phase_stages,
         # phase_fleet, phase_stream, phase_jitted), apart from the main
-        # path's ``launches``
+        # path's ``launches``; the bank kernels' launch shape from the
+        # tile table, its time and the static shape's (phase 14)
+        if name in TUNE_KINDS:
+            extra = dict(extra, **{k: tuned[name][k] for k in (
+                "lane_tile", "time_chunk", "tuned_ms", "static_ms")})
         if name in jitted_launches:
             extra = dict(extra, jitted_launches=jitted_launches[name])
         if name in ladder:
@@ -5417,7 +5708,7 @@ def main() -> int:
                  stages=stages, stage_kernels=full_sq,
                  lm=lm, mamba=mamba, stream=stream, imm_lane=lane,
                  train=train, moe=moe, jitted=jitted, mesh=mesh,
-                 mesh_front=mesh_front,
+                 mesh_front=mesh_front, autotune=tuned,
                  kernels=kernels,
                  phase_seconds=seconds,
                  seconds=time.perf_counter() - t_start), indent=1))

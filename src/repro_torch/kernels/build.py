@@ -4,10 +4,13 @@ Each source (``kernels/<family>/csrc/<name>.cu``, listed in ``SOURCES``
 with its directory) compiles on first use into its own shared library
 with a plain C interface, in ``<repo>/build/kernels/``, named by a digest
 of the flags, the source and the headers (``*.cuh``) of its own
-directory (an edited source or header builds anew). Sources compile in parallel, one
-``nvcc`` process each. No PyTorch headers are involved, so a build
-takes seconds. The flags keep IEEE rounding: ``--fmad=false`` (no
-multiply-add contraction) and no ``--use_fast_math``.
+directory (an edited source or header builds anew). Sources compile in
+parallel, one ``nvcc`` process each; a source listed in ``PARTS``
+compiles as that many objects at once (``-DKATANA_PART=i``: each holds
+its share of the instantiations, part 0 also the C entry), linked into
+its library. No PyTorch headers are involved, so a build takes seconds.
+The flags keep IEEE rounding: ``--fmad=false`` (no multiply-add
+contraction) and no ``--use_fast_math``.
 
 Every exported function returns ``cudaGetLastError()`` after its
 launches; ``check`` turns a non-zero code into an exception.
@@ -41,6 +44,10 @@ SOURCES: Dict[str, Path] = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# sources compiled as several objects in parallel, one a tile of their
+# block size (the source's KATANA_PART sections): their instantiations
+# tripled with the tiles, and one nvcc took 99-111 s on the H100's host
+PARTS: Dict[str, int] = {"scan.cu": 3, "imm_step.cu": 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,17 +69,17 @@ SIGNATURES = {
     },
     "scan.cu": {
         "katana_bank_scan_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _I, _F, _P, _P, _P, _P, _I, _P],
+                                 _I, _F, _P, _P, _P, _P, _I, _I, _P],
     },
     "imm_scan.cu": {
         "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                _P, _F, _P, _P, _P, _P, _P],
+                                _P, _F, _P, _P, _P, _P, _I, _P],
     },
     "imm_step.cu": {
         "katana_imm_step_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F,
-                                _F, _P, _P, _P, _I, _P],
+                                _F, _P, _P, _P, _I, _I, _P],
         "katana_bank_soa_run": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
-                                _P, _P],
+                                _P, _I, _I, _P],
     },
     "flash_attention.cu": {
         "flash_attention_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -116,6 +123,7 @@ def nvcc() -> str:
 def _digest(source: str) -> str:
     csrc = SOURCES[source]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(source, 1)).encode())
     for p in sorted(csrc.glob("*.cuh")) + [csrc / source]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -126,13 +134,58 @@ def lib_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{_digest(source)}.so"
 
 
+def _run(cmds):
+    """Run the commands at once, each read on a thread of its own (a full
+    pipe never stalls one); (exit code, output) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [None] * len(procs)
+
+    def read(i):
+        outs[i] = procs[i].communicate()[0]
+
+    threads = [threading.Thread(target=read, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _compile(src: str, tmp: Path):
+    """(exit code, output) of building ``src`` into ``tmp``: one nvcc, or
+    its PARTS objects at once and then their link."""
+    path = str(SOURCES[src] / src)
+    parts = PARTS.get(src, 1)
+    if parts == 1:
+        return _run([[nvcc(), *NVCC_FLAGS, "-o", str(tmp), path]])[0]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_suffix(f".{i}.o") for i in range(parts)]
+    try:
+        runs = _run([[nvcc(), *flags, "-c", f"-DKATANA_PART={i}", "-o",
+                      str(o), path] for i, o in enumerate(objs)])
+        log = "".join(out for _, out in runs)
+        code = max(c for c, _ in runs)
+        if code == 0:
+            code, out = _run([[nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)]])[0]
+            log += out
+        return code, log
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
 def build(sources: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
     """Compile every listed source whose library is missing, all at once
-    (one ``nvcc`` each). Raises with the compiler's output if any fails.
-    Returns ``BUILD_LOG`` entries for the listed sources."""
+    (one ``nvcc`` each, one a part for ``PARTS``). Raises with the
+    compiler's output if any fails. Returns ``BUILD_LOG`` entries for the
+    listed sources, each with its own seconds."""
     sources = list(sources)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    todo = {}
     t0 = time.perf_counter()
     for src in sources:
         out = lib_path(src)
@@ -140,20 +193,29 @@ def build(sources: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
             BUILD_LOG.setdefault(src, {"path": str(out), "seconds": 0.0,
                                        "ptxas": []})
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[src] / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
+        todo[src] = (out.with_suffix(f".{os.getpid()}.tmp"), out)
+    # a thread a source, so every compiler runs at once, a full pipe never
+    # stalls one, and each source's seconds are its own
+    done = {}
+
+    def compile_one(src, tmp):
+        done[src] = _compile(src, tmp) + (time.perf_counter() - t0,)
+
+    threads = [threading.Thread(target=compile_one, args=(src, tmp))
+               for src, (tmp, _) in todo.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
-    for src, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
+    for src, (tmp, out) in todo.items():
+        code, log, seconds = done[src]
+        if code != 0:
+            failed.append(f"--- {src} (exit {code})\n{log}")
             continue
         os.replace(tmp, out)
         BUILD_LOG[src] = {
-            "path": str(out), "seconds": time.perf_counter() - t0,
+            "path": str(out), "seconds": seconds,
             "ptxas": [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]}

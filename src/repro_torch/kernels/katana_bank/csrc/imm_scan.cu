@@ -18,13 +18,18 @@
 // an instruction of its own, so the issue rate, not the FMA pipes' peak,
 // is the practical ceiling: half of that bound.
 //
-// Design: one thread per (model, track), K * kTracks threads a block, the
-// threads of model j in warp j (kTracks = 32), every warp on one code
-// path. A thread keeps its own x and P in registers across the frames;
-// shared memory holds the copies the track's other threads read, one
+// Design: one thread per (model, track), K * Tracks threads a block, the
+// threads of model j in warps j * Tracks / 32 onwards (Tracks = 32 or 64:
+// a launch choice, ops.LANE_TILES, the tile table's; not 16, which would
+// put two models' code paths in one warp), every warp on one code path;
+// a track's bits do not depend on Tracks. A thread keeps its own x and P
+// in registers across the frames; shared memory holds the copies the
+// track's other threads read, one
 // slab per (model, track) with x (n) and P's upper triangle (n(n+1)/2),
 // padded to an odd stride so a warp's 32 slabs sit in 32 different banks
-// (K=4, n=9: 4*32*55*4 = 28 KB a block). Shared-memory traffic, not the
+// (K=4, n=9: 4*32*55*4 = 28 KB a block of 32 tracks; all of ScanShared
+// 42 KB, 85 KB at 64 tracks, dynamic shared memory past the 48 KB a
+// launch gets without cudaFuncSetAttribute). Shared-memory traffic, not the
 // float32 work alone, bounds a frame: the mixing reads K slabs for each
 // of the K targets. Model j's constants are a runtime offset
 // into the kernel's parameters (ImmTable, 2.8 KB), read from the constant
@@ -32,7 +37,8 @@
 // time loop; the predict follows the model set's compile-time Pattern
 // (pruned.cuh): the plain version's op stream, none of F's 59 shared
 // zeros multiplied for make_imm(). At most 128 registers a thread: 4
-// blocks (16 warps) an SM. Per frame, three barriers:
+// blocks of 32 tracks (16 warps) an SM, 2 of 64. Per frame, three
+// barriers:
 //   1. thread (i >= 1, c) forms its share of the spread, xt_i = x_i - x_0
 //      and A_i = P_i + xt_i xt_i^T, once for the K targets (the plain
 //      version's order), and writes A_i (A_0 = P_0) into its slab and xt_i
@@ -46,9 +52,9 @@
 //      logliks; thread (k, c) writes the combined estimate's entries
 //      d = k, k + K, ... of xs[t, c]. Step 1 of the next frame writes
 //      only P and xt, which step 4 does not read: no barrier between them.
-// A model's P for the block's 32 tracks is one contiguous span of device
-// memory (10 KB): it comes in and goes out through a staging buffer with
-// 16-byte accesses, one model at a time. Layouts are canonical:
+// A model's P for the block's tracks is one contiguous span of device
+// memory (10 KB at 32 tracks): it comes in and goes out through a staging
+// buffer with 16-byte accesses, one model at a time. Layouts are canonical:
 // x (K, N, n), P (K, N, n, n), mu (N, K), zs (T, N, m), xs (T, N, n).
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
@@ -60,10 +66,15 @@
 
 namespace katana {
 
-constexpr int kTracks = 32;
-// resident blocks an SM: at most 128 registers a thread (3 blocks were
-// slower on the card with 168, 5 spilled at 96)
-constexpr int kMinBlocks = 4;
+// the instantiated tiles (tracks a block); ops.LANE_TILES mirrors them
+#define KATANA_IMM_SCAN_TILES(X) X(32) X(64)
+
+// resident blocks an SM: at most 128 registers a thread (3 blocks of 32
+// tracks were slower on the card with 168, 5 spilled at 96)
+template <int K, int Tracks>
+constexpr int imm_scan_min_blocks() {
+  return 65536 / (K * Tracks * 128);
+}
 
 template <int N>
 __host__ __device__ constexpr int slab_stride() {
@@ -82,14 +93,14 @@ struct ImmTable {
   float Pi[K * K];
 };
 
-template <int N, int K>
+template <int N, int K, int Tracks>
 struct ScanShared {
   // one model's P for the block's tracks, a contiguous span of device
   // memory, on its way in and out with 16-byte accesses
-  __align__(16) float stage[kTracks * N * N];
-  float slab[K][kTracks][slab_stride<N>()];
-  float xt[K - 1][kTracks][N | 1];
-  float ll[K][kTracks];
+  __align__(16) float stage[Tracks * N * N];
+  float slab[K][Tracks][slab_stride<N>()];
+  float xt[K - 1][Tracks][N | 1];
+  float ll[K][Tracks];
 };
 
 struct ScanArgs {
@@ -100,18 +111,19 @@ struct ScanArgs {
   float* xs;
 };
 
-template <int N, int M, int K, class Pat>
-__global__ void __launch_bounds__(K * kTracks, kMinBlocks)
+template <int N, int M, int K, class Pat, int Tracks>
+__global__ void __launch_bounds__(K * Tracks, imm_scan_min_blocks<K, Tracks>())
 imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ mu,
          float* __restrict__ x_fin, float* __restrict__ P_fin,
          float* __restrict__ mu_fin,
          const __grid_constant__ ImmTable<N, M, K> tab) {
-  __shared__ ScanShared<N, K> sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<ScanShared<N, K, Tracks>*>(smem_raw);
   const int Ntr = a.Ntr;
-  const int j = threadIdx.x / kTracks;
-  const int cl = threadIdx.x % kTracks;
-  const int c_raw = blockIdx.x * kTracks + cl;
+  const int j = threadIdx.x / Tracks;
+  const int cl = threadIdx.x % Tracks;
+  const int c_raw = blockIdx.x * Tracks + cl;
   // lanes past the last track compute on a copy of it and store nothing:
   // every thread must reach the block's barriers
   const bool live = c_raw < Ntr;
@@ -126,8 +138,8 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
   auto Rv = [&](int r, int q) { return md.R[r * M + q]; };
   float* own = sm.slab[j][cl];
   const float* x0s = sm.slab[0][cl];
-  const int c0 = blockIdx.x * kTracks;
-  const int nc = min(kTracks, Ntr - c0);
+  const int c0 = blockIdx.x * Tracks;
+  const int nc = min(Tracks, Ntr - c0);
   const int tid = threadIdx.x;
   float* mine = sm.stage + (c - c0) * N * N;  // this lane's P when staged
   // the thread's own state stays in registers across the frames: the
@@ -140,7 +152,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
   }
   for (int m = 0; m < K; ++m) {
     stage_in(sm.stage, P + ((size_t)m * Ntr + c0) * N * N, nc * N * N, tid,
-             K * kTracks);
+             K * Tracks);
     stage_wait();
     __syncthreads();
     if (j == m) {
@@ -254,7 +266,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
     }
     __syncthreads();
     stage_out(P_fin + ((size_t)m * Ntr + c0) * N * N, sm.stage, nc * N * N,
-              tid, K * kTracks);
+              tid, K * Tracks);
     __syncthreads();
   }
   if (!live) return;
@@ -266,7 +278,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
   }
 }
 
-template <class Pat>
+template <class Pat, int Tracks>
 int launch_scan(int K, int Ntr, int T, const void* x, const void* P,
                 const void* mu, const void* zs, const void* vs,
                 const void* consts, float log2pi_m, void* xs, void* x_fin,
@@ -277,8 +289,15 @@ int launch_scan(int K, int Ntr, int T, const void* x, const void* P,
     memcpy(&tab, consts, sizeof tab);
     const ScanArgs a{Ntr, T, (const float*)zs, (const uint8_t*)vs, log2pi_m,
                      (float*)xs};
-    const int blocks = (Ntr + kTracks - 1) / kTracks;
-    imm_scan<9, 3, 4, Pat><<<blocks, 4 * kTracks, 0, s>>>(
+    constexpr size_t bytes = sizeof(ScanShared<9, 4, Tracks>);
+    auto* kernel = imm_scan<9, 3, 4, Pat, Tracks>;
+    if constexpr (bytes > 48 * 1024) {
+      static const cudaError_t set = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (set != cudaSuccess) return (int)set;
+    }
+    const int blocks = (Ntr + Tracks - 1) / Tracks;
+    kernel<<<blocks, 4 * Tracks, bytes, s>>>(
         a, (const float*)x, (const float*)P, (const float*)mu, (float*)x_fin,
         (float*)P_fin, (float*)mu_fin, tab);
     return (int)cudaGetLastError();
@@ -294,20 +313,29 @@ extern "C" {
 // The whole stream of T frames for Ntr tracks, K > 1. Shapes (K, n, m) in
 // {(4, 9, 3)}, `pattern` the id of an instantiated Pattern of that shape
 // (pruned.cuh); any other combination returns cudaErrorInvalidValue
-// without launching. `consts` is the constant table in HOST memory
+// without launching, and so does a `tile` (tracks a block) outside
+// KATANA_IMM_SCAN_TILES. `consts` is the constant table in HOST memory
 // (ops._host_consts: per model F, Q, R, then the Markov matrix), copied
 // into the launch's parameters. vs may be null (every frame valid).
 int katana_imm_scan_run(int K, int n, int m, int pattern, int Ntr, int T,
                         const void* x, const void* P, const void* mu,
                         const void* zs, const void* vs, const void* consts,
                         float log2pi_m, void* xs, void* x_fin, void* P_fin,
-                        void* mu_fin, void* stream) {
+                        void* mu_fin, int tile, void* stream) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
+  auto by_tile = [&](auto pat) -> int {
+    using Pat = decltype(pat);
+#define KATANA_IMM_SCAN_TILE(t)                                              \
+  if (tile == t)                                                            \
+    return launch_scan<Pat, t>(K, Ntr, T, x, P, mu, zs, vs, consts,         \
+                               log2pi_m, xs, x_fin, P_fin, mu_fin, s);
+    KATANA_IMM_SCAN_TILES(KATANA_IMM_SCAN_TILE)
+#undef KATANA_IMM_SCAN_TILE
+    return (int)cudaErrorInvalidValue;
+  };
 #define KATANA_IMM_SCAN_CASE(id, name, n_, m_, ...)                          \
-  if (pattern == id && n == n_ && m == m_)                                  \
-    return launch_scan<name>(K, Ntr, T, x, P, mu, zs, vs, consts, log2pi_m, \
-                             xs, x_fin, P_fin, mu_fin, s);
+  if (pattern == id && n == n_ && m == m_) return by_tile(name{});
   KATANA_IMM_PATTERNS(KATANA_IMM_SCAN_CASE)
 #undef KATANA_IMM_SCAN_CASE
   return (int)cudaErrorInvalidValue;

@@ -14,7 +14,9 @@
 // is an instruction of its own, so the issue rate (one warp instruction a
 // cycle per SM quarter) sets a floor of the same order as the bytes.
 //
-// Design: one thread per track, kThreads tracks a block. Per frame a
+// Design: one thread per track, Tile tracks a block (64, 128 or 256: a
+// launch choice, ops.LANE_TILES, the tile table's; the bits do not depend
+// on it). Per frame a
 // thread runs pruned.cuh's step_lane on the model's compile-time Pattern
 // (cv6, ctra8, imm9 or a dense one: ops.pick_pattern): the plain
 // version's op stream, F's and Q's zeros skipped, the code of the
@@ -26,12 +28,14 @@
 // scan, which runs frame 0 for that lane's block (a second copy of the
 // step for frame 0 in the scan kernel, inlined or called, cost the time
 // loop registers: 24-76 bytes of spill for lkf, 112 for ekf, 3-8% of the
-// scan's time on an H100; a per-lane branch around frame 0, 3%). F, Q
-// and R are the
-// launch's parameters (ModelTable), read from the constant bank where
-// they are used, so none holds a register. Launch bounds cap the
-// registers so that the lkf scan's 1,024 blocks of 128 fit one wave of
-// 8 blocks an SM on 132 SMs.
+// scan's time on an H100; a per-lane branch around frame 0, 3%). Which
+// lanes share a block, and so run frame 0 ahead, changes with the tile;
+// a symmetric lane's bits do not (its P read whole or as the triangle
+// are the same floats). F, Q and R are the launch's parameters
+// (ModelTable), read from the constant bank where they are used, so none
+// holds a register. Launch bounds cap the registers so that the lkf
+// scan's 1,024 blocks of 128 fit one wave of 8 blocks an SM on 132 SMs;
+// the cap is the same at every tile (scan_min_blocks).
 // Sym = false (symmetrize=False, the rewrite stages' default) carries the
 // whole n x n P in registers instead, computes every entry of the predict
 // and the update (the reference's full square) and reads the seed whole
@@ -54,13 +58,17 @@
 
 namespace katana {
 
-constexpr int kThreads = 128;
+// the instantiated tiles (tracks a block); ops.LANE_TILES mirrors them
+#define KATANA_SCAN_TILES(X) X(64) X(128) X(256)
 
-// resident blocks an SM: the register cap (65,536 / (128 * blocks))
-template <int N, bool Sym>
+// resident blocks of Tile threads an SM: the register cap 65,536 /
+// (Tile * blocks) of blocks of 128 scaled to the tile, so every tile gets
+// the cap of 128 (64 cv6 / 96 n >= 8 with Sym; 80 / 128 without). At 256
+// the 5 blocks of 128 of n >= 8 with Sym round down to 2 (a cap of 128).
+template <int N, bool Sym, int Tile>
 constexpr int scan_min_blocks() {
-  if constexpr (Sym) return N <= 6 ? 8 : 5;
-  return N <= 6 ? 6 : 4;
+  constexpr int at128 = Sym ? (N <= 6 ? 8 : 5) : (N <= 6 ? 6 : 4);
+  return at128 * 128 / Tile > 0 ? at128 * 128 / Tile : 1;
 }
 
 struct ScanArgs {
@@ -83,12 +91,12 @@ struct ScanArgs {
 // them up, and the block's mark in `first`, so that bank_scan starts
 // that block at frame 1. The blocks of bank_scan; its own launch, so
 // bank_scan's loop holds one copy of the step and no per-lane branch.
-template <class Pat, bool NL, bool VS>
-__global__ void __launch_bounds__(kThreads)
+template <class Pat, bool NL, bool VS, int Tile>
+__global__ void __launch_bounds__(Tile)
 first_frame(const __grid_constant__ ScanArgs a,
             const __grid_constant__ ModelTable<Pat::N, Pat::M> tab) {
   constexpr int N = Pat::N, M = Pat::M, NN = N * N;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int c = blockIdx.x * Tile + threadIdx.x;
   const bool live = c < a.Ntr;
   float Pv[NN];
   bool sym = true;
@@ -131,8 +139,8 @@ first_frame(const __grid_constant__ ScanArgs a,
 
 // NL: the CTRA-8 dynamics; VS: a valid stream; Sym: P's upper triangle
 // (symmetrize=True) or the whole square.
-template <class Pat, bool NL, bool VS, bool Sym>
-__global__ void __launch_bounds__(kThreads, scan_min_blocks<Pat::N, Sym>())
+template <class Pat, bool NL, bool VS, bool Sym, int Tile>
+__global__ void __launch_bounds__(Tile, scan_min_blocks<Pat::N, Sym, Tile>())
 bank_scan(const __grid_constant__ ScanArgs a,
           const __grid_constant__ ModelTable<Pat::N, Pat::M> tab) {
   constexpr int N = Pat::N, M = Pat::M, NN = N * N, NT = N * (N + 1) / 2;
@@ -141,22 +149,22 @@ bank_scan(const __grid_constant__ ScanArgs a,
     if constexpr (Sym) return r <= q ? tri<N>(r, q) : tri<N>(q, r);
     return r * N + q;
   };
-  __shared__ __align__(16) float zb[2][kThreads * M];
-  __shared__ __align__(16) float xb[2][kThreads * N];
+  __shared__ __align__(16) float zb[2][Tile * M];
+  __shared__ __align__(16) float xb[2][Tile * N];
   const int Ntr = a.Ntr, T = a.T, tid = threadIdx.x;
-  const int c0 = blockIdx.x * kThreads;
-  const int nc = min(kThreads, Ntr - c0);
+  const int c0 = blockIdx.x * Tile;
+  const int nc = min(Tile, Ntr - c0);
   // threads past the last track compute on a copy of it and store
   // nothing: every thread must reach the block's barriers
   const int slot = min(tid, nc - 1);
   const size_t c = (size_t)c0 + slot;
   auto stage_z = [&](int t) {
     stage_in(zb[t & 1], a.zs + ((size_t)t * Ntr + c0) * M, nc * M, tid,
-             kThreads);
+             Tile);
   };
   auto store_xs = [&](int t) {
     stage_out(a.xs + ((size_t)t * Ntr + c0) * N, xb[t & 1], nc * N, tid,
-              kThreads);
+              Tile);
   };
 
   // the seed: x and P's upper triangle, which is all of P (a block with a
@@ -226,26 +234,26 @@ bank_scan(const __grid_constant__ ScanArgs a,
   store_vec<NN>(a.P_fin + c * NN, Pf);
 }
 
-// The scan of an instantiated Pattern: first_frame, then bank_scan (sym),
-// or bank_scan alone (the full square); `consts` is the model's F, Q, R in
-// host memory, copied into the launches' parameters. A nonlinear model is
-// the CTRA-8 (N = 8) only.
-template <class Pat>
+// The scan of an instantiated Pattern at `Tile` tracks a block:
+// first_frame, then bank_scan (sym), or bank_scan alone (the full square);
+// `consts` is the model's F, Q, R in host memory, copied into the
+// launches' parameters. A nonlinear model is the CTRA-8 (N = 8) only.
+template <class Pat, int Tile>
 cudaError_t launch_scan(const ScanArgs& a, const void* consts, int nonlinear,
                         int sym, cudaStream_t s) {
   ModelTable<Pat::N, Pat::M> tab;
   memcpy(&tab, consts, sizeof tab);
-  const int blocks = (a.Ntr + kThreads - 1) / kThreads;
+  const int blocks = (a.Ntr + Tile - 1) / Tile;
   auto run = [&](auto nl, auto vs) {
     constexpr bool NL = decltype(nl)::value, VS = decltype(vs)::value;
     if (!sym) {
-      bank_scan<Pat, NL, VS, false><<<blocks, kThreads, 0, s>>>(a, tab);
+      bank_scan<Pat, NL, VS, false, Tile><<<blocks, Tile, 0, s>>>(a, tab);
       return cudaGetLastError();
     }
-    first_frame<Pat, NL, VS><<<blocks, kThreads, 0, s>>>(a, tab);
+    first_frame<Pat, NL, VS, Tile><<<blocks, Tile, 0, s>>>(a, tab);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    bank_scan<Pat, NL, VS, true><<<blocks, kThreads, 0, s>>>(a, tab);
+    bank_scan<Pat, NL, VS, true, Tile><<<blocks, Tile, 0, s>>>(a, tab);
     return cudaGetLastError();
   };
   auto with_vs = [&](auto nl) {
@@ -259,33 +267,74 @@ cudaError_t launch_scan(const ScanArgs& a, const void* consts, int nonlinear,
   return with_vs(std::false_type{});
 }
 
+// One tile's scan of every instantiated Pattern (cudaErrorInvalidValue
+// for another pattern or shape, without launching).
+template <int Tile>
+int scan_tile(int pattern, int n, int m, const ScanArgs& a,
+              const void* consts, int nonlinear, int sym, cudaStream_t s) {
+#define KATANA_SCAN_CASE(id, name, n_, m_, ...)                              \
+  if (pattern == id && n == n_ && m == m_)                                  \
+    return (int)launch_scan<name, Tile>(a, consts, nonlinear, sym, s);
+  KATANA_IMM_PATTERNS(KATANA_SCAN_CASE)
+#undef KATANA_SCAN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The build compiles this source in parts (kernels/build.py PARTS,
+// -DKATANA_PART=i): part i defines scan_at_tile for the tile
+// KATANA_SCAN_TILES lists i-th, part 0 also the C entry, which reaches the
+// others' through these declarations; built whole it holds them all.
+#define KATANA_SCAN_AT_TILE(t)                                               \
+  int scan_at_tile(std::integral_constant<int, t>, int pattern, int n,      \
+                   int m, const ScanArgs& a, const void* consts,            \
+                   int nonlinear, int sym, cudaStream_t s)
+#define KATANA_SCAN_DECLARE(t) KATANA_SCAN_AT_TILE(t);
+KATANA_SCAN_TILES(KATANA_SCAN_DECLARE)
+#undef KATANA_SCAN_DECLARE
+#define KATANA_SCAN_DEFINE(t)                                                \
+  KATANA_SCAN_AT_TILE(t) {                                                  \
+    return scan_tile<t>(pattern, n, m, a, consts, nonlinear, sym, s);       \
+  }
+#define KATANA_SCAN_ELEM(t) t,
+constexpr int kScanTiles[] = {KATANA_SCAN_TILES(KATANA_SCAN_ELEM)};
+#undef KATANA_SCAN_ELEM
+#ifdef KATANA_PART
+KATANA_SCAN_DEFINE(kScanTiles[KATANA_PART])
+#else
+KATANA_SCAN_TILES(KATANA_SCAN_DEFINE)
+#endif
+#undef KATANA_SCAN_DEFINE
+
 }  // namespace katana
 
+#if !defined(KATANA_PART) || KATANA_PART == 0
 extern "C" {
 
 // The whole stream of T >= 1 frames for Ntr >= 1 tracks: first_frame,
 // then bank_scan. `pattern` is the id of an instantiated Pattern of shape
 // (n, m) (pruned.cuh, KATANA_IMM_PATTERNS); any other combination returns
-// cudaErrorInvalidValue without launching. `consts` is the model's F, Q,
-// R in HOST memory (ops._host_consts). vs may be null (every frame
-// valid). `first` holds a byte of scratch for every 128 tracks (read
-// only with sym). sym: 1 for symmetrize=True, 0 for the full square.
+// cudaErrorInvalidValue without launching, and so does a `tile` (tracks
+// a block) outside KATANA_SCAN_TILES. `consts` is the model's F, Q, R in
+// HOST memory (ops._host_consts). vs may be null (every frame valid).
+// `first` holds a byte of scratch a block (read only with sym). sym: 1 for
+// symmetrize=True, 0 for the full square.
 int katana_bank_scan_run(int n, int m, int pattern, int Ntr, int T,
                          const void* x, const void* P, const void* zs,
                          const void* vs, const void* consts, int nonlinear,
                          float dt, void* xs, void* x_fin, void* P_fin,
-                         void* first, int sym, void* stream) {
+                         void* first, int sym, int tile, void* stream) {
   using namespace katana;
   if (Ntr < 1 || T < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const ScanArgs a{Ntr, T, (const float*)x, (const float*)P,
                    (const float*)zs, (const uint8_t*)vs, dt, (float*)xs,
                    (float*)x_fin, (float*)P_fin, (uint8_t*)first};
-#define KATANA_SCAN_CASE(id, name, n_, m_, ...)                              \
-  if (pattern == id && n == n_ && m == m_)                                  \
-    return (int)launch_scan<name>(a, consts, nonlinear, sym, s);
-  KATANA_IMM_PATTERNS(KATANA_SCAN_CASE)
-#undef KATANA_SCAN_CASE
+#define KATANA_SCAN_TILE(t)                                                  \
+  if (tile == t)                                                            \
+    return scan_at_tile(std::integral_constant<int, t>{}, pattern, n, m, a, \
+                        consts, nonlinear, sym, s);
+  KATANA_SCAN_TILES(KATANA_SCAN_TILE)
+#undef KATANA_SCAN_TILE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -294,3 +343,4 @@ const char* katana_error_string(int code) {
 }
 
 }  // extern "C"
+#endif

@@ -39,12 +39,24 @@ each wrapper (the frames also count their greedy launch under
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
 
-The bank steps, ``katana_bank_sequence`` and ``katana_imm_sequence`` at
-K = 1 take ``symmetrize`` as the reference's ops do: True (their default)
-computes the covariance's upper triangle, mirrors aliased; False (the
-default of the rewrite stages, ``core/rewrites.py``) every entry, each
-kernel's compile-time ``Sym = false`` route. The frames, the K > 1 IMM
-scan and ``katana_bank_soa`` run the True contract only.
+The bank steps (both layouts), ``katana_bank_sequence`` and
+``katana_imm_sequence`` at K = 1 take ``symmetrize`` as the reference's
+ops do: True (their default) computes the covariance's upper triangle,
+mirrors aliased; False (the default of the rewrite stages,
+``core/rewrites.py``) every entry, each kernel's compile-time
+``Sym = false`` route. The frames and the K > 1 IMM scan run the True
+contract only.
+
+The bank steps and the scans take ``lane_tile`` (tracks or lanes a block;
+for the K > 1 IMM scan tracks a block, K threads each) and the scans
+``time_chunk`` (frames a launch), as the reference's ops do: 0 looks the
+launch up in the tile table (``autotune.py``, ``tuned.json``: the row of
+this device and the nearest bank size), and without a row takes
+``autotune.STATIC_DEFAULTS``. Neither changes a bit of the result. A tile
+outside the kernel's instantiations (``LANE_TILES``) raises ValueError,
+on the CPU too, where the plain versions ignore the tile and honour the
+chunk. ``LAST_CONFIG[name]`` holds the configuration of each wrapper's
+last call.
 
 Every tracking kernel that predicts (the frames, the scans, the bank
 steps) is instantiated for compile-time constant patterns
@@ -68,7 +80,7 @@ from repro_torch.core import rewrites
 from repro_torch.core.filters import FilterModel, IMMModel, device_const
 from repro_torch.core.filters import model_consts
 from repro_torch.kernels import build
-from repro_torch.kernels.katana_bank import ref
+from repro_torch.kernels.katana_bank import autotune, ref
 
 LAUNCHES: Dict[str, int] = {
     "katana_frame": 0, "katana_imm_frame": 0, "greedy_assign": 0,
@@ -80,16 +92,48 @@ LAUNCHES: Dict[str, int] = {
 FRAME_SHAPES = ((6, 3), (8, 4), (9, 3))
 IMM_FRAME_SHAPES = ((4, 9, 3),)
 IMM_SCAN_SHAPES = ((4, 9, 3),)
-# frames per launch when the caller passes time_chunk=0: whole streams up
-# to 4096 frames. The reference's IMM scan falls back to 64, a bound of the
-# TPU's VMEM; on the card one launch beats chunks of 64 (PERF.md §6).
-SCAN_TIME_CHUNK = 4096
-IMM_SCAN_TIME_CHUNK = 4096
+# the tiles each wrapper's kernel is instantiated for (csrc: scan.cu's
+# KATANA_SCAN_TILES, imm_step.cu's KATANA_STEP_TILES, imm_scan.cu's
+# KATANA_IMM_SCAN_TILES); katana_imm_sequence at K = 1 runs scan.cu and
+# takes its tiles. The static time chunk, 4096 frames, is a whole stream:
+# the reference's IMM scan falls back to 64, a bound of the TPU's VMEM.
+LANE_TILES: Dict[str, Tuple[int, ...]] = {
+    "katana_bank": (64, 128, 256), "katana_bank_imm": (64, 128, 256),
+    "imm_bank_sequence": (64, 128, 256),
+    "katana_bank_sequence": (64, 128, 256), "katana_imm_sequence": (32, 64)}
+# wrapper -> {lane_tile, time_chunk, key, N, table}: its last call's launch
+# shape, the table key it looked up, the bank size and the table's kernel
+LAST_CONFIG: Dict[str, dict] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launch_config(name: str, N: int, device, lane_tile: int = 0,
+                  time_chunk: int = 0, table: str = None):
+    """(tile, chunk) of a call of wrapper ``name`` at bank size ``N``: an
+    explicit ``lane_tile`` / ``time_chunk`` wins, 0 takes the tile table's
+    row of ``table`` (default ``name``) for ``device`` (autotune.py), then
+    ``autotune.STATIC_DEFAULTS``; chunk None for the steps. Raises
+    ValueError for a tile the kernel is not instantiated for (the set of
+    ``table``); records the choice in ``LAST_CONFIG[name]``."""
+    table = table or name
+    key = autotune.device_key(device)
+    static = autotune.STATIC_DEFAULTS[table]
+    row = autotune.best_config(table, N, key)
+    tile = lane_tile or int(row.get("lane_tile", 0)) or static["lane_tile"]
+    if tile not in LANE_TILES[table]:
+        raise ValueError(f"{name}: lane_tile {tile} is not instantiated; "
+                         f"the kernel takes {LANE_TILES[table]}")
+    chunk = None
+    if "time_chunk" in static:
+        chunk = (time_chunk or int(row.get("time_chunk", 0))
+                 or static["time_chunk"])
+    LAST_CONFIG[name] = dict(lane_tile=tile, time_chunk=chunk, key=key, N=N,
+                             table=table)
+    return tile, chunk
 
 
 def frame_kernel_supported(model) -> bool:
@@ -499,10 +543,10 @@ def _check_imm_scan(imm: IMMModel):
 
 
 def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
-                 symmetrize: bool = True):
+                 symmetrize: bool, tile: int):
     """One chunk of the single-model scan (csrc/scan.cu), on the model's
-    compile-time pattern: xs (T, N, n) is written in place; returns
-    (x_T, P_T)."""
+    compile-time pattern, ``tile`` tracks a block: xs (T, N, n) is
+    written in place; returns (x_T, P_T)."""
     _check_model(model)
     dev = x.device
     N, n = x.shape
@@ -519,7 +563,7 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
         return x_fin, P_fin
     consts = _host_consts(model)
     # the blocks whose first frame runs ahead of the scan (a seed P that
-    # is not symmetric to the bit): a byte for each 128 tracks
+    # is not symmetric to the bit): a byte a block, N bytes at any tile
     first = torch.empty((N,), dtype=torch.uint8, device=dev)
     lib = build.load("scan.cu")
     code = lib.katana_bank_scan_run(
@@ -527,14 +571,14 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
         zs.data_ptr(), None if valid is None else valid.data_ptr(),
         consts.ctypes.data, int(not model.is_linear), float(model.dt),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), first.data_ptr(),
-        int(symmetrize), build.stream_of(dev))
+        int(symmetrize), tile, build.stream_of(dev))
     build.check(lib, code, "katana_bank_sequence")
     return x_fin, P_fin
 
 
-def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
-    """One chunk of the K>1 IMM scan (csrc/imm_scan.cu): xs (T, N, n) is
-    written in place; returns (x_T, P_T, mu_T)."""
+def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs, tile: int):
+    """One chunk of the K>1 IMM scan (csrc/imm_scan.cu), ``tile`` tracks a
+    block: xs (T, N, n) is written in place; returns (x_T, P_T, mu_T)."""
     _check_imm_scan(imm)
     dev = x.device
     K, N, n = x.shape
@@ -559,29 +603,31 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs):
         None if valid is None else valid.data_ptr(),
         consts.ctypes.data, float(np.float32(m * ref.LOG_2PI)),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), mu_fin.data_ptr(),
-        build.stream_of(dev))
+        tile, build.stream_of(dev))
     build.check(lib, code, "katana_imm_sequence")
     return x_fin, P_fin, mu_fin
 
 
 def katana_bank_sequence(model: FilterModel, zs, x0, P0,
                          return_final: bool = False, time_chunk: int = 0,
-                         symmetrize: bool = True):
+                         symmetrize: bool = True, lane_tile: int = 0):
     """Filter a pre-associated measurement stream: zs (T, N, m), the bank
     seeded by x0 (N, n), P0 (N, n, n). Returns xs (T, N, n), the filtered
     state after every frame; with ``return_final`` also (x_T (N, n),
     P_T (N, n, n)) to carry the bank into the next stream. The stream
-    runs as ceil(T / time_chunk) launches with (x, P) carried between
-    them, which gives the same bits as one launch; ``time_chunk=0``
-    takes 4096."""
+    runs as ceil(T / time_chunk) launches of ``lane_tile`` tracks a block
+    with (x, P) carried between them, which gives the same bits as one
+    launch; 0 looks either up in the tile table."""
     T, N, m = zs.shape
-    chunks = _chunks(T, time_chunk or SCAN_TIME_CHUNK)
+    tile, chunk = launch_config("katana_bank_sequence", N, zs.device,
+                                lane_tile, time_chunk)
+    chunks = _chunks(T, chunk)
     x, P = x0, P0
     if build.on_cuda(zs):
         out = torch.empty((T, N, model.n), dtype=zs.dtype, device=zs.device)
         for t0, t1 in chunks:
             x, P = _launch_scan(model, x, P, zs[t0:t1], None, out[t0:t1],
-                                symmetrize)
+                                symmetrize, tile)
             LAUNCHES["katana_bank_sequence"] += 1
     else:
         parts = []
@@ -620,18 +666,19 @@ def imm_sequence_inputs(imm: IMMModel, zs, x0, P0, mu0=None, valid=None):
 
 def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
                         return_final: bool = False, time_chunk: int = 0,
-                        symmetrize: bool = True):
+                        symmetrize: bool = True, lane_tile: int = 0):
     """IMM-filter a pre-associated stream zs (T, N, m). x0/P0 seed the
     bank, (N, n)/(N, n, n) for fresh tracks or (K, N, n)/(K, N, n, n) to
     resume a mode-conditioned bank; mu0 (N, K) defaults to ``imm.mu0``;
     ``valid`` (T, N) bool: a False frame coasts the track (time update
     only, mu <- the Markov-predicted cbar). Returns xs (T, N, n), the
     combined estimates; with ``return_final`` also (x (K, N, n),
-    P (K, N, n, n), mu (N, K)). One launch per ``time_chunk`` frames
-    (0: 4096), (x, P, mu) carried between them with the same bits as one
-    launch. K=1 is the single-model scan with mu passed through; K > 1
-    runs ``symmetrize=True`` only and raises NotImplementedError for
-    False."""
+    P (K, N, n, n), mu (N, K)). One launch per ``time_chunk`` frames,
+    (x, P, mu) carried between them with the same bits as one launch;
+    ``lane_tile`` tracks a block; 0 looks either up in the tile table.
+    K=1 is the single-model scan with mu passed through (its tiles and
+    table rows ``katana_bank_sequence``'s); K > 1 runs
+    ``symmetrize=True`` only and raises NotImplementedError for False."""
     K = imm.K
     if K > 1 and not symmetrize:
         raise NotImplementedError(
@@ -640,18 +687,21 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
             "symmetrize=True or imm_bank_sequence")
     x, P, mu, zs, valid = imm_sequence_inputs(imm, zs, x0, P0, mu0, valid)
     T, N, _ = zs.shape
-    chunks = _chunks(T, time_chunk or IMM_SCAN_TIME_CHUNK)
+    tile, chunk = launch_config(
+        "katana_imm_sequence", N, zs.device, lane_tile, time_chunk,
+        table="katana_bank_sequence" if K == 1 else None)
+    chunks = _chunks(T, chunk)
     if build.on_cuda(zs):
         out = torch.empty((T, N, imm.n), dtype=zs.dtype, device=zs.device)
         for t0, t1 in chunks:
             vt = None if valid is None else valid[t0:t1]
             if K == 1:
                 x1, P1 = _launch_scan(imm.models[0], x[0], P[0], zs[t0:t1],
-                                      vt, out[t0:t1], symmetrize)
+                                      vt, out[t0:t1], symmetrize, tile)
                 x, P = x1[None], P1[None]
             else:
                 x, P, mu = _launch_imm_scan(imm, x, P, mu, zs[t0:t1], vt,
-                                            out[t0:t1])
+                                            out[t0:t1], tile)
             LAUNCHES["katana_imm_sequence"] += 1
         if K == 1:
             mu = mu.clone()
@@ -667,8 +717,8 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
     return (out, (x, P, mu)) if return_final else out
 
 
-def _launch_step(model: FilterModel, x, P, z, soa: bool,
-                 symmetrize: bool = True):
+def _launch_step(model: FilterModel, x, P, z, soa: bool, symmetrize: bool,
+                 tile: int):
     _check_model(model)
     dev = x.device
     n, m = model.n, model.m
@@ -689,44 +739,58 @@ def _launch_step(model: FilterModel, x, P, z, soa: bool,
     if soa:
         code = lib.katana_bank_soa_run(n, m, pattern, N, *common,
                                        x_out.data_ptr(), P_out.data_ptr(),
+                                       int(symmetrize), tile,
                                        build.stream_of(dev))
     else:
         code = lib.katana_imm_step_run(1, n, m, pattern, N, *common, 0.0,
                                        x_out.data_ptr(), P_out.data_ptr(),
-                                       None, int(symmetrize),
+                                       None, int(symmetrize), tile,
                                        build.stream_of(dev))
     build.check(lib, code, "katana_bank_soa" if soa else "katana_bank")
     return x_out, P_out
 
 
-def katana_bank(model: FilterModel, x, P, z, symmetrize: bool = True):
+def katana_bank(model: FilterModel, x, P, z, symmetrize: bool = True,
+                lane_tile: int = 0):
     """One predict+update per track: x (N, n), P (N, n, n), z (N, m)
-    -> (x', P')."""
+    -> (x', P'), ``lane_tile`` tracks a block (0: the tile table's)."""
+    tile, _ = launch_config("katana_bank", x.shape[0], x.device, lane_tile)
     if not build.on_cuda(x):
         return ref.katana_bank_step_plain(model, x, P, z, symmetrize)
-    out = _launch_step(model, x, P, z, soa=False, symmetrize=symmetrize)
+    out = _launch_step(model, x, P, z, False, symmetrize, tile)
     LAUNCHES["katana_bank"] += 1
     return out
 
 
-def katana_bank_soa(model: FilterModel, x, P, z):
+def katana_bank_soa(model: FilterModel, x, P, z, symmetrize: bool = True,
+                    lane_tile: int = 0):
     """``katana_bank`` for callers that keep the struct-of-arrays layout:
     x (n, N), P (n, n, N), z (m, N) -> (x', P') in the same layout. The
-    kernel reads this layout directly; symmetrize=True only."""
+    kernel reads this layout directly. ``lane_tile=0`` takes
+    ``katana_bank``'s static tile: the tuner races the canonical layout
+    only, and the reference's SoA entry consults no table either."""
+    tile, _ = launch_config(
+        "katana_bank_soa", x.shape[-1], x.device,
+        lane_tile or autotune.STATIC_DEFAULTS["katana_bank"]["lane_tile"],
+        table="katana_bank")
     if not build.on_cuda(x):
         x2, P2 = ref.katana_bank_step_plain(model, x.T, P.permute(2, 0, 1),
-                                            z.T)
+                                            z.T, symmetrize)
         return x2.T.contiguous(), P2.permute(1, 2, 0).contiguous()
-    out = _launch_step(model, x, P, z, soa=True)
+    out = _launch_step(model, x, P, z, True, symmetrize, tile)
     LAUNCHES["katana_bank_soa"] += 1
     return out
 
 
-def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True):
+def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True,
+                    lane_tile: int = 0):
     """One IMM bank step: every (model, track) lane takes a predict+update
     of its model with the track's measurement. x (K, N, n) (typically the
     mixed states), P (K, N, n, n), z (N, m). Returns (x' (K, N, n),
-    P' (K, N, n, n), loglik (K, N)). K>1 needs linear member models."""
+    P' (K, N, n, n), loglik (K, N)). K>1 needs linear member models.
+    ``lane_tile`` lanes a block; 0 looks it up at the K * N lanes."""
+    tile, _ = launch_config("katana_bank_imm", x.shape[0] * x.shape[1],
+                            x.device, lane_tile)
     if not build.on_cuda(x):
         return ref.katana_bank_imm_step_plain(imm, x, P, z, symmetrize)
     K, N, n = x.shape
@@ -752,7 +816,7 @@ def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True):
         P.data_ptr(), z.data_ptr(), consts.data_ptr(),
         int(not mdl0.is_linear), float(mdl0.dt),
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
-        P_out.data_ptr(), ll.data_ptr(), int(symmetrize),
+        P_out.data_ptr(), ll.data_ptr(), int(symmetrize), tile,
         build.stream_of(dev))
     build.check(lib, code, "katana_bank_imm")
     LAUNCHES["katana_bank_imm"] += 1
@@ -760,12 +824,17 @@ def katana_bank_imm(imm: IMMModel, x, P, z, symmetrize: bool = True):
 
 
 def imm_bank_sequence(imm: IMMModel, zs, x0, P0, mu0=None,
-                      return_final: bool = False, symmetrize: bool = True):
+                      return_final: bool = False, symmetrize: bool = True,
+                      lane_tile: int = 0):
     """IMM-filter a stream zs (T, N, m) frame by frame: ``rewrites.imm_mix``
     -> ``katana_bank_imm`` -> mode posterior -> combined estimate, x/P
     through device memory every frame. Seeds as ``katana_imm_sequence``.
     Returns xs (T, N, n); with ``return_final`` also (x, P, mu). Built
-    independently of the fused scan, it is that scan's oracle."""
+    independently of the fused scan, it is that scan's oracle.
+    ``lane_tile`` goes to every ``katana_bank_imm``; 0 looks it up at the
+    K * N lanes, as the reference's does."""
+    tile, _ = launch_config("imm_bank_sequence", imm.K * zs.shape[1],
+                            zs.device, lane_tile)
     x, P, mu, zs, _ = imm_sequence_inputs(imm, zs, x0, P0, mu0)
     Pi = torch.as_tensor(np.asarray(imm.trans), dtype=zs.dtype,
                          device=zs.device)
@@ -773,7 +842,8 @@ def imm_bank_sequence(imm: IMMModel, zs, x0, P0, mu0=None,
     for t in range(zs.shape[0]):
         x_mix, P_mix, cbar = rewrites.imm_mix(x, P, mu, Pi)
         x, P, ll = katana_bank_imm(imm, x_mix.contiguous(),
-                                   P_mix.contiguous(), zs[t], symmetrize)
+                                   P_mix.contiguous(), zs[t], symmetrize,
+                                   tile)
         mu = rewrites.imm_mode_posterior(cbar, ll)
         out.append(rewrites.imm_combine(x, P, mu)[0])
     xs = (torch.stack(out) if out

@@ -51,8 +51,14 @@ split over 'model' and in "tp2d" mode on a 'data' axis of 2, reduced
 granite-moe decoded on flash_decode over a cache whose sequence is split
 over 'model' (and, for a batch of 1, over 'data'), reduced mamba2 with
 ssd_scan on each rank's heads, each against the same call in one process
-on the card; ``compressed_psum`` bit for bit with its plain version. Needs an NVIDIA GPU; run
-with
+on the card; ``compressed_psum`` bit for bit with its plain version. The
+tile table's launch choices: every instantiated tile of scan.cu,
+imm_step.cu (both layouts) and imm_scan.cu bit for bit with the plain
+version at ragged N, both symmetrize values, with and without a valid
+stream and with one asymmetric seed P among symmetric ones; every raced
+(tile, time chunk) bit for bit with one launch; a tile that is not
+instantiated refused by the wrappers and the C entries. Needs an NVIDIA
+GPU; run with
 
     python -m pytest -m gpu -q tests/test_torch_gpu.py
 """
@@ -458,10 +464,17 @@ def test_scan_kernel_matches_plain(cuda, kind, N, T, valid):
         want = ref.katana_bank_scan_plain(model, x0, P0, zs)
         launches = ops.LAUNCHES["katana_bank_sequence"]
     torch.cuda.synchronize()
-    assert launches == 1
+    assert launches == _chunks_of(
+        "katana_imm_sequence" if valid else "katana_bank_sequence", T)
     assert bool(torch.isfinite(xs).all())
     for a, b in zip((xs, xf, Pf), want):
         assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def _chunks_of(name, T):
+    """Launches of wrapper ``name``'s last call over T frames: one a time
+    chunk, the chunk the tile table (or the caller) chose."""
+    return -(-T // ops.LAST_CONFIG[name]["time_chunk"])
 
 
 @pytest.mark.parametrize("kind", ["lkf", "ekf"])
@@ -550,8 +563,10 @@ def test_imm_scan_kernel_matches_plain(cuda, kind, N, T, valid, chunk):
     want = ref.katana_bank_imm_scan_plain(
         imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, vs))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["katana_imm_sequence"] == -(
-        -T // (chunk or ops.IMM_SCAN_TIME_CHUNK))
+    assert ops.LAUNCHES["katana_imm_sequence"] == _chunks_of(
+        "katana_imm_sequence", T)
+    assert ops.LAST_CONFIG["katana_imm_sequence"]["time_chunk"] == (
+        chunk or ops.LAST_CONFIG["katana_imm_sequence"]["time_chunk"])
     assert bool(torch.isfinite(xs).all())
     for a, b in zip((xs,) + fin, want):
         assert torch.equal(a, b), float((a - b).abs().max())
@@ -712,13 +727,15 @@ def test_full_square_scan_and_step_match_plain(cuda, kind, N, T, valid):
         want = ref.katana_bank_scan_plain(model, x0, P0, zz, vv,
                                           symmetrize=False)
         xf, Pf = xf[0], Pf[0]
-        assert ops.LAUNCHES["katana_imm_sequence"] == 1
+        assert ops.LAUNCHES["katana_imm_sequence"] == _chunks_of(
+            "katana_imm_sequence", T)
     else:
         xs, (xf, Pf) = ops.katana_bank_sequence(
             model, zs, x0, P0, return_final=True, symmetrize=False)
         want = ref.katana_bank_scan_plain(model, x0, P0, zs,
                                           symmetrize=False)
-        assert ops.LAUNCHES["katana_bank_sequence"] == 1
+        assert ops.LAUNCHES["katana_bank_sequence"] == _chunks_of(
+            "katana_bank_sequence", T)
         x, P = x0, P0
         for t in range(T):
             x, P = ops.katana_bank(model, x, P, zs[t], symmetrize=False)
@@ -733,13 +750,14 @@ def test_full_square_scan_and_step_match_plain(cuda, kind, N, T, valid):
     a = ops.katana_bank(model, x0, P0, z0, symmetrize=False)
     b = ref.katana_bank_step_plain(model, x0, P0, z0, symmetrize=False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    # the struct-of-arrays layout runs symmetrize=True only
-    soa = ops.katana_bank_soa(model, x0.T.contiguous(),
-                              P0.permute(1, 2, 0).contiguous(),
-                              z0.T.contiguous())
-    c = ops.katana_bank(model, x0, P0, z0)
-    assert torch.equal(soa[0].T, c[0])
-    assert torch.equal(soa[1].permute(2, 0, 1), c[1])
+    # the struct-of-arrays layout at both contracts
+    for sym in (True, False):
+        soa = ops.katana_bank_soa(model, x0.T.contiguous(),
+                                  P0.permute(1, 2, 0).contiguous(),
+                                  z0.T.contiguous(), symmetrize=sym)
+        c = ops.katana_bank(model, x0, P0, z0, symmetrize=sym)
+        assert torch.equal(soa[0].T, c[0])
+        assert torch.equal(soa[1].permute(2, 0, 1), c[1])
 
 
 @pytest.mark.parametrize("kind", ["imm", "other", "ekf", "lkf"])
@@ -1577,7 +1595,8 @@ def test_imm_scan_lane_kernel_is_its_plain_version(cuda):
               valid=torch.as_tensor(d["valid"][:, None].copy()).to(cuda))
     ops.reset_launches()
     kern = ops.katana_imm_sequence(imm, zs, x0, P0, **kw)
-    assert ops.LAUNCHES["katana_imm_sequence"] == 1
+    assert ops.LAUNCHES["katana_imm_sequence"] == _chunks_of(
+        "katana_imm_sequence", zs.shape[0])
     with mock.patch.object(build, "on_cuda", lambda t: False):
         plain = ops.katana_imm_sequence(imm, zs, x0, P0, **kw)
     same = (kern == plain) | (torch.isnan(kern) & torch.isnan(plain))
@@ -1710,3 +1729,212 @@ def test_mesh_compressed_psum_on_card(mesh_on_card):
     for r in ranks:
         assert torch.equal(r["psum"], plain.repeat(2, 1))
         assert r["staged_bytes"] > 0
+
+
+# -- the tile table's launch choices ----------------------------------------
+
+TILE_NS = [5, 131, 1000]
+
+
+def _one_asymmetric(rng, P0):
+    """P0 with one track (the middle one) whose P is symmetric only to
+    rounding, among tracks symmetric to the bit."""
+    P0 = P0.clone()
+    c = P0.shape[0] // 2
+    P0[c] = _asymmetric(rng, P0[c:c + 1])[0]
+    return P0.contiguous()
+
+
+def _every_tile(name, call, want):
+    """call(lane_tile) at every instantiated tile of ``name`` (and at 0,
+    the table's) bit for bit with ``want`` (the plain version) and with
+    each other."""
+    ref_out = None
+    for tile in (0,) + ops.LANE_TILES[name]:
+        got = call(tile)
+        assert ops.LAST_CONFIG[name]["lane_tile"] == (
+            tile or ops.LAST_CONFIG[name]["lane_tile"])
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (name, tile,
+                                       float((a - b).abs().max()))
+        ref_out = ref_out or got
+        for a, b in zip(got, ref_out):
+            assert torch.equal(a, b), (name, tile)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("N", TILE_NS)
+def test_scan_every_tile_is_bitwise(cuda, kind, sym, valid, N):
+    """scan.cu at every instantiated tile (64, 128, 256 tracks a block)
+    bit for bit with the plain version and with each other, at ragged N,
+    with and without a valid stream (the K = 1 IMM replay), at both
+    symmetrize values, with one track whose seed P is not symmetric to
+    the bit among symmetric ones: the tile regroups which lanes run frame
+    0 ahead (first_frame marks a block), never a lane's bits."""
+    model = get_filter(kind)
+    rng = np.random.default_rng(N + 3)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, model, N, 17,
+                                        drop=0.1 if valid else 0.0), cuda)
+    P0 = _one_asymmetric(rng, P0)
+    if valid:
+        one = as_imm(model)
+        _, _, _, zz, vv = ops.imm_sequence_inputs(one, zs, x0, P0, None, vs)
+        want = ref.katana_bank_scan_plain(model, x0, P0, zz, vv,
+                                          symmetrize=sym)
+
+        def call(tile):
+            xs, (xf, Pf, _) = ops.katana_imm_sequence(
+                one, zs, x0, P0, valid=vs, return_final=True,
+                symmetrize=sym, lane_tile=tile)
+            return xs, xf[0], Pf[0]
+        name = "katana_imm_sequence"
+    else:
+        want = ref.katana_bank_scan_plain(model, x0, P0, zs, symmetrize=sym)
+
+        def call(tile):
+            xs, (xf, Pf) = ops.katana_bank_sequence(
+                model, zs, x0, P0, return_final=True, symmetrize=sym,
+                lane_tile=tile)
+            return xs, xf, Pf
+        name = "katana_bank_sequence"
+    outs = []
+    # the K = 1 replay runs scan.cu, at its tiles
+    for tile in ops.LANE_TILES["katana_bank_sequence"]:
+        got = call(tile)
+        assert ops.LAST_CONFIG[name]["lane_tile"] == tile
+        outs.append(got)
+    outs.append(call(0))
+    torch.cuda.synchronize()
+    for got in outs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm"])
+def test_every_chunk_and_tile_is_one_launch(cuda, kind):
+    """Every (tile, chunk) the tuner races (tune.candidates) bit for bit
+    with the whole stream in one launch at the static tile, T = 300."""
+    from repro_torch.kernels.katana_bank import tune
+
+    model = make_imm() if kind == "imm" else get_filter(kind)
+    rng = np.random.default_rng(31)
+    x0, P0, zs, _ = _dev(replay_inputs(rng, model, 1000, 300), cuda)
+    if kind == "imm":
+        name, seq = "katana_imm_sequence", ops.katana_imm_sequence
+    else:
+        name, seq = "katana_bank_sequence", ops.katana_bank_sequence
+    static = tune.static_config(name)
+    one = seq(model, zs, x0, P0, return_final=True,
+              lane_tile=static["lane_tile"], time_chunk=300)
+    for cfg in tune.candidates(name):
+        ops.reset_launches()
+        got = seq(model, zs, x0, P0, return_final=True, **cfg)
+        assert ops.LAUNCHES[name] == -(-300 // cfg["time_chunk"])
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], one[0]), cfg
+        assert all(torch.equal(a, b) for a, b in zip(got[1], one[1])), cfg
+
+
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("N", TILE_NS)
+def test_imm_scan_every_tile_is_bitwise(cuda, valid, N):
+    """imm_scan.cu at 32 and 64 tracks a block (K = 4 threads each) bit
+    for bit with the plain version, ragged N, with and without a valid
+    stream."""
+    imm = make_imm()
+    rng = np.random.default_rng(N + 5)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, imm, N, 17,
+                                        drop=0.1 if valid else 0.0), cuda)
+    vs = vs if valid else None
+    mu0 = torch.as_tensor(rng.dirichlet(np.ones(4), size=N),
+                          dtype=torch.float32, device=cuda)
+    want = ref.katana_bank_imm_scan_plain(
+        imm, *ops.imm_sequence_inputs(imm, zs, x0, P0, mu0, vs))
+    _every_tile("katana_imm_sequence", lambda tile: (
+        lambda r: (r[0],) + r[1])(ops.katana_imm_sequence(
+            imm, zs, x0, P0, mu0, vs, return_final=True, lane_tile=tile)),
+        want)
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "imm", "other"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("N", TILE_NS)
+def test_step_every_tile_is_bitwise(cuda, kind, sym, N):
+    """imm_step.cu at 64, 128 and 256 lanes a block: ``katana_bank`` and
+    ``katana_bank_soa`` (K = 1; cv6, ctra8) and ``katana_bank_imm``
+    (K = 4; imm9, dense9) bit for bit with the plain version at both
+    symmetrize values, on a P that is not symmetric to the bit, at ragged
+    N (the 16-byte staging of a ragged last block included)."""
+    rng = np.random.default_rng(N + 13)
+    if kind in ("lkf", "ekf"):
+        model = get_filter(kind)
+        x0, P0, zs, _ = _dev(replay_inputs(rng, model, N, 1), cuda)
+        P0 = _asymmetric(rng, P0)
+        z = zs[0]
+        want = ref.katana_bank_step_plain(model, x0, P0, z, sym)
+        _every_tile("katana_bank", lambda tile: ops.katana_bank(
+            model, x0, P0, z, symmetrize=sym, lane_tile=tile), want)
+        xT, PT, zT = (x0.T.contiguous(), P0.permute(1, 2, 0).contiguous(),
+                      z.T.contiguous())
+        for tile in ops.LANE_TILES["katana_bank"]:
+            soa = ops.katana_bank_soa(model, xT, PT, zT, symmetrize=sym,
+                                      lane_tile=tile)
+            assert ops.LAST_CONFIG["katana_bank_soa"]["lane_tile"] == tile
+            torch.cuda.synchronize()
+            assert torch.equal(soa[0].T, want[0]), tile
+            assert torch.equal(soa[1].permute(2, 0, 1), want[1]), tile
+        return
+    imm = IMM_SETS[kind][0]()
+    x0, _, zs, _ = replay_inputs(rng, imm, N, 1)
+    K, n = imm.K, imm.n
+    x = torch.as_tensor(np.tile(x0, (K, 1, 1)) + 0.05 * rng.normal(
+        size=(K, N, n)), dtype=torch.float32, device=cuda)
+    P = _asymmetric(rng, torch.as_tensor(spd(rng, (K, N), n), device=cuda))
+    z = torch.as_tensor(zs[0], device=cuda)
+    want = ref.katana_bank_imm_step_plain(imm, x, P, z, sym)
+    _every_tile("katana_bank_imm", lambda tile: ops.katana_bank_imm(
+        imm, x, P, z, symmetrize=sym, lane_tile=tile), want)
+
+
+def test_a_tile_not_instantiated_is_refused(cuda):
+    """The wrappers raise ValueError naming the instantiated set; the C
+    entries return cudaErrorInvalidValue without launching."""
+    from repro_torch.kernels import build
+
+    model, imm = get_filter("lkf"), make_imm()
+    x0, P0, zs, _ = _dev(replay_inputs(np.random.default_rng(1), model, 40,
+                                       5), cuda)
+    with pytest.raises(ValueError, match="64, 128, 256"):
+        ops.katana_bank_sequence(model, zs, x0, P0, lane_tile=32)
+    with pytest.raises(ValueError, match="32, 64"):
+        ops.katana_imm_sequence(imm, zs.new_zeros(5, 40, 3),
+                                x0.new_zeros(40, 9),
+                                torch.eye(9, device=cuda).expand(
+                                    40, 9, 9).contiguous(), lane_tile=128)
+    with pytest.raises(ValueError, match="64, 128, 256"):
+        ops.katana_bank(model, x0, P0, zs[0], lane_tile=96)
+    xs = torch.empty((5, 40, 6), device=cuda)
+    out = [torch.empty_like(t) for t in (x0, P0)]
+    first = torch.empty((40,), dtype=torch.uint8, device=cuda)
+    lib = build.load("scan.cu")
+    code = lib.katana_bank_scan_run(
+        6, 3, ops.pick_pattern((model,)).id, 40, 5, x0.data_ptr(),
+        P0.data_ptr(), zs.data_ptr(), None, ops._host_consts(model).ctypes.data,
+        0, float(model.dt), xs.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), first.data_ptr(), 1, 96, build.stream_of(cuda))
+    assert code == 1  # cudaErrorInvalidValue
+    step = build.load("imm_step.cu")
+    for fn, args in (
+            (step.katana_imm_step_run, (1, 6, 3, ops.pick_pattern(
+                (model,)).id, 40, x0.data_ptr(), P0.data_ptr(),
+                zs.data_ptr(), None, 0, 0.1, 0.0, out[0].data_ptr(),
+                out[1].data_ptr(), None, 1, 32, build.stream_of(cuda))),
+            (step.katana_bank_soa_run, (6, 3, ops.pick_pattern(
+                (model,)).id, 40, x0.data_ptr(), P0.data_ptr(),
+                zs.data_ptr(), None, 0, 0.1, out[0].data_ptr(),
+                out[1].data_ptr(), 0, 512, build.stream_of(cuda)))):
+        assert fn(*args) == 1
+    torch.cuda.synchronize()
