@@ -15,7 +15,7 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      NaN, K=1 on cv9 and ekf; the single-model scan, ``katana_bank``
      and ``katana_bank_soa`` bit for bit);
   3. the submit path: ``TrackingEngine(..., device="cuda").submit`` over a
-     300-frame dense-sky scene (200 targets, 20 clutter detections per
+     150-frame dense-sky scene (200 targets, 20 clutter detections per
      frame) for the lkf, ekf and imm workloads, each frame held against
      the port's einsum route on the card (identical assoc and track ids)
      and the states against that route run in float64 (see ROUTE_SLACK),
@@ -70,7 +70,13 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      for bit with their plain versions over all 300 frames, and so again
      over 60 frames at symmetrize False and True on a seed P that is not
      symmetric to the bit; the symmetrize=False kernels' times, bounds,
-     registers and spill beside the True ones;
+     registers and spill beside the True ones; the live frames (lkf, ekf,
+     imm at C=1024, M=256) and the K=4 IMM scan (8 x 1024 lanes, T=300,
+     30% invalid, both tiles, one launch and chunks of 64) at both
+     symmetrize values bit for bit with their plain versions on a seed P
+     that is not symmetric to the bit, with their device ms, bounds,
+     registers and spill; and the imm_scan rung on make_imm() (K=4, the
+     full square) at N=131,072 against the float64 oracle, a Table I row;
   6. ``replay_imm_bank`` from the live IMM bank of phase 3 resumes a
      stream bit for bit and leaves the bank unchanged;
   7. LM serving: h2o-danube-1.8b at full width, random bf16 weights, B=4
@@ -307,7 +313,10 @@ from repro_torch.serving.stream import StreamConfig  # noqa: E402
 from repro_torch.serving.stream import StreamFrontEnd  # noqa: E402
 from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 
-C_SERVE, M_SERVE, T_SERVE = 1024, 256, 300
+# the live scene's frames: 300 until the script's clock ran 1,080 s of its
+# 1,200 on a slow host (phase 3 224 s of it), now 150 (the first cut of
+# depth a growing script takes)
+C_SERVE, M_SERVE, T_SERVE = 1024, 256, 150
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the bf16
 # dense tensor-core rate from the port's roofline preset, float32
 # operations/s outside the tensor cores
@@ -593,10 +602,11 @@ def _square(n, lanes):
     return [[lanes[i * n + j] for j in range(n)] for i in range(n)]
 
 
-def stream_ops(model):
+def stream_ops(model, symmetrize=True):
     """Float operations of the frame's op stream (ref.py) per active
     track, per (active track, valid measurement) pair and per assigned
-    track, for a FilterModel or a K>1 IMMModel."""
+    track, for a FilterModel or a K>1 IMMModel (``symmetrize=False``:
+    the full square's)."""
     n, m = model.n, model.m
     imm = isinstance(model, filters.IMMModel)
     obs = ref.check_selector(model.models[0] if imm else model)
@@ -613,9 +623,10 @@ def stream_ops(model):
         P = _square(n, [torch.rand(K) for _ in range(n * n)])
         mu = torch.full((K,), 1.0 / K)
         with OpCount() as track:
-            x_mix, P_mix, cbar = ref._imm_mix(xv, P, mu, Pi, n, K, 1)
+            x_mix, P_mix, cbar = ref._imm_mix(xv, P, mu, Pi, n, K, 1,
+                                              symmetrize)
             xp = ref._matvec(Ftab, x_mix, n)
-            Pp = ref._predict_cov(Ftab, P_mix, Qtab, n)
+            Pp = ref._predict_cov(Ftab, P_mix, Qtab, n, symmetrize)
             inno = ref._innovation(Pp, Rtab, obs, n, m)
             # the combined estimate x_c of every track
             for d in range(n):
@@ -625,31 +636,34 @@ def stream_ops(model):
             ref._dot(cbar, [d[:, k] for k in range(K)], K)
         with OpCount() as upd:
             ll = ref._update(xp, Pp, [z[0, r].expand(K) for r in range(m)],
-                             obs, n, m, inno, True)[2]
+                             obs, n, m, inno, True, symmetrize)[2]
             ref._mode_posterior(cbar, ll, K, 1)
     else:
         R = [[float(v) for v in row] for row in np.asarray(model.R)]
         with OpCount() as track:
             xp, Pp = ref._predict_single(model, _lanes(n),
-                                         _square(n, _lanes(n, n)))
+                                         _square(n, _lanes(n, n)),
+                                         symmetrize)
             inno = ref._innovation(Pp, R, obs, n, m)
         with OpCount() as pair:
             ref.cost_tile([xp[o] for o in obs], inno[1], z, m)
         with OpCount() as upd:
             ref._update(xp, Pp, [z[0, r:r + 1] for r in range(m)], obs, n, m,
-                        inno, False)
+                        inno, False, symmetrize)
     # + the gate test of each pair
     return track.ops, pair.ops + 1, upd.ops
 
 
-def frame_work(model, C, M, n_active, n_valid, n_assigned, waves):
-    """(bytes, operations) of one frame call on this frame's data."""
+def frame_work(model, C, M, n_active, n_valid, n_assigned, waves,
+               symmetrize=True):
+    """(bytes, operations) of one frame call on this frame's data
+    (``symmetrize=False``: the full square's operations)."""
     n, m, f = model.n, model.m, 4
     K = getattr(model, "K", 1)
     nbytes = (2 * K * C * (n + n * n) * f + M * m * f + M + C + C * f)
     if K > 1:
         nbytes += 2 * C * K * f + C * n * f  # mu in and out, x_c out
-    per_track, per_pair, per_assigned = stream_ops(model)
+    per_track, per_pair, per_assigned = stream_ops(model, symmetrize)
     pairs = n_active * n_valid
     ops = (n_active * per_track + pairs * per_pair + 2 * pairs * waves
            + n_assigned * per_assigned)
@@ -796,7 +810,7 @@ def states(res):
 
 
 def phase_main_path(kind):
-    """The engine over the 300-frame scene, each frame held against the
+    """The engine over the T_SERVE-frame scene, each frame held against the
     einsum route on the card (float32 and float64); then the times at
     this shape."""
     model = filters.make_imm() if kind == "imm" else filters.get_filter(kind)
@@ -940,18 +954,18 @@ def phase_main_path(kind):
             model, *kargs, launch_events=evs))
         inst = ops.pick_pattern(model.models).name
         source = "imm_frame.cu"
-        entries = (("imm_predict", f"{len(inst)}{inst}"),
+        entries = (("imm_predict", f"{len(inst)}{inst}ELi4ELb1E"),
                    ("imm_cost", "Lb0E"),
-                   ("imm_update", f"{len(inst)}{inst}ELi4ELb0E"))
+                   ("imm_update", f"{len(inst)}{inst}ELi4ELb0ELb1E"))
     else:
         launch_ms = launch_events_ms(lambda evs: ops.katana_frame(
             model, *kargs, launch_events=evs))
         inst = ops.pick_pattern((model,)).name
         source = "frame.cu"
         nl = "Lb0" if model.is_linear else "Lb1"
-        entries = (("frame_predict", f"{len(inst)}{inst}E{nl}"),
+        entries = (("frame_predict", f"{len(inst)}{inst}E{nl}ELb1E"),
                    ("frame_cost", f"ILi{model.m}ELb0E"),
-                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb0E"))
+                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb0ELb1E"))
     print(f"[{kind}] {name} ({inst}) device ms a launch by CUDA events "
           f"(mean of {launch_ms['events']} frames, device queued): "
           + ", ".join(f"{k} {launch_ms[k]:.4f}" for k in FRAME_LAUNCHES)
@@ -1027,8 +1041,8 @@ def phase_main_path(kind):
 # Phase 3b: the sensor fleet (ShardedBankEngine) at the reference's S = 8
 # sensors (benchmarks/frame.py's sharded rows, batching.py's imm_sensors),
 # each at phase 3's per-sensor shape (C = 1,024, M = 256, the dense-sky
-# scene; sensor s of seed 7 + s). T = 150 frames: phase 3's 300 cut for
-# time. The fleet replay runs phase 4's T = 300 over S x C = 8,192 lanes.
+# scene; sensor s of seed 7 + s). T = 150 frames, as phase 3's. The fleet
+# replay runs phase 4's T = 300 over S x C = 8,192 lanes.
 # ---------------------------------------------------------------------------
 
 S_FLEET, T_FLEET, T_FLEET_REPLAY = 8, 150, 300
@@ -1220,12 +1234,12 @@ def phase_fleet(kind, single):
         inst = ops.pick_pattern(model.models).name
         source = "imm_frame.cu"
         entries = (("imm_cost", "Lb1E"),
-                   ("imm_update", f"{len(inst)}{inst}ELi4ELb1E"),
+                   ("imm_update", f"{len(inst)}{inst}ELi4ELb1ELb1E"),
                    ("greedy_candidates", "FleetTile"))
     else:
         source = "frame.cu"
         entries = (("frame_cost", f"ILi{model.m}ELb1E"),
-                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb1E"),
+                   ("frame_update", f"ILi{model.n}ELi{model.m}ELb1ELb1E"),
                    ("greedy_candidates", "FleetTile"))
     print(f"[fleet {kind}] ptxas of the S-aware kernels (Fleet = true; the "
           "predict and the waves are the single-sensor ones):")
@@ -1363,7 +1377,8 @@ def scan_work(model, N, T, symmetrize=True):
         mu1 = torch.as_tensor(np.asarray(model.mu0),
                               dtype=torch.float32)[None]
         per = ops_of(lambda: ref.katana_bank_imm_scan_plain(
-            model, x1.expand(K, 1, n), P1.expand(K, 1, n, n), mu1, z1))
+            model, x1.expand(K, 1, n), P1.expand(K, 1, n, n), mu1, z1,
+            symmetrize=symmetrize))
     else:
         per = ops_of(lambda: ref.katana_bank_scan_plain(
             model, x1[None], P1[None], z1, symmetrize=symmetrize))
@@ -1628,7 +1643,7 @@ def phase_replay(kind, plain_ms):
         row.update(instantiation=inst, chunk64_ms=ms_64,
                    bound_share=bms / ms,
                    registers=ptxas_registers("imm_scan.cu", "imm_scan",
-                                             f"{len(inst)}{inst}",
+                                             f"{len(inst)}{inst}ELb1E",
                                              tile_part(tile)))
         print(f"[replay imm] katana_imm_sequence, instantiation {inst}, "
               f"{tile} tracks a block ({row['registers']} registers): "
@@ -1872,9 +1887,9 @@ def stage_oracle(kind, zs, x0, P0):
         return _ORACLE[kind][:2]
     pick = (np.arange(N) if N <= N_SAMPLE else np.sort(
         np.random.default_rng(3).choice(N, N_SAMPLE, replace=False)))
-    exact = oracle.run_batched(replay_model(kind),
-                               zs[:, pick].astype(np.float64), x0[pick],
-                               P0[pick])[0]
+    run = oracle.run_imm_batched if kind == "imm" else oracle.run_batched
+    exact = run(replay_model(kind), zs[:, pick].astype(np.float64), x0[pick],
+                P0[pick])[0]
     return pick, exact
 
 
@@ -1977,6 +1992,10 @@ def phase_stages():
                 full[kind] = stage_kernels_bitwise(model, zs, x0, P0, timed)
                 del timed
     full["imm"] = imm_step_full_square()
+    full["frames"] = frames_full_square()
+    full["imm_scan"] = imm_scan_full_square()
+    full["imm_scan"]["rung"] = imm_scan_rung(launches)
+    rows.append(full["imm_scan"]["rung"])
     print(f"[stages] launches of the kernel stages: {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return rows, launches, full
@@ -2120,6 +2139,243 @@ def imm_step_full_square():
               f"{ms:.4f} ms (bound {bms:.5f} by {by}, {bms / ms:.1%}); "
               "bitwise equal to its plain version on an asymmetric P")
     return out
+
+
+def _asym(P, seed):
+    """P plus 1e-3 noise: a seed P that is not symmetric to the bit."""
+    rng = np.random.default_rng(seed)
+    return (P + torch.as_tensor(1e-3 * rng.standard_normal(
+        tuple(P.shape), dtype=np.float32), device=P.device)).contiguous()
+
+
+def _sym_entries(source, parts):
+    """{"sym" / "full_square": (registers, spill)} of the entry of
+    ``source`` whose mangled name holds every part of ``parts(s)``, s the
+    Sym flag's 0 or 1; the ptxas lines printed."""
+    out = {}
+    for sym in (True, False):
+        e = parts(int(sym))
+        _print_ptxas_of(source, e)
+        out["sym" if sym else "full_square"] = (
+            ptxas_registers(source, *e), ptxas_spill(source, *e))
+    return out
+
+
+def frames_full_square():
+    """katana_frame (lkf, ekf) and katana_imm_frame (imm, K = 4) at phase
+    3's shape (C = 1,024, M = 256) on a seed P that is not symmetric to
+    the bit, at symmetrize False and True: assoc, waves, x', P' (and mu',
+    x_c) bit for bit with the plain version; each frame's device ms a
+    launch by the events it records (the device queued), its bound on
+    this frame's data (``frame_work``, the full square's operations), and
+    the predict's and the update's registers and spill for each Sym."""
+    rng = np.random.default_rng(51)
+    C, M = C_SERVE, M_SERVE
+    out = {}
+    for kind in ("lkf", "ekf", "imm"):
+        model = replay_model(kind)
+        is_imm = kind == "imm"
+        obs = [0, 1, 2, 4] if kind == "ekf" else [0, 1, 2]
+        bk = random_bank(rng, model.n, model.m, C, M, obs,
+                         K=model.K if is_imm else None)
+        P = _asym(bk["P"], 52)
+        gate = 11.34 if model.m == 3 else 13.28
+        if is_imm:
+            args = (bk["x"], P, bk["mu"], bk["z"], bk["z_valid"],
+                    bk["active"], gate, M)
+            call, plain = ops.katana_imm_frame, ref.katana_imm_frame_plain
+            inst = ops.pick_pattern(model.models).name
+            source = "imm_frame.cu"
+            parts = {"predict": lambda s: ("imm_predict",
+                                           f"{len(inst)}{inst}ELi4ELb{s}E"),
+                     "update": lambda s: ("imm_update",
+                                          f"{len(inst)}{inst}ELi4ELb0ELb{s}E")}
+        else:
+            args = (bk["x"], P, bk["z"], bk["z_valid"], bk["active"], gate,
+                    M)
+            call, plain = ops.katana_frame, ref.katana_frame_plain
+            inst = ops.pick_pattern((model,)).name
+            source = "frame.cu"
+            nl = "Lb0" if model.is_linear else "Lb1"
+            n, m = model.n, model.m
+            parts = {"predict": lambda s: ("frame_predict",
+                                           f"{len(inst)}{inst}E{nl}ELb{s}E"),
+                     "update": lambda s: ("frame_update",
+                                          f"ILi{n}ELi{m}ELb0ELb{s}E")}
+        na = 4 if is_imm else 2  # index of assoc in the outputs
+        res, waves, n_assigned = {}, {}, {}
+        for sym in (False, True):
+            got = call(model, *args, return_waves=True, symmetrize=sym)
+            want = plain(model, *args, return_waves=True, symmetrize=sym)
+            assert torch.equal(got[na], want[na]), (kind, sym, "assoc")
+            assert int(got[na + 1]) == want[na + 1], (kind, sym, "waves")
+            for a, b in zip(got[:na], want[:na]):
+                assert torch.equal(a, b), (kind, sym, max_diff(a, b))
+            res[sym], waves[sym] = got, want[na + 1]
+            n_assigned[sym] = int(((got[na] >= 0) & bk["active"]).sum())
+        P2 = res[False][1]
+        assert not torch.equal(P2, P2.transpose(-1, -2)), kind
+        assert not torch.equal(P2, res[True][1]), kind
+        n_active = int(bk["active"].sum())
+        n_valid = int(bk["z_valid"].sum())
+        regs = {k: _sym_entries(source, f) for k, f in parts.items()}
+        for sym in (False, True):
+            key = "sym" if sym else "full_square"
+            ev = launch_events_ms(lambda evs: call(
+                model, *args, launch_events=evs, symmetrize=sym))
+            bms, by = bound(*frame_work(model, C, M, n_active, n_valid,
+                                        n_assigned[sym], waves[sym], sym))
+            out.setdefault(kind, {})[key] = dict(
+                launch_device_ms=ev, ms=ev["frame"], bound_ms=bms,
+                bound_by=by, instantiation=inst,
+                registers={k: v[key][0] for k, v in regs.items()},
+                spill={k: v[key][1] for k, v in regs.items()})
+            print(f"[stages] {kind} {call.__name__} C={C} M={M} symmetrize="
+                  f"{sym}: device {ev['frame']:.4f} ms a frame (predict "
+                  f"{ev['predict']:.4f}, cost {ev['cost']:.4f}, greedy "
+                  f"{ev['greedy']:.4f}, update {ev['update']:.4f}); bound "
+                  f"{bms:.6f} by {by}; predict / update registers "
+                  f"{regs['predict'][key][0]} / {regs['update'][key][0]}, "
+                  f"spill {regs['predict'][key][1]} / "
+                  f"{regs['update'][key][1]} B")
+        print(f"[stages] {kind} {call.__name__} ({inst}) C={C} M={M}: assoc, "
+              f"{waves[False]} waves and every state bitwise equal to the "
+              f"plain version at symmetrize False and True, seed P "
+              f"asymmetric by 1e-3; {n_assigned[False]} assigned")
+    return out
+
+
+def imm_scan_full_square():
+    """katana_imm_sequence at K = 4, symmetrize=False, on phase 3b's fleet
+    replay shape (8 x 1,024 lanes, T = 300, FLEET_DROP of the entries
+    invalid and NaN), mode-conditioned seeds whose P is not symmetric to
+    the bit: at both tiles, in one launch and in chunks of 64 frames,
+    bit for bit with the plain version; the launch's device ms at both
+    symmetrize values (events, the device queued), bounds (``scan_work``)
+    and the registers and spill of every tile's Sym and full-square
+    instantiation."""
+    imm = replay_model("imm")
+    K, n = imm.K, imm.n
+    N, T = S_FLEET * C_SERVE, T_FLEET_REPLAY
+    zs, x0, P0 = dev_(*replay_stream("imm", N, T))
+    rng = np.random.default_rng(53)
+    valid = torch.as_tensor(rng.random((T, N)) >= FLEET_DROP, device=DEV)
+    zs = torch.where(valid[:, :, None], zs, torch.tensor(float("nan"),
+                                                         device=DEV))
+    xK = (x0[None] + torch.as_tensor(0.05 * rng.standard_normal(
+        (K, N, n), dtype=np.float32), device=DEV)).contiguous()
+    PK = _asym(P0[None].expand(K, N, n, n), 54)
+    mu0 = torch.as_tensor(rng.dirichlet(np.ones(K), size=N),
+                          dtype=torch.float32, device=DEV)
+    seq = (imm, zs, xK, PK, mu0, valid)
+    want, plain_ms = timed_host(lambda: ref.katana_bank_imm_scan_plain(
+        imm, *ops.imm_sequence_inputs(*seq), symmetrize=False))
+    assert bool(torch.isfinite(want[0]).all())
+    assert not torch.equal(want[2], want[2].transpose(2, 3))
+    inst = ops.pick_pattern(imm.models).name
+    out = dict(N=N, T=T, drop=FLEET_DROP, instantiation=inst,
+               plain_ms=plain_ms, tiles={})
+    for tile in ops.LANE_TILES["katana_imm_sequence"]:
+        for chunk in (T, 64):
+            ops.reset_launches()
+            xs, fin = ops.katana_imm_sequence(
+                *seq, return_final=True, time_chunk=chunk, lane_tile=tile,
+                symmetrize=False)
+            assert ops.LAUNCHES["katana_imm_sequence"] == -(-T // chunk)
+            for a, b in zip((xs,) + fin, want):
+                assert torch.equal(a, b), (tile, chunk, max_diff(a, b))
+        row = {}
+        for sym in (False, True):
+            key = "sym" if sym else "full_square"
+            ms = cuda_ms(lambda: ops.katana_imm_sequence(
+                *seq, time_chunk=T, lane_tile=tile, symmetrize=sym), 5,
+                spin=True)
+            bms, by = bound(*scan_work(imm, N, T, sym))
+            e = ("imm_scan", f"{len(inst)}{inst}ELb{int(sym)}E",
+                 tile_part(tile))
+            _print_ptxas_of("imm_scan.cu", e)
+            row[key] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                            registers=ptxas_registers("imm_scan.cu", *e),
+                            spill=ptxas_spill("imm_scan.cu", *e))
+            print(f"[stages] imm katana_imm_sequence K={K} N={N} T={T} "
+                  f"{tile} tracks a block, symmetrize={sym}: {ms:.3f} ms in "
+                  f"one launch (events, device queued); bound {bms:.4f} ms "
+                  f"by {by}, {bms / ms:.1%} of it reached; "
+                  f"{row[key]['registers']} registers, {row[key]['spill']} "
+                  "B spill")
+        out["tiles"][tile] = row
+    print(f"[stages] imm katana_imm_sequence ({inst}) K={K} N={N} T={T}, "
+          f"{FLEET_DROP:.0%} invalid: symmetrize=False at "
+          f"{ops.LANE_TILES['katana_imm_sequence']} tracks a block, in one "
+          f"launch and in chunks of 64, bitwise equal to the plain version "
+          f"({plain_ms:.1f} ms) on seeds whose P is asymmetric by 1e-3")
+    return out
+
+
+def imm_scan_rung(launches):
+    """The ladder's imm_scan rung on the multi-model IMM: ``run_sequence(
+    make_imm(), "imm_scan")`` at the pod's N, T = STAGE_T, its default
+    symmetrize=False (imm_scan.cu's full square at K = 4), one launch a
+    time chunk; its host ms a run and µs a step (a Table I row), the
+    launch's device ms at both symmetrize values (events, the device
+    queued) and bounds. Held to the float64 oracle on N_SAMPLE lanes by
+    the rule of the IMM states (PERF.md §2): within TOL, or ROUTE_SLACK
+    times the distance of the same rung at symmetrize=True (the triangle
+    route phase 4's replay holds to TOL) -- the float32 IMM on this
+    maneuvering stream is chaotic at that level: one ill-conditioned
+    lane's velocity sets the maximum, and last-bit differences (the CPU's
+    exp against the card's) move it either way for either contract. The
+    float32 oracle's distance is printed beside them. Adds its launches to
+    ``launches``; returns the row."""
+    imm = replay_model("imm")
+    N = kcfg.LKF_POD.batch
+    host = stage_inputs("imm", "pod", N)
+    zs, x0, P0 = dev_(*host)
+    pick, exact = stage_oracle("imm", *host)
+    rewrites.run_sequence(imm, "imm_scan", zs, x0, P0, device=DEV)
+    ops.reset_launches()
+    xs, ms = timed_host(lambda: rewrites.run_sequence(
+        imm, "imm_scan", zs, x0, P0, device=DEV))
+    counts = dict(ops.LAUNCHES)
+    want = chunk_launches("katana_imm_sequence", STAGE_T)
+    assert counts["katana_imm_sequence"] == want, counts
+    assert sum(counts.values()) == want, counts
+    by_stage = launches.setdefault("katana_imm_sequence", {})
+    by_stage["imm_scan"] = by_stage.get("imm_scan", 0) + want
+    lanes = torch.as_tensor(pick, device=DEV)
+    err = max_rel(xs[:, lanes].cpu(), torch.as_tensor(exact))
+    err_sym = max_rel(rewrites.run_sequence(
+        imm, "imm_scan", zs, x0, P0, symmetrize=True, device=DEV)[
+            :, lanes].cpu(), torch.as_tensor(exact))
+    err32 = max_rel(torch.as_tensor(oracle.run_imm_batched(
+        imm, host[0][:, pick].astype(np.float64), host[1][pick],
+        host[2][pick], dtype=np.float32)[0]), torch.as_tensor(exact))
+    assert err <= max(TOL["imm"], ROUTE_SLACK * err_sym), (
+        "imm", "imm_scan", N, err, err_sym)
+    kern = {}
+    for sym in (False, True):
+        kms = cuda_ms(lambda: ops.katana_imm_sequence(
+            imm, zs, x0, P0, symmetrize=sym), 5, spin=True)
+        bms, by = bound(*scan_work(imm, N, STAGE_T, sym))
+        kern["sym" if sym else "full_square"] = dict(
+            ms=kms, bound_ms=bms, bound_by=by,
+            lane_tile=ops.LAST_CONFIG["katana_imm_sequence"]["lane_tile"])
+    row = dict(filter="imm", stage="imm_scan", N=N, T=STAGE_T,
+               config=f"make_imm() at {kcfg.LKF_POD.name}'s N", ms=ms,
+               us_per_step=ms * 1e3 / STAGE_T,
+               steps_per_s=STAGE_T / ms * 1e3, max_rel_vs_f64=err,
+               sym_max_rel_vs_f64=err_sym, f32_oracle_max_rel_vs_f64=err32,
+               oracle_lanes=len(pick), launches=want, kernel=kern)
+    print(f"[stages] imm {'imm_scan':17s} N={N:<6d} "
+          f"{row['us_per_step']:10.1f} µs/step "
+          f"{row['steps_per_s']:10.1f} steps/s  vs float64 "
+          f"{err:.3g} ({len(pick)} lanes; symmetrize=True {err_sym:.3g}, "
+          f"the float32 oracle {err32:.3g}); K=4 in {want} launch(es); the "
+          "launch " + ", ".join(
+              f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f} by "
+              f"{v['bound_by']}, {v['bound_ms'] / v['ms']:.1%})"
+              for k, v in kern.items()))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5624,6 +5880,8 @@ def main() -> int:
                          "the device queued",
                    launch_device_ms=lkf["launch_device_ms"],
                    registers=lkf["launch_registers"],
+                   full_square={k: full_sq["frames"][k]
+                                for k in ("lkf", "ekf")},
                    fleet={k: fleet_row(k) for k in ("lkf", "ekf")}, by_model={
                   k: {f: rows[k][f] for f in (
                       "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -5636,6 +5894,7 @@ def main() -> int:
                          "with the device queued",
                    launch_device_ms=imm["launch_device_ms"],
                    registers=imm["launch_registers"],
+                   full_square=full_sq["frames"]["imm"],
                    fleet=fleet_row("imm"))),
         entry("greedy_assign", greedy["kernel_ms"], greedy["plain_ms"],
               greedy["bound_ms"], greedy["bound_by"],
@@ -5672,7 +5931,8 @@ def main() -> int:
                    one_launch_ms=replay["imm"]["one_launch_ms"],
                    chunk64_ms=replay["imm"]["chunk64_ms"],
                    instantiation=replay["imm"]["instantiation"],
-                   registers=replay["imm"]["registers"])),
+                   registers=replay["imm"]["registers"],
+                   full_square=full_sq["imm_scan"])),
         entry("katana_bank", per_frame["lkf"]["kernel_ms"],
               per_frame["lkf"]["plain_ms"], per_frame["lkf"]["bound_ms"],
               per_frame["lkf"]["bound_by"],

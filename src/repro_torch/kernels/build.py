@@ -55,13 +55,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "frame.cu": {
         "katana_frame_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                             _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P],
+                             _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _P, _P],
     },
     "imm_frame.cu": {
         "katana_imm_frame_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _F, _I, _I, _F, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _I, _P, _P],
     },
     "greedy.cu": {
         "greedy_assign_run": [_I, _I, _P, _P, _F, _I, _P, _P, _P, _P, _P,
@@ -73,7 +73,7 @@ SIGNATURES = {
     },
     "imm_scan.cu": {
         "katana_imm_scan_run": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                _P, _F, _P, _P, _P, _P, _I, _P],
+                                _P, _F, _P, _P, _P, _P, _I, _I, _P],
     },
     "imm_step.cu": {
         "katana_imm_step_run": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F,

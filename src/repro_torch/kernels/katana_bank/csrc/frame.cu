@@ -29,6 +29,11 @@
 //   4. frame_update: a thread per assigned, active track, the blocks of
 //      the predict: x', P' (its upper triangle) and S^-1 read back, the
 //      Kalman update over x'/P'.
+// Sym = false (symmetrize=False) is the reference's full-square contract:
+// the predict computes every entry of P' (it stores all n^2 either way),
+// the update reads P' whole and computes every entry of P, so an
+// asymmetry of the float products is carried. The cost tile and the
+// greedy do not see the contract. A fleet runs Sym only (ops.py).
 // A fleet frame serves S sensors in the same four launches: x (S, C, n)
 // is (S*C, n), so the predict and the update run over S*C tracks (track
 // t of sensor t / C, which the update reads z and z_valid of); the cost
@@ -64,7 +69,7 @@ constexpr int kCostMeas = 8;
 // track: S^-1 (M*M) then z_pred (M); entry e of track t (of the S*C
 // tracks, SC) sits at e * SC + t.
 
-template <class Pat, bool NL>
+template <class Pat, bool NL, bool Sym>
 __global__ void __launch_bounds__(kTracks)
 frame_predict(int SC, const float* __restrict__ x,
               const float* __restrict__ P,
@@ -78,8 +83,9 @@ frame_predict(int SC, const float* __restrict__ x,
   load_vec<N>(x + (size_t)c * N, xv);
   load_vec<NN>(P + (size_t)c * NN, Pv);
   float xp[N], Pp[N][N], S[M][M], Si[M][M], Pf[NN];
-  predict_pruned<Pat>(tab, NL, dt, xv,
-                      [&](int r, int q) { return Pv[r * N + q]; }, xp, Pp);
+  predict_pruned<Pat, Sym>(tab, NL, dt, xv,
+                           [&](int r, int q) { return Pv[r * N + q]; }, xp,
+                           Pp);
   innovation_pruned<Pat>(Pp, [&](int r, int q) { return tab.R(r, q); }, S,
                          Si);
 #pragma unroll
@@ -134,7 +140,7 @@ frame_cost(int C, int SC, int Mz, const float* __restrict__ z,
 
 // Track c of the S*C (SC): sensor c / C's z (Mz, M); act, assoc (S*C).
 // Without Fleet, one sensor (SC = C).
-template <int N, int M, bool Fleet>
+template <int N, int M, bool Fleet, bool Sym>
 __global__ void __launch_bounds__(kTracks)
 frame_update(int C, int SC, int Mz, const float* __restrict__ z,
              const uint8_t* __restrict__ act, const int* __restrict__ assoc,
@@ -150,13 +156,13 @@ frame_update(int C, int SC, int Mz, const float* __restrict__ z,
   float xp[N], Pv[NN], Pp[N][N], Si[M][M], zk[M], y[M], xn[N], Pn[N][N];
   load_vec<N>(x_out + (size_t)c * N, xp);
   load_vec<NN>(P_out + (size_t)c * NN, Pv);
-  // P' is stored mirrored: its upper triangle is all of it
+  // with Sym P' is stored mirrored: its upper triangle is all of it
 #pragma unroll
   for (int r = 0; r < N; ++r)
 #pragma unroll
-    for (int q = r; q < N; ++q) {
+    for (int q = Sym ? r : 0; q < N; ++q) {
       Pp[r][q] = Pv[r * N + q];
-      Pp[q][r] = Pp[r][q];
+      if constexpr (Sym) Pp[q][r] = Pp[r][q];
     }
 #pragma unroll
   for (int r = 0; r < M; ++r)
@@ -165,7 +171,7 @@ frame_update(int C, int SC, int Mz, const float* __restrict__ z,
       Si[r][q] = __ldg(inno + (size_t)(r * M + q) * ld + c);
 #pragma unroll
   for (int r = 0; r < M; ++r) zk[r] = z[(size_t)a * M + r];
-  kalman_update<N, M>(xp, Pp, Si, zk, y, xn, Pn);
+  kalman_update<N, M, Sym>(xp, Pp, Si, zk, y, xn, Pn);
 #pragma unroll
   for (int r = 0; r < N; ++r)
 #pragma unroll
@@ -174,7 +180,7 @@ frame_update(int C, int SC, int Mz, const float* __restrict__ z,
   store_vec<NN>(P_out + (size_t)c * NN, Pv);
 }
 
-template <class Pat, bool NL, bool Fleet>
+template <class Pat, bool NL, bool Fleet, bool Sym>
 cudaError_t run_frame(int S, int C, int Mz, const float* x, const float* P,
                       const float* z, const uint8_t* zval, const uint8_t* act,
                       const ModelTable<Pat::N, Pat::M>& tab, float dt,
@@ -187,7 +193,7 @@ cudaError_t run_frame(int S, int C, int Mz, const float* x, const float* P,
   cudaError_t e = record(events, 0, stream);
   if (e != cudaSuccess) return e;
   if (SC > 0) {
-    frame_predict<Pat, NL><<<blocks, kTracks, 0, stream>>>(
+    frame_predict<Pat, NL, Sym><<<blocks, kTracks, 0, stream>>>(
         SC, x, P, tab, dt, x_out, P_out, inno);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -212,7 +218,7 @@ cudaError_t run_frame(int S, int C, int Mz, const float* x, const float* P,
                       scratch, assoc, waves, stream, g0, g1);
   if (e != cudaSuccess) return e;
   if (SC > 0) {
-    frame_update<N, M, Fleet><<<blocks, kTracks, 0, stream>>>(
+    frame_update<N, M, Fleet, Sym><<<blocks, kTracks, 0, stream>>>(
         C, SC, Mz, z, act, assoc, inno, x_out, P_out);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -222,26 +228,32 @@ cudaError_t run_frame(int S, int C, int Mz, const float* x, const float* P,
 
 // The frame of an instantiated Pattern; `consts` is the model's F, Q, R
 // in host memory, copied into the launches' parameters. A nonlinear
-// model is the CTRA-8 (N = 8) only.
+// model is the CTRA-8 (N = 8) only; the full square (sym 0) one sensor
+// only.
 template <class Pat>
 cudaError_t launch_frame(int S, int C, int Mz, const void* x, const void* P,
                          const void* z, const void* zval, const void* act,
                          const void* consts, int nonlinear, float dt,
                          float gate, int rounds, void* x_out, void* P_out,
                          void* assoc, void* cost, void* inno, void* scratch,
-                         void* waves, cudaStream_t s, void* const* events) {
+                         void* waves, int sym, cudaStream_t s,
+                         void* const* events) {
   ModelTable<Pat::N, Pat::M> tab;
   memcpy(&tab, consts, sizeof tab);
+  if (!sym && S != 1) return cudaErrorInvalidValue;
   // S = 1: the single-sensor code (no sensor offsets)
   auto run = [&](auto nl) {
-    auto go = [&](auto fleet) {
-      return run_frame<Pat, decltype(nl)::value, decltype(fleet)::value>(
+    auto go = [&](auto fleet, auto symm) {
+      return run_frame<Pat, decltype(nl)::value, decltype(fleet)::value,
+                       decltype(symm)::value>(
           S, C, Mz, (const float*)x, (const float*)P, (const float*)z,
           (const uint8_t*)zval, (const uint8_t*)act, tab, dt, gate, rounds,
           (float*)x_out, (float*)P_out, (int*)assoc, (float*)cost,
           (float*)inno, scratch, (int*)waves, s, events);
     };
-    return S == 1 ? go(std::false_type{}) : go(std::true_type{});
+    if (!sym) return go(std::false_type{}, std::false_type{});
+    return S == 1 ? go(std::false_type{}, std::true_type{})
+                  : go(std::true_type{}, std::true_type{});
   };
   if constexpr (Pat::N == 8) {
     if (nonlinear) return run(std::true_type{});
@@ -263,13 +275,14 @@ extern "C" {
 // `inno` (m^2 + m) * S * C, `scratch` greedy_scratch_bytes(C, Mz, S).
 // `events` is null or five CUDA events (each may be null) recorded before
 // frame_predict, after it, after frame_cost (the greedy's start), after
-// the greedy and after frame_update.
+// the greedy and after frame_update. sym: 1 for symmetrize=True, 0 for
+// the full square (S = 1 only).
 int katana_frame_run(int n, int m, int pattern, int C, int Mz, const void* x,
                      const void* P, const void* z, const void* zval,
                      const void* act, const void* consts, int nonlinear,
                      float dt, float gate, int rounds, int S, void* x_out,
                      void* P_out, void* assoc, void* cost, void* inno,
-                     void* scratch, void* waves, void* stream,
+                     void* scratch, void* waves, int sym, void* stream,
                      void* const* events) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
@@ -278,7 +291,7 @@ int katana_frame_run(int n, int m, int pattern, int C, int Mz, const void* x,
     return (int)launch_frame<name>(S, C, Mz, x, P, z, zval, act, consts,    \
                                    nonlinear, dt, gate, rounds, x_out,      \
                                    P_out, assoc, cost, inno, scratch, waves, \
-                                   s, events);
+                                   sym, s, events);
   KATANA_IMM_PATTERNS(KATANA_FRAME_CASE)
 #undef KATANA_FRAME_CASE
   return (int)cudaErrorInvalidValue;

@@ -50,9 +50,10 @@ __device__ __forceinline__ float mix_weights(const PI& Pi,
 // The mixed state of a target model from its weights w, the terms of
 // xt_0 = 0 pruned as ref._imm_mix prunes them: mt = sum_{i>=1} w_i xt_i,
 // x_mix = mt + x_0, P_mix = sum_i w_i A_i - mt mt^T. xt(i, d) reads
-// xt_i[d] (i >= 1), A(i, r, q) reads A_i[r][q] (r <= q), x0(d) model 0's
-// mean.
-template <int N, int K, class XT, class AT, class X0>
+// xt_i[d] (i >= 1), A(i, r, q) reads A_i[r][q], x0(d) model 0's mean.
+// Sym (symmetrize=True): P_mix's upper triangle (A read at r <= q),
+// mirrored; otherwise every entry (ref._imm_mix's ``sym``).
+template <int N, int K, bool Sym = true, class XT, class AT, class X0>
 __device__ __forceinline__ void mix_target(const float (&w)[K], const XT& xt,
                                            const AT& A, const X0& x0,
                                            float (&xm)[N], float (&Pm)[N][N]) {
@@ -68,13 +69,13 @@ __device__ __forceinline__ void mix_target(const float (&w)[K], const XT& xt,
 #pragma unroll
   for (int r = 0; r < N; ++r)
 #pragma unroll
-    for (int q = r; q < N; ++q) {
+    for (int q = Sym ? r : 0; q < N; ++q) {
       float acc = w[0] * A(0, r, q);
 #pragma unroll
       for (int i = 1; i < K; ++i) acc = acc + w[i] * A(i, r, q);
       acc = acc - mt[r] * mt[q];
       Pm[r][q] = acc;
-      Pm[q][r] = acc;
+      if constexpr (Sym) Pm[q][r] = acc;
     }
 }
 

@@ -47,6 +47,11 @@
 //      track keeps x'/P' and takes mu <- cbar; only a block that updates
 //      a track stores its spans back.
 // At most 128 registers a thread (launch bounds).
+// Sym = false (symmetrize=False) is the reference's full-square contract:
+// the spread A_i, the mixed P, the predict and the update cover every
+// entry of P (the slabs hold all n^2 either way), and the update reads
+// P' whole, so an asymmetry of the float products is carried. A fleet
+// runs Sym only (ops.py).
 // A fleet frame serves S sensors in the same four launches, as frame.cu:
 // x (K, S, C, n) is (K, S*C, n), mu (S*C, K), so the predict and the
 // update run over S*C tracks (track t of sensor t / C, whose z the update
@@ -115,7 +120,7 @@ __device__ __forceinline__ void spans_out(float* x, float* P,
   }
 }
 
-template <class Pat, int K>
+template <class Pat, int K, bool Sym>
 __global__ void __launch_bounds__(K * kTracks, 512 / (K * kTracks))
 imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
             const float* __restrict__ mu, const float* __restrict__ consts,
@@ -143,7 +148,7 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
   auto slab = [&](int i) { return sm.P + (i * kTracks + cl) * NN; };
 
   // 1. this model's share of the spread, in place: xt_j over x_j, A_j over
-  // P_j's upper triangle (A_0 = P_0)
+  // P_j's upper triangle, or with !Sym all of P_j (A_0 = P_0)
   if (live && j > 0) {
     float xt[N];
 #pragma unroll
@@ -151,7 +156,8 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
 #pragma unroll
     for (int r = 0; r < N; ++r)
 #pragma unroll
-      for (int q = r; q < N; ++q) Po[r * N + q] = Po[r * N + q] + xt[r] * xt[q];
+      for (int q = Sym ? r : 0; q < N; ++q)
+        Po[r * N + q] = Po[r * N + q] + xt[r] * xt[q];
 #pragma unroll
     for (int d = 0; d < N; ++d) xo[d] = xt[d];
   }
@@ -164,7 +170,7 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
     float cbar[K], w[K];
     cbar_j = mix_weights<K>(
         [&](int i, int k) { return __ldg(Pi + i * K + k); }, mu_i, j, cbar, w);
-    mix_target<N, K>(
+    mix_target<N, K, Sym>(
         w, [&](int i, int d) { return sm.x[(i * kTracks + cl) * N + d]; },
         [&](int i, int r, int q) { return slab(i)[r * N + q]; },
         [&](int d) { return x0[d]; }, xm, Pm);
@@ -179,8 +185,9 @@ imm_predict(int C, const float* __restrict__ x, const float* __restrict__ P,
       for (int q = 0; q < N; ++q) Po[r * N + q] = Pm[r][q];
     const ConstsIn<N, M> cs{consts + j * model_stride<N, M>()};
     float xp[N], Pp[N][N], S[M][M], Si[M][M];
-    predict_pruned<Pat>(cs, false, 0.0f, xm,
-                        [&](int r, int q) { return Po[r * N + q]; }, xp, Pp);
+    predict_pruned<Pat, Sym>(cs, false, 0.0f, xm,
+                             [&](int r, int q) { return Po[r * N + q]; }, xp,
+                             Pp);
     innovation_pruned<Pat>(Pp, [&](int r, int q) { return cs.R(r, q); }, S,
                            Si);
 #pragma unroll
@@ -251,7 +258,7 @@ imm_cost(int C, int SC, int Mz, const float* __restrict__ z,
 
 // C is the S*C tracks here, Cs a sensor's: track c reads sensor c / Cs's
 // z (Mz, M). Without Fleet, one sensor (C = Cs).
-template <class Pat, int K, bool Fleet>
+template <class Pat, int K, bool Fleet, bool Sym>
 __global__ void __launch_bounds__(K * kTracks, 512 / (K * kTracks))
 imm_update(int Cs, int C, int Mz, const float* __restrict__ z,
            const uint8_t* __restrict__ act, const float* __restrict__ consts,
@@ -289,13 +296,13 @@ imm_update(int Cs, int C, int Mz, const float* __restrict__ z,
     float xp[N], Pp[N][N], S[M][M], Si[M][M], zk[M], y[M], xn[N], Pn[N][N];
 #pragma unroll
     for (int d = 0; d < N; ++d) xp[d] = xo[d];
-    // P' is stored mirrored: its upper triangle is all of it
+    // with Sym P' is stored mirrored: its upper triangle is all of it
 #pragma unroll
     for (int r = 0; r < N; ++r)
 #pragma unroll
-      for (int q = r; q < N; ++q) {
+      for (int q = Sym ? r : 0; q < N; ++q) {
         Pp[r][q] = Po[r * N + q];
-        Pp[q][r] = Pp[r][q];
+        if constexpr (Sym) Pp[q][r] = Pp[r][q];
       }
     innovation_pruned<Pat>(Pp, Rv, S, Si);
 #pragma unroll
@@ -303,7 +310,7 @@ imm_update(int Cs, int C, int Mz, const float* __restrict__ z,
     if constexpr (Fleet) zc += (size_t)(c / Cs) * Mz * M;
 #pragma unroll
     for (int r = 0; r < M; ++r) zk[r] = zc[(size_t)a * M + r];
-    kalman_update<N, M>(xp, Pp, Si, zk, y, xn, Pn);
+    kalman_update<N, M, Sym>(xp, Pp, Si, zk, y, xn, Pn);
 #pragma unroll
     for (int d = 0; d < N; ++d) xo[d] = xn[d];
 #pragma unroll
@@ -340,7 +347,7 @@ imm_update(int Cs, int C, int Mz, const float* __restrict__ z,
   if (any) spans_out(x_out, P_out, sm, C, c0, nt, tid);
 }
 
-template <class Pat, int K, bool Fleet>
+template <class Pat, int K, bool Fleet, bool Sym>
 cudaError_t run_imm_frame(int S, int C, int Mz, const float* x,
                           const float* P,
                           const float* mu, const float* z,
@@ -356,7 +363,7 @@ cudaError_t run_imm_frame(int S, int C, int Mz, const float* x,
   cudaError_t e = record(events, 0, stream);
   if (e != cudaSuccess) return e;
   if (SC > 0) {
-    imm_predict<Pat, K><<<blocks, K * kTracks, 0, stream>>>(
+    imm_predict<Pat, K, Sym><<<blocks, K * kTracks, 0, stream>>>(
         SC, x, P, mu, consts, x_out, P_out, inno);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -381,7 +388,7 @@ cudaError_t run_imm_frame(int S, int C, int Mz, const float* x,
                       scratch, assoc, waves, stream, g0, g1);
   if (e != cudaSuccess) return e;
   if (SC > 0) {
-    imm_update<Pat, K, Fleet><<<blocks, K * kTracks, 0, stream>>>(
+    imm_update<Pat, K, Fleet, Sym><<<blocks, K * kTracks, 0, stream>>>(
         C, SC, Mz, z, act, consts, log2pi_m, assoc, inno, x_out, P_out,
         mu_out, xc_out);
     e = cudaGetLastError();
@@ -390,7 +397,8 @@ cudaError_t run_imm_frame(int S, int C, int Mz, const float* x,
   return record(events, 4, stream);
 }
 
-// The frame of an instantiated Pattern: (K, n, m) = (4, 9, 3) only.
+// The frame of an instantiated Pattern: (K, n, m) = (4, 9, 3) only; the
+// full square (sym 0) one sensor only.
 template <class Pat>
 cudaError_t launch_frame(int K, int S, int C, int Mz, const void* x,
                          const void* P,
@@ -399,19 +407,23 @@ cudaError_t launch_frame(int K, int S, int C, int Mz, const void* x,
                          int rounds, float log2pi_m, void* x_out,
                          void* P_out, void* mu_out, void* xc_out,
                          void* assoc, void* cost, void* inno, void* scratch,
-                         void* waves, cudaStream_t s, void* const* events) {
+                         void* waves, int sym, cudaStream_t s,
+                         void* const* events) {
   if constexpr (Pat::N == 9 && Pat::M == 3) {
-    if (K != 4) return cudaErrorInvalidValue;
+    if (K != 4 || (!sym && S != 1)) return cudaErrorInvalidValue;
     // S = 1: the single-sensor code (no sensor offsets)
-    auto go = [&](auto fleet) {
-      return run_imm_frame<Pat, 4, decltype(fleet)::value>(
+    auto go = [&](auto fleet, auto symm) {
+      return run_imm_frame<Pat, 4, decltype(fleet)::value,
+                           decltype(symm)::value>(
           S, C, Mz, (const float*)x, (const float*)P, (const float*)mu,
           (const float*)z, (const uint8_t*)zval, (const uint8_t*)act,
           (const float*)consts, gate, rounds, log2pi_m, (float*)x_out,
           (float*)P_out, (float*)mu_out, (float*)xc_out, (int*)assoc,
           (float*)cost, (float*)inno, scratch, (int*)waves, s, events);
     };
-    return S == 1 ? go(std::false_type{}) : go(std::true_type{});
+    if (!sym) return go(std::false_type{}, std::false_type{});
+    return S == 1 ? go(std::false_type{}, std::true_type{})
+                  : go(std::true_type{}, std::true_type{});
   } else {
     return cudaErrorInvalidValue;
   }
@@ -427,17 +439,19 @@ extern "C" {
 // `pattern` the id of an instantiated Pattern of that shape (pruned.cuh);
 // any other combination returns cudaErrorInvalidValue without launching.
 // `cost` holds S * Mz * C floats, `inno` K * S * C * (m^2 + m + 1),
-// `scratch` greedy_scratch_bytes(C, Mz, S). `events` is null or five CUDA events (each may be null) recorded
-// before imm_predict, after it, after imm_cost (the greedy's start), after
-// the greedy and after imm_update.
+// `scratch` greedy_scratch_bytes(C, Mz, S). `events` is null or five
+// CUDA events (each may be null) recorded before imm_predict, after it,
+// after imm_cost (the greedy's start), after the greedy and after
+// imm_update. sym: 1 for symmetrize=True, 0 for the full square (S = 1
+// only).
 int katana_imm_frame_run(int K, int n, int m, int pattern, int C, int Mz,
                          const void* x, const void* P, const void* mu,
                          const void* z, const void* zval, const void* act,
                          const void* consts, float gate, int rounds, int S,
                          float log2pi_m, void* x_out, void* P_out,
                          void* mu_out, void* xc_out, void* assoc, void* cost,
-                         void* inno, void* scratch, void* waves, void* stream,
-                         void* const* events) {
+                         void* inno, void* scratch, void* waves, int sym,
+                         void* stream, void* const* events) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
 #define KATANA_IMM_FRAME_CASE(id, name, n_, m_, ...)                         \
@@ -445,7 +459,7 @@ int katana_imm_frame_run(int K, int n, int m, int pattern, int C, int Mz,
     return (int)launch_frame<name>(K, S, C, Mz, x, P, mu, z, zval, act,     \
                                    consts, gate, rounds, log2pi_m, x_out,   \
                                    P_out, mu_out, xc_out, assoc, cost,      \
-                                   inno, scratch, waves, s, events);
+                                   inno, scratch, waves, sym, s, events);
   KATANA_IMM_PATTERNS(KATANA_IMM_FRAME_CASE)
 #undef KATANA_IMM_FRAME_CASE
   return (int)cudaErrorInvalidValue;

@@ -56,11 +56,19 @@
 // memory (10 KB at 32 tracks): it comes in and goes out through a staging
 // buffer with 16-byte accesses, one model at a time. Layouts are canonical:
 // x (K, N, n), P (K, N, n, n), mu (N, K), zs (T, N, m), xs (T, N, n).
+// Sym = false (symmetrize=False) is the reference's full-square contract:
+// a thread keeps all n^2 entries of its P, the seed is read whole, and
+// the spread, the mixing, the predict, the update and the valid select
+// cover every entry, so an asymmetry of the float products is carried.
+// A slab then holds x and the whole P, (9 + 81) | 1 = 91 floats where the
+// triangle takes 55: ScanShared is 59.5 KB at 32 tracks, 119 KB at 64 (one
+// block an SM), within the 227 KB of dynamic shared memory a block gets.
 //
 // Built with --fmad=false: the plain PyTorch version (ref.py) and this
 // code then round identically.
 
 #include <string.h>
+#include <type_traits>
 
 #include "pruned.cuh"
 
@@ -76,9 +84,16 @@ constexpr int imm_scan_min_blocks() {
   return 65536 / (K * Tracks * 128);
 }
 
-template <int N>
+// a slab: x, then P's upper triangle (Sym) or all of P, padded odd
+template <int N, bool Sym>
 __host__ __device__ constexpr int slab_stride() {
-  return (N + N * (N + 1) / 2) | 1;
+  return (N + (Sym ? N * (N + 1) / 2 : N * N)) | 1;
+}
+
+// P[r][q]'s place in a slab after x (r <= q with Sym)
+template <int N, bool Sym>
+__host__ __device__ constexpr int slab_at(int r, int q) {
+  return N + (Sym ? tri<N>(r, q) : r * N + q);
 }
 
 // The model constants as ops._host_consts lays them out: per model F, Q,
@@ -93,12 +108,12 @@ struct ImmTable {
   float Pi[K * K];
 };
 
-template <int N, int K, int Tracks>
+template <int N, int K, int Tracks, bool Sym>
 struct ScanShared {
   // one model's P for the block's tracks, a contiguous span of device
   // memory, on its way in and out with 16-byte accesses
   __align__(16) float stage[Tracks * N * N];
-  float slab[K][Tracks][slab_stride<N>()];
+  float slab[K][Tracks][slab_stride<N, Sym>()];
   float xt[K - 1][Tracks][N | 1];
   float ll[K][Tracks];
 };
@@ -111,7 +126,7 @@ struct ScanArgs {
   float* xs;
 };
 
-template <int N, int M, int K, class Pat, int Tracks>
+template <int N, int M, int K, class Pat, bool Sym, int Tracks>
 __global__ void __launch_bounds__(K * Tracks, imm_scan_min_blocks<K, Tracks>())
 imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
          const float* __restrict__ P, const float* __restrict__ mu,
@@ -119,7 +134,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
          float* __restrict__ mu_fin,
          const __grid_constant__ ImmTable<N, M, K> tab) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<ScanShared<N, K, Tracks>*>(smem_raw);
+  auto& sm = *reinterpret_cast<ScanShared<N, K, Tracks, Sym>*>(smem_raw);
   const int Ntr = a.Ntr;
   const int j = threadIdx.x / Tracks;
   const int cl = threadIdx.x % Tracks;
@@ -159,7 +174,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q) Ps_own[r][q] = mine[r * N + q];
+        for (int q = Sym ? r : 0; q < N; ++q) Ps_own[r][q] = mine[r * N + q];
     }
     __syncthreads();
   }
@@ -181,13 +196,14 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q)
+        for (int q = Sym ? r : 0; q < N; ++q)
           Ps_own[r][q] = Ps_own[r][q] + xt[r] * xt[q];
     }
 #pragma unroll
     for (int r = 0; r < N; ++r)
 #pragma unroll
-      for (int q = r; q < N; ++q) own[N + tri<N>(r, q)] = Ps_own[r][q];
+      for (int q = Sym ? r : 0; q < N; ++q)
+        own[slab_at<N, Sym>(r, q)] = Ps_own[r][q];
     __syncthreads();
 
     // 2. the mixed state of target model j from the K slabs of its track
@@ -195,9 +211,11 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
     float cbar[K], w[K], xm[N], Pm[N][N];
     mix_weights<K>([&](int i, int k) { return tab.Pi[i * K + k]; }, mu_i, j,
                    cbar, w);
-    mix_target<N, K>(
+    mix_target<N, K, Sym>(
         w, [&](int i, int d) { return sm.xt[i - 1][cl][d]; },
-        [&](int i, int r, int q) { return sm.slab[i][cl][N + tri<N>(r, q)]; },
+        [&](int i, int r, int q) {
+          return sm.slab[i][cl][slab_at<N, Sym>(r, q)];
+        },
         [&](int d) { return x0s[d]; }, xm, Pm);
     __syncthreads();  // every slab read before any is overwritten
 
@@ -206,10 +224,10 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
     for (int r = 0; r < M; ++r) z[r] = a.zs[tc * M + r];
     predict_mean<Pat>(Fv, xm, xp);
-    predict_cov_pruned<Pat>(Fv, Qv, [&](int r, int q) { return Pm[r][q]; },
-                            Pp);
+    predict_cov_pruned<Pat, Sym>(Fv, Qv,
+                                 [&](int r, int q) { return Pm[r][q]; }, Pp);
     innovation_pruned<Pat>(Pp, Rv, S, Si);
-    kalman_update<N, M>(xp, Pp, Si, z, y, xn, Pn);
+    kalman_update<N, M, Sym>(xp, Pp, Si, z, y, xn, Pn);
     sm.ll[j][cl] = gaussian_loglik<M>(S, Si, y, a.log2pi_m);
     float v = 1.0f;
     if (a.vs != nullptr) {
@@ -220,7 +238,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q)
+        for (int q = Sym ? r : 0; q < N; ++q)
           Ps_own[r][q] = v * Pn[r][q] + nv * Pp[r][q];
     } else {
 #pragma unroll
@@ -228,7 +246,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q) Ps_own[r][q] = Pn[r][q];
+        for (int q = Sym ? r : 0; q < N; ++q) Ps_own[r][q] = Pn[r][q];
     }
 #pragma unroll
     for (int d = 0; d < N; ++d) own[d] = xs_own[d];
@@ -259,9 +277,9 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int q = r; q < N; ++q) {
+        for (int q = Sym ? r : 0; q < N; ++q) {
           mine[r * N + q] = Ps_own[r][q];
-          mine[q * N + r] = Ps_own[r][q];
+          if constexpr (Sym) mine[q * N + r] = Ps_own[r][q];
         }
     }
     __syncthreads();
@@ -278,7 +296,7 @@ imm_scan(const __grid_constant__ ScanArgs a, const float* __restrict__ x,
   }
 }
 
-template <class Pat, int Tracks>
+template <class Pat, bool Sym, int Tracks>
 int launch_scan(int K, int Ntr, int T, const void* x, const void* P,
                 const void* mu, const void* zs, const void* vs,
                 const void* consts, float log2pi_m, void* xs, void* x_fin,
@@ -289,8 +307,8 @@ int launch_scan(int K, int Ntr, int T, const void* x, const void* P,
     memcpy(&tab, consts, sizeof tab);
     const ScanArgs a{Ntr, T, (const float*)zs, (const uint8_t*)vs, log2pi_m,
                      (float*)xs};
-    constexpr size_t bytes = sizeof(ScanShared<9, 4, Tracks>);
-    auto* kernel = imm_scan<9, 3, 4, Pat, Tracks>;
+    constexpr size_t bytes = sizeof(ScanShared<9, 4, Tracks, Sym>);
+    auto* kernel = imm_scan<9, 3, 4, Pat, Sym, Tracks>;
     if constexpr (bytes > 48 * 1024) {
       static const cudaError_t set = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -316,23 +334,29 @@ extern "C" {
 // without launching, and so does a `tile` (tracks a block) outside
 // KATANA_IMM_SCAN_TILES. `consts` is the constant table in HOST memory
 // (ops._host_consts: per model F, Q, R, then the Markov matrix), copied
-// into the launch's parameters. vs may be null (every frame valid).
+// into the launch's parameters. vs may be null (every frame valid). sym:
+// 1 for symmetrize=True, 0 for the full square.
 int katana_imm_scan_run(int K, int n, int m, int pattern, int Ntr, int T,
                         const void* x, const void* P, const void* mu,
                         const void* zs, const void* vs, const void* consts,
                         float log2pi_m, void* xs, void* x_fin, void* P_fin,
-                        void* mu_fin, int tile, void* stream) {
+                        void* mu_fin, int sym, int tile, void* stream) {
   using namespace katana;
   auto s = static_cast<cudaStream_t>(stream);
-  auto by_tile = [&](auto pat) -> int {
+  auto by_sym = [&](auto pat, auto symm) -> int {
     using Pat = decltype(pat);
+    constexpr bool Sym = decltype(symm)::value;
 #define KATANA_IMM_SCAN_TILE(t)                                              \
   if (tile == t)                                                            \
-    return launch_scan<Pat, t>(K, Ntr, T, x, P, mu, zs, vs, consts,         \
-                               log2pi_m, xs, x_fin, P_fin, mu_fin, s);
+    return launch_scan<Pat, Sym, t>(K, Ntr, T, x, P, mu, zs, vs, consts,    \
+                                    log2pi_m, xs, x_fin, P_fin, mu_fin, s);
     KATANA_IMM_SCAN_TILES(KATANA_IMM_SCAN_TILE)
 #undef KATANA_IMM_SCAN_TILE
     return (int)cudaErrorInvalidValue;
+  };
+  auto by_tile = [&](auto pat) -> int {
+    return sym ? by_sym(pat, std::true_type{})
+               : by_sym(pat, std::false_type{});
   };
 #define KATANA_IMM_SCAN_CASE(id, name, n_, m_, ...)                          \
   if (pattern == id && n == n_ && m == m_) return by_tile(name{});

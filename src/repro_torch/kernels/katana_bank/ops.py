@@ -39,13 +39,13 @@ each wrapper (the frames also count their greedy launch under
 (x (C, n), P (C, n, n), z (M, m); a stream zs (T, N, m)) and mask by
 the track count, so nothing is padded or transposed here.
 
-The bank steps (both layouts), ``katana_bank_sequence`` and
-``katana_imm_sequence`` at K = 1 take ``symmetrize`` as the reference's
-ops do: True (their default) computes the covariance's upper triangle,
-mirrors aliased; False (the default of the rewrite stages,
-``core/rewrites.py``) every entry, each kernel's compile-time
-``Sym = false`` route. The frames and the K > 1 IMM scan run the True
-contract only.
+Every wrapper that predicts (the frames, the scans, the bank steps) takes
+``symmetrize`` as the reference's ops do: True (their default) computes
+the covariance's upper triangle, mirrors aliased; False (the default of
+the rewrite stages, ``core/rewrites.py``) every entry, each kernel's
+compile-time ``Sym = false`` route. A fleet frame (a leading sensor axis)
+runs True only: the reference has no fleet frame of its own (its
+``make_multi_sensor_step`` maps the default over the sensors).
 
 The bank steps and the scans take ``lane_tile`` (tracks or lanes a block;
 for the K > 1 IMM scan tracks a block, K threads each) and the scans
@@ -336,8 +336,18 @@ def _fleet_shape(x, track_dims: int, axis: int = 0):
                      f"{track_dims + 1} (sensor-stacked)")
 
 
+def _check_fleet_symmetrize(S: int, lead, symmetrize: bool, what: str):
+    """A fleet frame runs the upper-triangle contract only."""
+    if lead and not symmetrize:
+        raise NotImplementedError(
+            f"{what}: symmetrize=False on a fleet of {S} sensors is not in "
+            "the reference (its multi-sensor step maps the default); "
+            "ROADMAP §2 item S")
+
+
 def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
-                  rounds: int, greedy_events=None, launch_events=None):
+                  rounds: int, greedy_events=None, launch_events=None,
+                  symmetrize: bool = True):
     """The launches of the single-model frame (csrc/frame.cu), on the
     model's compile-time pattern, for one sensor (x (C, n)) or a fleet of
     S (x (S, C, n), every other input with a leading S)."""
@@ -370,7 +380,8 @@ def _launch_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
         consts.ctypes.data, int(not model.is_linear), float(model.dt),
         float(gate), int(rounds), S, x_out.data_ptr(), P_out.data_ptr(),
         assoc.data_ptr(), cost.data_ptr(), inno.data_ptr(),
-        scratch.data_ptr(), waves.data_ptr(), build.stream_of(dev), events)
+        scratch.data_ptr(), waves.data_ptr(), int(symmetrize),
+        build.stream_of(dev), events)
     build.check(lib, code, "katana_frame")
     LAUNCHES["greedy_assign"] += 1
     return x_out, P_out, assoc, waves
@@ -390,7 +401,7 @@ def _frame_events(greedy_events, launch_events):
 
 def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
                  rounds: int, return_waves: bool = False, greedy_events=None,
-                 launch_events=None):
+                 launch_events=None, symmetrize: bool = True):
     """The fused live tracking frame. x (C, n); P (C, n, n); z (M, m);
     z_valid (M,) bool; active (C,) bool; ``gate``/``rounds`` are the
     tracker's chi-square gate and assignment-round bound. Returns
@@ -408,20 +419,25 @@ def katana_frame(model: FilterModel, x, P, z, z_valid, active, gate: float,
     its device time inside the frame; ``launch_events``: five such
     events that it records before its predict, after it, after the cost
     tile, after the greedy and after the update, for each launch's
-    device time (CUDA tensors only)."""
+    device time (CUDA tensors only). ``symmetrize=False`` predicts and
+    updates the covariance's full square (one sensor only: a fleet
+    raises NotImplementedError)."""
+    _check_fleet_symmetrize(*_fleet_shape(x, 2), symmetrize, "katana_frame")
     if not build.on_cuda(x):
         return ref.katana_frame_plain(model, x, P, z, z_valid, active, gate,
-                                      rounds, return_waves=return_waves)
+                                      rounds, return_waves=return_waves,
+                                      symmetrize=symmetrize)
     x2, P2, assoc, waves = _launch_frame(model, x, P, z, z_valid, active,
                                          gate, rounds, greedy_events,
-                                         launch_events)
+                                         launch_events, symmetrize)
     LAUNCHES["katana_frame"] += 1
     return (x2, P2, assoc, waves) if return_waves else (x2, P2, assoc)
 
 
 def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
                      gate: float, rounds: int, return_waves: bool = False,
-                     greedy_events=None, launch_events=None):
+                     greedy_events=None, launch_events=None,
+                     symmetrize: bool = True):
     """The fused live IMM frame. x (K, C, n); P (K, C, n, n); mu (C, K);
     z (M, m); z_valid (M,) bool; active (C,) bool. Returns
     (x' (K, C, n), P' (K, C, n, n), mu' (C, K), x_c (C, n), assoc (C,)):
@@ -430,13 +446,17 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     ``launch_events`` as in ``katana_frame``. A fleet of S sensors takes
     x (K, S, C, n), P (K, S, C, n, n), mu (S, C, K) and z, z_valid,
     active with a leading S, and returns every output so stacked (x_c
-    (S, C, n), assoc (S, C), waves (S,)), as ``katana_frame`` does."""
+    (S, C, n), assoc (S, C), waves (S,)), as ``katana_frame`` does.
+    ``symmetrize=False`` mixes, predicts, updates and coasts the
+    covariance's full square (one sensor only, as ``katana_frame``)."""
+    S, lead = _fleet_shape(x, 3, axis=1)
+    _check_fleet_symmetrize(S, lead, symmetrize, "katana_imm_frame")
     if not build.on_cuda(x):
         return ref.katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active,
                                           gate, rounds,
-                                          return_waves=return_waves)
+                                          return_waves=return_waves,
+                                          symmetrize=symmetrize)
     K, n = x.shape[0], x.shape[-1]
-    S, lead = _fleet_shape(x, 3, axis=1)
     C = x.shape[-2]
     M, m = z.shape[-2:]
     dev = x.device
@@ -444,7 +464,8 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
     if K == 1:
         x2, P2, assoc, waves = _launch_frame(imm.models[0], x[0], P[0], z,
                                              z_valid, active, gate, rounds,
-                                             greedy_events, launch_events)
+                                             greedy_events, launch_events,
+                                             symmetrize)
         LAUNCHES["katana_imm_frame"] += 1
         out = (x2[None], P2[None], mu.clone(), x2.clone(), assoc)
         return out + (waves,) if return_waves else out
@@ -483,7 +504,7 @@ def katana_imm_frame(imm: IMMModel, x, P, mu, z, z_valid, active,
         float(np.float32(m * ref.LOG_2PI)), x_out.data_ptr(),
         P_out.data_ptr(), mu_out.data_ptr(), xc.data_ptr(), assoc.data_ptr(),
         cost.data_ptr(), inno.data_ptr(), scratch.data_ptr(),
-        waves.data_ptr(), build.stream_of(dev),
+        waves.data_ptr(), int(symmetrize), build.stream_of(dev),
         _frame_events(greedy_events, launch_events))
     build.check(lib, code, "katana_imm_frame")
     LAUNCHES["katana_imm_frame"] += 1
@@ -576,7 +597,8 @@ def _launch_scan(model: FilterModel, x, P, zs, valid, xs,
     return x_fin, P_fin
 
 
-def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs, tile: int):
+def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs,
+                     symmetrize: bool, tile: int):
     """One chunk of the K>1 IMM scan (csrc/imm_scan.cu), ``tile`` tracks a
     block: xs (T, N, n) is written in place; returns (x_T, P_T, mu_T)."""
     _check_imm_scan(imm)
@@ -603,7 +625,7 @@ def _launch_imm_scan(imm: IMMModel, x, P, mu, zs, valid, xs, tile: int):
         None if valid is None else valid.data_ptr(),
         consts.ctypes.data, float(np.float32(m * ref.LOG_2PI)),
         xs.data_ptr(), x_fin.data_ptr(), P_fin.data_ptr(), mu_fin.data_ptr(),
-        tile, build.stream_of(dev))
+        int(symmetrize), tile, build.stream_of(dev))
     build.check(lib, code, "katana_imm_sequence")
     return x_fin, P_fin, mu_fin
 
@@ -677,14 +699,8 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
     (x, P, mu) carried between them with the same bits as one launch;
     ``lane_tile`` tracks a block; 0 looks either up in the tile table.
     K=1 is the single-model scan with mu passed through (its tiles and
-    table rows ``katana_bank_sequence``'s); K > 1 runs
-    ``symmetrize=True`` only and raises NotImplementedError for False."""
+    table rows ``katana_bank_sequence``'s)."""
     K = imm.K
-    if K > 1 and not symmetrize:
-        raise NotImplementedError(
-            "katana_imm_sequence: symmetrize=False at K > 1 is not ported "
-            "(ROADMAP §2 item S: imm_scan.cu's full-square route); use "
-            "symmetrize=True or imm_bank_sequence")
     x, P, mu, zs, valid = imm_sequence_inputs(imm, zs, x0, P0, mu0, valid)
     T, N, _ = zs.shape
     tile, chunk = launch_config(
@@ -701,7 +717,7 @@ def katana_imm_sequence(imm: IMMModel, zs, x0, P0, mu0=None, valid=None,
                 x, P = x1[None], P1[None]
             else:
                 x, P, mu = _launch_imm_scan(imm, x, P, mu, zs[t0:t1], vt,
-                                            out[t0:t1], tile)
+                                            out[t0:t1], symmetrize, tile)
             LAUNCHES["katana_imm_sequence"] += 1
         if K == 1:
             mu = mu.clone()

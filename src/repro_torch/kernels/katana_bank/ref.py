@@ -21,12 +21,13 @@ Layouts are the port's canonical ones: x (C, n), P (C, n, n),
 z (M, m); IMM x (K, C, n), P (K, C, n, n), mu (C, K); a replay stream
 zs (T, N, m) with xs (T, N, n) out.
 
-``symmetrize`` (the bank steps and the single-model scan) picks the
-reference's two covariance contracts: True emits the upper triangle of
-P' = F P Fᵀ + Q and of the updated P, mirrors aliased; False emits the
-full square in the reference kernel's order (``_emit_FPFt``, then
-``_emit_add_Q``; the update's ``for j in range(n)``), so an asymmetry of
-the float products is carried, not averaged away.
+``symmetrize`` (every function that predicts) picks the reference's two
+covariance contracts: True emits the upper triangle of P' = F P Fᵀ + Q,
+of the IMM mixing's P_mix, of the updated P and of the coasting select,
+mirrors aliased; False emits the full square in the reference kernel's
+order (``_emit_FPFt``, then ``_emit_add_Q``; the update's and the mixing's
+``for j in range(n)``), so an asymmetry of the float products is carried,
+not averaged away.
 """
 from __future__ import annotations
 
@@ -420,21 +421,22 @@ def greedy_assign_plain(cost, valid, gate: float, rounds: int,
     return (assoc, waves) if return_waves else assoc
 
 
-def _frame_lanes(model, xv, P, z, z_valid, active, gate, rounds):
+def _frame_lanes(model, xv, P, z, z_valid, active, gate, rounds,
+                 symmetrize=True):
     """The single-model frame on lane lists: predict, innovation, cost
     tile, greedy, update, coasting select. Returns (xs, Ps, assoc,
     waves)."""
     n, m = model.n, model.m
     obs = check_selector(model)
     R = [[float(v) for v in row] for row in np.asarray(model.R, np.float64)]
-    xp, Pp = _predict_single(model, xv, P)
+    xp, Pp = _predict_single(model, xv, P, symmetrize)
     inno = _innovation(Pp, R, obs, n, m)
     cost = cost_tile([xp[obs[r]] for r in range(m)], inno[1], z, m)
     masked = gate_mask(cost, active[None, :] & z_valid[:, None], gate)
     assoc, waves = greedy_candidates(masked, rounds)
     zk = [torch.where(assoc >= 0, z[assoc.clamp(0, z.shape[0] - 1).long(),
                                     r], 0.0) for r in range(m)]
-    xn, Pn = _update(xp, Pp, zk, obs, n, m, inno, False)
+    xn, Pn = _update(xp, Pp, zk, obs, n, m, inno, False, symmetrize)
     upd = (assoc >= 0) & active
     lane = xv[0]
     xs = [torch.where(upd, _bc(xn[i], lane), _bc(xp[i], lane))
@@ -458,7 +460,8 @@ def _from_lanes(xs, Ps):
 
 
 def katana_frame_plain(model, x, P, z, z_valid, active, gate: float,
-                       rounds: int, return_waves: bool = False):
+                       rounds: int, return_waves: bool = False,
+                       symmetrize: bool = True):
     """Plain version of the single-model frame kernel. x (C, n),
     P (C, n, n), z (M, m), z_valid (M,) bool, active (C,) bool. Returns
     (x', P', assoc (C,) int32). A fleet of S sensors (every input with a
@@ -466,22 +469,23 @@ def katana_frame_plain(model, x, P, z, z_valid, active, gate: float,
     waves a list."""
     if x.dim() == 3:
         outs = [katana_frame_plain(model, x[s], P[s], z[s], z_valid[s],
-                                   active[s], gate, rounds, True)
+                                   active[s], gate, rounds, True, symmetrize)
                 for s in range(x.shape[0])]
         out = tuple(torch.stack([o[i] for o in outs]) for i in range(3))
         return out + ([o[3] for o in outs],) if return_waves else out
     xv, Pl = _to_lanes(x, P)
     xs, Ps, assoc, waves = _frame_lanes(model, xv, Pl, z, z_valid, active,
-                                        gate, rounds)
+                                        gate, rounds, symmetrize)
     x2, P2 = _from_lanes(xs, Ps)
     out = (x2, P2, assoc)
     return out + (waves,) if return_waves else out
 
 
-def _imm_mix(xv, P, mu, Pi, n, K, tt):
+def _imm_mix(xv, P, mu, Pi, n, K, tt, sym=True):
     """IMM mixing on model-major (K·tt,) lanes (centred-moment spread
-    with model 0 as the reference, tiny-clamped c̄ denominator). Returns
-    (x_mix, P_mix, cbar_parts)."""
+    with model 0 as the reference, tiny-clamped c̄ denominator): P_mix's
+    upper triangle, mirrors aliased, or with ``sym=False`` every entry.
+    Returns (x_mix, P_mix, cbar_parts)."""
     mu_i = [mu[i * tt:(i + 1) * tt] for i in range(K)]
     x_i = [[xv[d][i * tt:(i + 1) * tt] for i in range(K)] for d in range(n)]
     cbar_parts, w = [], []
@@ -499,14 +503,16 @@ def _imm_mix(xv, P, mu, Pi, n, K, tt):
                         for j in range(K)]) for d in range(n)]
     P_mix = [[None] * n for _ in range(n)]
     for r in range(n):
-        for c in range(r, n):
+        for c in (range(r, n) if sym else range(n)):
             A_i = [P[r][c][i * tt:(i + 1) * tt] if _is_zero(xt[r][i])
                    or _is_zero(xt[c][i])
                    else P[r][c][i * tt:(i + 1) * tt] + xt[r][i] * xt[c][i]
                    for i in range(K)]
             parts = [_bc(_dot(w[j], A_i, K) - mt[r][j] * mt[c][j], mu_i[0])
                      for j in range(K)]
-            P_mix[r][c] = P_mix[c][r] = torch.cat(parts)
+            P_mix[r][c] = torch.cat(parts)
+            if sym:
+                P_mix[c][r] = P_mix[r][c]
     return x_mix, P_mix, cbar_parts
 
 
@@ -554,7 +560,8 @@ def _check_imm_linear(imm, what):
 
 
 def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
-                           rounds: int, return_waves: bool = False):
+                           rounds: int, return_waves: bool = False,
+                           symmetrize: bool = True):
     """Plain version of the IMM frame kernel. x (K, C, n),
     P (K, C, n, n), mu (C, K). Returns (x', P', mu', x_c (C, n), assoc).
     K=1 runs exactly the single-model frame with mu passed through. A
@@ -564,7 +571,7 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
     if x.dim() == 4:
         outs = [katana_imm_frame_plain(imm, x[:, s], P[:, s], mu[s], z[s],
                                        z_valid[s], active[s], gate, rounds,
-                                       True)
+                                       True, symmetrize)
                 for s in range(x.shape[1])]
         out = tuple(torch.stack([o[i] for o in outs], dim=1 if i < 2 else 0)
                     for i in range(5))
@@ -574,7 +581,7 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
     if K == 1:
         x2, P2, assoc, waves = katana_frame_plain(
             imm.models[0], x[0], P[0], z, z_valid, active, gate, rounds,
-            return_waves=True)
+            return_waves=True, symmetrize=symmetrize)
         out = (x2[None], P2[None], mu.clone(), x2.clone(), assoc)
         return out + (waves,) if return_waves else out
     obs = _check_imm_linear(imm, "katana_imm_frame")
@@ -584,9 +591,10 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
     xv = [x[:, :, i].reshape(L) for i in range(n)]
     Pl = [[P[:, :, i, j].reshape(L) for j in range(n)] for i in range(n)]
     mu_f = mu.T.reshape(L)
-    x_mix, P_mix, cbar_parts = _imm_mix(xv, Pl, mu_f, Pi, n, K, C)
+    x_mix, P_mix, cbar_parts = _imm_mix(xv, Pl, mu_f, Pi, n, K, C,
+                                        symmetrize)
     xp = _matvec(Ftab, x_mix, n)
-    Pp = _predict_cov(Ftab, P_mix, Qtab, n)
+    Pp = _predict_cov(Ftab, P_mix, Qtab, n, symmetrize)
     inno = _innovation(Pp, Rtab, obs, n, m)
     d = cost_tile([xp[obs[r]] for r in range(m)], inno[1], z, m)  # (M, L)
     cost = None
@@ -598,7 +606,7 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
     zk1 = [torch.where(assoc >= 0, z[assoc.clamp(0, z.shape[0] - 1).long(),
                                      r], 0.0) for r in range(m)]
     zk = [torch.cat([q] * K) for q in zk1]
-    xn, Pn, ll = _update(xp, Pp, zk, obs, n, m, inno, True)
+    xn, Pn, ll = _update(xp, Pp, zk, obs, n, m, inno, True, symmetrize)
     mu_parts = _mode_posterior(cbar_parts, ll, K, C)
     upd = (assoc >= 0) & active
     uL = torch.cat([upd] * K)
@@ -607,9 +615,11 @@ def katana_imm_frame_plain(imm, x, P, mu, z, z_valid, active, gate: float,
           for i in range(n)]
     Ps = [[None] * n for _ in range(n)]
     for i in range(n):
-        for j in range(i, n):
-            Ps[i][j] = Ps[j][i] = torch.where(uL, _bc(Pn[i][j], proto),
-                                              _bc(Pp[i][j], proto))
+        for j in (range(i, n) if symmetrize else range(n)):
+            Ps[i][j] = torch.where(uL, _bc(Pn[i][j], proto),
+                                   _bc(Pp[i][j], proto))
+            if symmetrize:
+                Ps[j][i] = Ps[i][j]
     lane1 = mu_f[:C]
     mu_sel = [torch.where(upd, _bc(mu_parts[k], lane1),
                           _bc(cbar_parts[k], lane1)) for k in range(K)]
@@ -733,15 +743,13 @@ def katana_bank_imm_scan_plain(imm, x, P, mu, zs, valid=None,
     P (K, N, n, n), mu (N, K), zs (T, N, m), ``valid`` (T, N) bool or
     None: a False frame coasts (x̂/P̂ kept, mu <- cbar). Returns
     (xs (T, N, n) combined estimates, x_T, P_T, mu_T (N, K)). K=1 is
-    the single-model scan with mu passed through (either ``symmetrize``);
-    K > 1 the upper-triangle contract only."""
+    the single-model scan with mu passed through."""
     K, N, n = x.shape
     T, _, m = zs.shape
     if K == 1:
         xs, xf, Pf = katana_bank_scan_plain(imm.models[0], x[0], P[0], zs,
                                             valid, symmetrize)
         return xs, xf[None], Pf[None], mu.clone()
-    assert symmetrize, "the K > 1 IMM scan runs symmetrize=True only"
     obs = _check_imm_linear(imm, "katana_imm_sequence")
     Ftab, Qtab, Rtab = _imm_tables(imm, N, x)
     Pi = _markov(imm)
@@ -752,15 +760,16 @@ def katana_bank_imm_scan_plain(imm, x, P, mu, zs, valid=None,
     out = []
     for t in range(T):
         z = [torch.cat([zs[t, :, r]] * K) for r in range(m)]
-        x_mix, P_mix, cbar = _imm_mix(xv, Pl, mu_f, Pi, n, K, N)
+        x_mix, P_mix, cbar = _imm_mix(xv, Pl, mu_f, Pi, n, K, N, symmetrize)
         xp = _matvec(Ftab, x_mix, n)
-        Pp = _predict_cov(Ftab, P_mix, Qtab, n)
+        Pp = _predict_cov(Ftab, P_mix, Qtab, n, symmetrize)
         inno = _innovation(Pp, Rtab, obs, n, m)
-        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True)
+        xn, Pn, ll = _update(xp, Pp, z, obs, n, m, inno, True, symmetrize)
         mu_parts = _mode_posterior(cbar, ll, K, N)
         if valid is not None:
             v = valid[t].to(x.dtype)
-            xn, Pn = _coast_select(torch.cat([v] * K), xn, Pn, xp, Pp)
+            xn, Pn = _coast_select(torch.cat([v] * K), xn, Pn, xp, Pp,
+                                   symmetrize)
             nv = 1.0 - v
             mu_parts = [v * a + nv * b for a, b in zip(mu_parts, cbar)]
         xv, Pl = _full(xn, Pn, mu_f)

@@ -11,9 +11,12 @@ group over a file store in DIR (the backend is the caller's choice, with
 ``cuda:0`` when the host has one, rank r on card r otherwise), calls
 ``function(rank, tensors, **spec)`` and saves what it returns. ``run``
 (or ``wait`` after ``start``) waits for all ranks; past ``deadline``
-seconds it kills every one and raises, and it raises with the failed
+seconds, or (with ``stall``) after ``stall`` seconds in which the ranks
+used no CPU between them (a deadlock: a crowded host still makes
+progress), it kills every one and raises, and it raises with the failed
 ranks' output if any fails. It returns the ranks' results in rank order
-(``torch.load`` of files the children wrote).
+(``torch.load`` of files the children wrote). ``watch`` is that wait for
+any processes.
 
 ``tensors`` reach every rank through ``torch.save`` (loaded onto the
 CPU), ``spec`` as JSON. ``path`` is put first on the children's
@@ -38,11 +41,53 @@ import torch.distributed as dist
 SRC = Path(__file__).resolve().parents[2]
 
 
+def cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of a live process, all its threads (Linux
+    ``/proc``); 0.0 once it is gone."""
+    try:
+        fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+        fields = fields.split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    except (OSError, IndexError, ValueError):
+        return 0.0
+
+
+# CPU seconds the watched processes must use between them within a
+# ``stall`` window to count as making progress
+PROGRESS_CPU_S = 1.0
+
+
+def watch(procs, t_end: float, stall: float = None):
+    """Wait until every process of ``procs`` (``subprocess.Popen``) has
+    ended. Stops at the monotonic time ``t_end``, or, with ``stall``, once
+    the processes used under PROGRESS_CPU_S of CPU between them in the
+    last ``stall`` seconds. Returns (the processes still running, why:
+    "deadline", "stall" or None) for the caller to kill."""
+    used = {p.pid: 0.0 for p in procs}
+    mark_cpu, mark_t = 0.0, time.monotonic()
+    while any(p.poll() is None for p in procs):
+        now = time.monotonic()
+        if now >= t_end:
+            return [p for p in procs if p.poll() is None], "deadline"
+        if stall is not None:
+            for p in procs:
+                if p.poll() is None:
+                    used[p.pid] = max(used[p.pid], cpu_seconds(p.pid))
+            total = sum(used.values())
+            if total - mark_cpu >= PROGRESS_CPU_S:
+                mark_cpu, mark_t = total, now
+            elif now - mark_t >= stall:
+                return [p for p in procs if p.poll() is None], "stall"
+        time.sleep(0.1)
+    return [], None
+
+
 class World:
     """The ranks of one ``start``: ``wait`` for their results."""
 
     def __init__(self, target: str, n: int, spec: dict, tensors, path,
-                 backend: str, deadline: float, timeout: float):
+                 backend: str, deadline: float, timeout: float,
+                 stall: float = None):
         self.target, self.n = target, n
         self.tmp = tempfile.TemporaryDirectory()
         d = Path(self.tmp.name)
@@ -58,17 +103,16 @@ class World:
              self.tmp.name, str(r)], env=env, stdout=self.logs[r],
             stderr=subprocess.STDOUT, start_new_session=True)
             for r in range(n)]
-        self.deadline = deadline
+        self.deadline, self.stall = deadline, stall
         self.t_end = time.monotonic() + deadline
 
     def wait(self):
         """The ranks' results in rank order; raises if a rank failed, or
-        kills every rank and raises past the deadline."""
+        kills every rank and raises past the deadline or a stall."""
         d = Path(self.tmp.name)
+        why = None
         try:
-            while (time.monotonic() < self.t_end
-                   and any(p.poll() is None for p in self.procs)):
-                time.sleep(0.1)
+            why = watch(self.procs, self.t_end, self.stall)[1]
         finally:
             hung = [p for p in self.procs if p.poll() is None]
             for p in hung:
@@ -85,9 +129,11 @@ class World:
                     f"--- rank {r} ---\n"
                     f"{(d / f'rank{r}.log').read_text()[-4000:]}"
                     for r in (failed or range(self.n)))
-                what = (f"past its {self.deadline:.0f} s deadline "
-                        f"({len(hung)} killed)" if hung
-                        else f"ranks {failed} failed")
+                what = (f"ranks {failed} failed" if not hung
+                        else f"no CPU used for {self.stall:.0f} s "
+                        f"({len(hung)} killed)" if why == "stall"
+                        else f"past its {self.deadline:.0f} s deadline "
+                        f"({len(hung)} killed)")
                 raise RuntimeError(f"{self.target} on {self.n} ranks: "
                                    f"{what}\n{tails}")
             return [torch.load(d / f"result{r}.pt", weights_only=False)
@@ -98,19 +144,20 @@ class World:
 
 def start(target: str, n: int, spec: dict, tensors=None, path=None,
           backend: str = "gloo", deadline: float = 600.0,
-          timeout: float = 300.0) -> World:
+          timeout: float = 300.0, stall: float = None) -> World:
     """Start ``target(rank, tensors, **spec)`` on each of ``n`` ranks; the
     caller may work meanwhile, then ``wait``."""
-    return World(target, n, spec, tensors, path, backend, deadline, timeout)
+    return World(target, n, spec, tensors, path, backend, deadline, timeout,
+                 stall)
 
 
 def run(target: str, n: int, spec: dict, tensors=None, path=None,
         backend: str = "gloo", deadline: float = 600.0,
-        timeout: float = 300.0):
+        timeout: float = 300.0, stall: float = None):
     """``target(rank, tensors, **spec)`` on each of ``n`` ranks; returns
     their results in rank order."""
     return start(target, n, spec, tensors, path, backend, deadline,
-                 timeout).wait()
+                 timeout, stall).wait()
 
 
 def _child(tmp: str, rank: int) -> None:

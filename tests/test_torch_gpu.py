@@ -781,9 +781,160 @@ def test_full_square_imm_step_matches_plain(cuda, kind, N):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b), float((a - b).abs().max())
+
+
+# (C, M): small, a ragged C, the serving size
+FULL_SQUARE_FRAMES = [(24, 12), (37, 12), (1029, 256), (1024, 256)]
+
+
+@pytest.mark.parametrize("kind", ["lkf", "ekf", "cv9"])
+@pytest.mark.parametrize("C,M", FULL_SQUARE_FRAMES)
+def test_full_square_frame_matches_plain(cuda, kind, C, M):
+    """frame.cu at both symmetrize values (Sym = false: the predict's and
+    the update's full square) bit for bit with the plain version on a P
+    that is not symmetric to the bit: assoc, waves, x', P'; the two
+    contracts part."""
+    model = get_filter(kind)
+    obs = [0, 1, 2, 4] if kind == "ekf" else [0, 1, 2]
+    rng = np.random.default_rng(C + M + 7)
+    x, P, z, zv, act = _dev(random_frame_inputs(rng, model.n, model.m, C, M,
+                                                obs, spread=20.0), cuda)
+    P = _asymmetric(rng, P)
+    outs = {}
+    for sym in (True, False):
+        args = (model, x, P, z, zv, act, ttr.CHI2_99[model.m], min(C, M))
+        ops.reset_launches()
+        got = ops.katana_frame(*args, return_waves=True, symmetrize=sym)
+        assert ops.LAUNCHES["katana_frame"] == 1
+        want = ref.katana_frame_plain(*args, return_waves=True,
+                                      symmetrize=sym)
+        torch.cuda.synchronize()
+        assert torch.equal(got[2], want[2]) and int(got[3]) == want[3]
+        assert int((got[2] >= 0).sum()) > 0
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a, b), (sym, float((a - b).abs().max()))
+        outs[sym] = got
+    assert not torch.equal(outs[False][1], outs[False][1].transpose(1, 2))
+    assert not torch.equal(outs[False][1], outs[True][1])
+
+
+@pytest.mark.parametrize("kind", ["imm", "other"])
+@pytest.mark.parametrize("C,M", FULL_SQUARE_FRAMES)
+def test_full_square_imm_frame_matches_plain(cuda, kind, C, M):
+    """imm_frame.cu at both symmetrize values (Sym = false: the mixing,
+    the predict, the update and the coasting select over the full square)
+    bit for bit with the plain version on a P that is not symmetric to
+    the bit: assoc, waves, x', P', mu', x_c; K = 1 through frame.cu."""
+    imm = IMM_SETS[kind][0]()
+    rng = np.random.default_rng(C + M + 9)
+    x, P, mu, z, zv, act = _dev(random_frame_inputs(
+        rng, 9, 3, C, M, [0, 1, 2], K=4, spread=20.0), cuda)
+    P = _asymmetric(rng, P)
+    outs = {}
+    for sym in (True, False):
+        args = (imm, x, P, mu, z, zv, act, 11.34, min(C, M))
+        got = ops.katana_imm_frame(*args, return_waves=True, symmetrize=sym)
+        want = ref.katana_imm_frame_plain(*args, return_waves=True,
+                                          symmetrize=sym)
+        torch.cuda.synchronize()
+        assert torch.equal(got[4], want[4]) and int(got[5]) == want[5]
+        for a, b in zip(got[:4], want[:4]):
+            assert torch.equal(a, b), (sym, float((a - b).abs().max()))
+        outs[sym] = got
+    assert not torch.equal(outs[False][1], outs[False][1].transpose(2, 3))
+    assert not torch.equal(outs[False][1], outs[True][1])
+    ekf = as_imm(get_filter("ekf"))
+    x1, P1, z1, zv1, act1 = _dev(random_frame_inputs(
+        rng, 8, 4, C, M, [0, 1, 2, 4], spread=20.0), cuda)
+    P1 = _asymmetric(rng, P1)
+    args = (ekf, x1[None].contiguous(), P1[None].contiguous(),
+            torch.ones(C, 1, device=cuda), z1, zv1, act1, 13.28, min(C, M))
+    got = ops.katana_imm_frame(*args, symmetrize=False)
+    want = ref.katana_imm_frame_plain(*args, symmetrize=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_full_square_fleet_frame_is_refused(cuda):
+    """A fleet frame at symmetrize=False raises in the wrapper and the C
+    entry refuses it (cudaErrorInvalidValue)."""
+    model = get_filter("lkf")
+    rng = np.random.default_rng(2)
+    x, P, z, zv, act = _dev(random_frame_inputs(rng, 6, 3, 16, 8,
+                                                [0, 1, 2]), cuda)
+    st = [torch.stack([a, a]).contiguous() for a in (x, P, z, zv, act)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.katana_imm_sequence(make_imm(), z[None], x0=x[0], P0=P[0],
-                                symmetrize=False)
+        ops.katana_frame(model, *st, 11.34, 8, symmetrize=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.katana_imm_frame(
+            make_imm(), torch.zeros(4, 2, 16, 9, device=cuda),
+            torch.eye(9, device=cuda).expand(4, 2, 16, 9, 9).contiguous(),
+            torch.full((2, 16, 4), 0.25, device=cuda), st[2], st[3], st[4],
+            11.34, 8, symmetrize=False)
+
+
+# (model set, N, T, valid stream, time_chunk: 0 the table's, T one launch)
+FULL_SQUARE_IMM_SCANS = [
+    ("imm", 5, 17, True, 0), ("imm", 70, 40, True, 7),
+    ("imm", 131, 40, False, 40), ("imm", 1024, 300, True, 0),
+    ("imm", 4097, 20, True, 20), ("other", 33, 17, True, 0),
+    ("other", 1000, 40, False, 7)]
+
+
+@pytest.mark.parametrize("kind,N,T,valid,chunk", FULL_SQUARE_IMM_SCANS)
+def test_full_square_imm_scan_matches_plain(cuda, kind, N, T, valid,
+                                            chunk):
+    """imm_scan.cu's Sym = false route (the full square at K = 4) at both
+    tiles (32, 64 tracks a block), chunked and in one launch, bit for bit
+    with the plain version on mode-conditioned seeds whose P is not
+    symmetric to the bit, ragged N, with a NaN-coasting valid stream;
+    the two contracts part."""
+    imm = IMM_SETS[kind][0]()
+    rng = np.random.default_rng(N + T + 3)
+    x0, P0, zs, vs = _dev(replay_inputs(rng, imm, N, T,
+                                        drop=0.3 if valid else 0.0), cuda)
+    vs = vs if valid else None
+    K = imm.K
+    xK = (x0[None] + torch.as_tensor(0.05 * rng.normal(size=(K, N, 9)),
+                                     dtype=torch.float32, device=cuda))
+    PK = _asymmetric(rng, P0[None].expand(K, N, 9, 9))
+    mu0 = torch.as_tensor(rng.dirichlet(np.ones(4), size=N),
+                          dtype=torch.float32, device=cuda)
+    want = ref.katana_bank_imm_scan_plain(
+        imm, *ops.imm_sequence_inputs(imm, zs, xK.contiguous(), PK, mu0, vs),
+        symmetrize=False)
+    for tile in ops.LANE_TILES["katana_imm_sequence"]:
+        ops.reset_launches()
+        xs, fin = ops.katana_imm_sequence(
+            imm, zs, xK.contiguous(), PK, mu0, vs, return_final=True,
+            time_chunk=chunk, symmetrize=False, lane_tile=tile)
+        assert ops.LAUNCHES["katana_imm_sequence"] == _chunks_of(
+            "katana_imm_sequence", T)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(xs).all())
+        for a, b in zip((xs,) + fin, want):
+            assert torch.equal(a, b), (tile, float((a - b).abs().max()))
+    assert not torch.equal(fin[1], fin[1].transpose(2, 3))
+    sym = ops.katana_imm_sequence(imm, zs, xK.contiguous(), PK, mu0, vs)
+    assert not torch.equal(sym, xs)
+
+
+def test_imm_scan_rung_on_card_matches_cpu(cuda):
+    """The stage ladder's imm_scan rung on make_imm() at its default
+    symmetrize=False: one launch of the K = 4 full square, bit for bit
+    with its plain version on the card, and within 1e-4 of the same rung
+    on the CPU (the CPU's exp and log)."""
+    imm = make_imm()
+    x0, P0, zs, _ = replay_inputs(np.random.default_rng(6), imm, 200, 50,
+                                  extent=1.0)
+    ops.reset_launches()
+    a = run_sequence(imm, "imm_scan", zs, x0, P0)
+    assert ops.LAUNCHES["katana_imm_sequence"] == 1
+    want = ref.katana_bank_imm_scan_plain(
+        imm, *ops.imm_sequence_inputs(imm, *_dev((zs, x0, P0), cuda)),
+        symmetrize=False)[0]
+    assert torch.equal(a, want)
+    _close(a.cpu(), run_sequence(imm, "imm_scan", zs, x0, P0, device="cpu"),
+           1e-4)
 
 
 @pytest.mark.parametrize("kind", ["lkf", "ekf"])

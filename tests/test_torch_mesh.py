@@ -5,9 +5,10 @@ The module spawns the world once (``_torch_mesh_worker.worker`` on 4
 ranks through ``repro_torch.launch.local_world``) and the reference once
 (``_jax_mesh_reference.py`` under
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``), side by side,
-from one numpy input file, with one deadline: past it every child is
-killed and the tests fail, so a deadlock cannot hang the suite. The
-parametrised tests then read both results.
+from one numpy input file. A deadlock cannot hang the suite: after STALL
+seconds in which the children use no CPU, or past the wall-clock
+DEADLINE, every child is killed and the tests fail. The parametrised
+tests then read both results.
 
 The cases, on a ('data' 2, 'model' 2) mesh unless named:
 
@@ -60,7 +61,12 @@ from repro_torch.models.ssm import ssm_dims
 from repro_torch.sharding import rules
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-DEADLINE = 180.0  # seconds for the world and the reference together
+# The children need ~255 CPU seconds (the reference 211 over its threads,
+# the 4 ranks 44; 65-85 s of wall time on an idle 8-core host), and a full
+# run's six workers share the host with them, so the wall-clock deadline
+# covers that CPU time at one core, and a deadlock shows as a stall.
+DEADLINE = 300.0  # seconds of wall time for the world and the reference
+STALL = 60.0      # seconds in which the children use no CPU: a deadlock
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +78,7 @@ def results(tmp_path_factory):
         [os.path.join(os.path.dirname(HERE), "src"), HERE,
          os.environ.get("PYTHONPATH", "")]),
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    t_end = time.monotonic() + DEADLINE
+    t0 = time.monotonic()
     with open(d / "reference.log", "w") as log:
         ref = subprocess.Popen(
             [sys.executable, os.path.join(HERE, "_jax_mesh_reference.py"),
@@ -82,11 +88,15 @@ def results(tmp_path_factory):
             port = local_world.run(
                 "_torch_mesh_worker:worker", mc.WORLD,
                 dict(inputs=str(inputs), outdir=str(d)), path=HERE,
-                deadline=DEADLINE)[0]
-            ref.wait(timeout=max(1.0, t_end - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pytest.fail(f"the reference passed the {DEADLINE:.0f} s "
-                        "deadline")
+                deadline=DEADLINE, stall=STALL)[0]
+            cpu = local_world.cpu_seconds(ref.pid)
+            hung, why = local_world.watch([ref], t0 + DEADLINE, STALL)
+            if hung:
+                pytest.fail(
+                    f"the reference was stopped ({why}: {DEADLINE:.0f} s "
+                    f"deadline, {STALL:.0f} s stall) after "
+                    f"{time.monotonic() - t0:.0f} s, {cpu:.0f} CPU s when "
+                    f"the world ended; load {os.getloadavg()}")
         finally:
             if ref.poll() is None:
                 os.killpg(ref.pid, signal.SIGKILL)

@@ -325,3 +325,33 @@ def test_a_one_rank_mesh_is_the_path_without_a_mesh(world_of_one):
     assert len(runs[0]) == len(runs[1])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("busy,why", [(False, "stall"), (True, "deadline")])
+def test_watch_tells_a_stall_from_a_slow_child(busy, why, monkeypatch):
+    """``local_world.watch``: a child that uses no CPU is stopped after the
+    stall window, one that computes runs on to the wall-clock deadline;
+    both are returned for the caller to kill. (A fifth of a CPU second a
+    window counts as progress here, so a crowded host still computes.)"""
+    import subprocess
+    import sys
+    import time
+
+    from repro_torch.launch import local_world
+
+    monkeypatch.setattr(local_world, "PROGRESS_CPU_S", 0.2)
+    code = ("while True: pass" if busy else "import time; time.sleep(60)")
+    p = subprocess.Popen([sys.executable, "-c", code])
+    try:
+        t0 = time.monotonic()
+        hung, got = local_world.watch([p], t0 + 4.0, stall=1.5)
+        took = time.monotonic() - t0
+        assert hung == [p] and got == why
+        assert (took >= 3.9) if busy else (1.4 <= took < 3.5)
+        if busy:
+            assert local_world.cpu_seconds(p.pid) > 0.2
+    finally:
+        p.kill()
+        p.wait()
+    assert local_world.watch([p], time.monotonic() + 1.0, stall=1.5) == (
+        [], None)

@@ -198,15 +198,9 @@ def test_full_square_imm_step_matches_reference(kind):
     assert not torch.equal(got[1], got[1].transpose(2, 3))
 
 
-def test_imm_sequence_full_square_at_k_gt_1_raises():
-    """The K > 1 IMM scan runs the upper-triangle contract only; K = 1
-    runs the single-model scan's full square."""
-    imm = tf.make_imm()
-    x0, P0, zs, _ = _t(*replay_inputs(np.random.default_rng(33), imm, 3, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.katana_imm_sequence(imm, zs, x0, P0, symmetrize=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.run_sequence(imm, "imm_scan", zs, x0, P0, device="cpu")
+def test_imm_sequence_full_square_at_k1_is_the_single_model_scan():
+    """K = 1 runs the single-model scan's full square (the K > 1 full
+    square: tests/test_torch_full_square.py)."""
     lkf = tf.get_filter("lkf")
     x0, P0, zs, _ = _t(*replay_inputs(np.random.default_rng(34), lkf, 3, 4))
     a = tops.katana_imm_sequence(tf.as_imm(lkf), zs, x0, P0,
