@@ -140,16 +140,24 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      the whole step's ms;
   10. training: (a) flash_attention's gradient at danube's layer shape
      (B=1, S=8192, 32 heads over 8 kv heads of 80, causal, window 4096)
-     in bf16 and float32, dq, dk, dv through ``FlashAttention`` with the
-     kernel's forward bit for bit with the plain forward's, the backward's
-     time against SDPA's backward (for the record), a ragged S=1,000
-     within 2e-5 + 1e-4|x| of the float64 oracle; (b) reduced danube
-     (flash) and mamba2, 5 float32 steps of ``make_train_step`` on the
-     card against the same on the CPU, each loss within 1e-4 relative;
-     (c) h2o-danube-1.8b at full size, bf16, S=8192, a global batch of 2
-     in 2 microbatches, 3 steps: finite loss and grad norm, ms a step,
-     tokens/s, peak memory, flash_attention launches = 24 x 2 x steps
-     (x 2 under recompute); (d) mamba2-130m at full size through
+     in bf16 and float32: dq, dk, dv through ``FlashAttention`` (the
+     backward kernel, flash_attention_bwd.cu) with the kernel's forward
+     bit for bit with the plain forward's, two kernel calls bit for bit,
+     the kernel against ``flash_attention_bwd_plain`` (float32 2e-5 +
+     1e-4|x|; bf16 two ulps, dV also 2^-8 max|dO|) and against the float64
+     oracle (bf16: each within 2x the torch-op backward's distance;
+     float32: 2e-5 + 1e-4|x|), the kernel's, the torch-op backward's, the
+     plain version's and SDPA's backward's ms (SDPA for the record) there
+     and at granite-moe's training layer (B=1, S=4096, 16 over 8 heads of
+     64, causal), a ragged S=1,000 within 2e-5 + 1e-4|x| of float64; (b)
+     reduced danube (flash) and mamba2, 5 float32 steps of
+     ``make_train_step`` on the card against the same on the CPU, each
+     loss within 1e-4 relative; (c) h2o-danube-1.8b at full size, bf16,
+     S=8192, a global batch of 2 in 2 microbatches, 3 steps: finite loss
+     and grad norm, ms a step, tokens/s, peak memory, flash_attention
+     launches = 24 x 2 x steps (x 2 under recompute), flash_attention_bwd
+     launches = 24 x 2 x steps and no call of the torch-op backward; (d)
+     mamba2-130m at full size through
      ``launch/train.py`` (S=2048, batch 4 in 2, 20 steps): a held-out
      batch's loss falls, ms a step, tokens/s, peak memory;
   11. MoE layers and the modality frontends: (a) flash_attention at one
@@ -249,7 +257,8 @@ Phases (no phase's exception is caught; any failure exits non-zero):
      times of the four bank kernels (phases 2-5b ran at the tabled
      configs);
   then one JSON line with the kernel table (row flash_attention also
-     carries the training launches and the backward times; rows
+     carries the training launches; row flash_attention_bwd the backward
+     at both shapes and types, its training launches and phase 11's; rows
      flash_attention, flash_decode and ssd_scan phase 11's launches, and
      the first two phase 11's shapes; rows katana_frame, katana_imm_frame
      and greedy_assign phase 12's; rows flash_attention and flash_decode
@@ -352,6 +361,8 @@ REPLACES = {
                        "(katana_bank_imm_step -> pallas_call :1146)",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85 "
                        "(flash_attention_bhsd -> pallas_call :97)",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/ops.py:53 "
+                           "(_bwd of the custom_vjp; jnp, no pallas_call)",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:60 "
                     "(flash_decode_partial -> pallas_call :71)",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:59 "
@@ -368,6 +379,8 @@ SOURCES = {
     "katana_bank_imm": _CSRC + "imm_step.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/csrc/"
                     "flash_decode.cu",
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -3549,6 +3562,8 @@ MAMBA_TRAIN_ARGV = ["--arch", "mamba2-130m", "--seq", "2048", "--batch",
 GRAD_SHAPE = (1, 8192, 32, 8, 80, 4096)
 GRAD_RAGGED = (1, 1000, 32, 8, 80, 300)
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+# granite-moe-1b-a400m's training layer (phase 11 trains at S = 4,096)
+GRAD_MOE = (1, 4096, 16, 8, 64, None)
 SMALL_TRAIN = [("h2o-danube-1.8b", "flash"), ("mamba2-130m", "auto")]
 SMALL_TRAIN_S, SMALL_TRAIN_B, SMALL_TRAIN_STEPS = 128, 4, 5
 
@@ -3567,15 +3582,65 @@ def flash_grads(q, k, v, do, scale, window, forward):
 
 
 def dense_grads64(q, k, v, do, scale, window):
-    """Autograd of dense causal, windowed softmax attention in float64."""
+    """Autograd of dense causal, windowed softmax attention in float64,
+    one kv head's group of query heads at a time (danube's layer is 32
+    (8,192 x 8,192) score matrices)."""
     G = q.shape[2] // k.shape[2]
-    t = [x.detach().double().requires_grad_() for x in (q, k, v)]
-    kb, vb = (x.repeat_interleave(G, dim=2) for x in t[1:])
-    s = torch.einsum("bqhd,bkhd->bhqk", t[0], kb) * scale
     ok = fa_ref.mask(q.shape[1], k.shape[1], True, window, q.device)
-    p = torch.softmax(s.masked_fill(~ok, -1e30), dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vb)
-    return torch.autograd.grad(o, t, do.double())
+    out = [torch.empty(x.shape, dtype=torch.float64, device=x.device)
+           for x in (q, k, v)]
+    for kh in range(k.shape[2]):
+        hs = slice(kh * G, (kh + 1) * G)
+        t = [x.detach().double().requires_grad_()
+             for x in (q[:, :, hs], k[:, :, kh:kh + 1], v[:, :, kh:kh + 1])]
+        kb, vb = (x.expand(-1, -1, G, -1) for x in t[1:])
+        s = torch.einsum("bqhd,bkhd->bhqk", t[0], kb) * scale
+        p = torch.softmax(s.masked_fill(~ok, -1e30), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vb)
+        g = torch.autograd.grad(o, t, do[:, :, hs].double())
+        out[0][:, :, hs], out[1][:, :, kh:kh + 1], out[2][:, :, kh:kh + 1] = g
+        del t, kb, vb, s, p, o, g
+    return out
+
+
+def hold_grads(q, k, v, do, scale, window, got):
+    """dq, dk, dv of the backward kernel (``got``) against its plain
+    version by ``fa_ref.bwd_excess`` (dV with its P-rounding allowance),
+    and against the float64 oracle beside the torch-op backward on the
+    same inputs: each at most 2x that route's distance, and in float32
+    also within GRAD_TOL. The distances and excesses, by gradient."""
+    *plain, flip = fa_ref.flash_attention_bwd_plain(q, k, v, do, scale, True,
+                                                    window, flips=True)
+    torch_ops = fa_ops.flash_attention_bwd(q, k, v, do, scale, True, window,
+                                           512)
+    oracle = dense_grads64(q, k, v, do, scale, window)
+    row = dict(vs_plain={}, excess={}, err64={}, ops_err64={})
+    for name, a, b, c, o, fl in zip("qkv", got, plain, torch_ops, oracle,
+                                    (0.0, 0.0, flip)):
+        row["vs_plain"][name] = max_diff(a, b)
+        row["excess"][name] = fa_ref.bwd_excess(a, b, fl)
+        row["err64"][name] = max_diff(a.double(), o)
+        row["ops_err64"][name] = max_diff(c.double(), o)
+        assert row["excess"][name] <= 1.0, ("plain", name, row)
+        assert row["err64"][name] <= 2 * row["ops_err64"][name], (
+            "float64", name, row)
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(a.double(), o, **GRAD_TOL)
+    row["max_abs_err"] = max(row["vs_plain"].values())
+    return row
+
+
+def bwd_bound(B, S, H, KH, d, window, dtype):
+    """(bound ms, by, bytes, operations) of one flash_attention backward:
+    10 d operations a visible causal (query, key) pair (five products of
+    d), at the bf16 tensor-core or the float32 CUDA-core peak; q, dO, dq
+    and k, v, dk, dv each read or written once."""
+    item = torch.finfo(dtype).bits // 8
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    nb, nops = (3 * H + 4 * KH) * B * S * d * item, 10 * d * pairs * B * H
+    peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+    by = "bytes" if nb / HBM_BPS >= nops / peak else "operations"
+    return max(nb / HBM_BPS, nops / peak) * 1e3, by, nb, nops
 
 
 def sdpa_bwd_ms(q, k, v, do, scale, window, iters):
@@ -3603,36 +3668,95 @@ def sdpa_bwd_ms(q, k, v, do, scale, window, iters):
         return None
 
 
+def bwd_times(q, k, v, do, scale, window, iters=10):
+    """ms of the backward kernel, of the torch-op backward, and of SDPA's
+    backward on the same inputs, and the kernel's bound."""
+    B, S, H, d = q.shape
+    kern = cuda_ms(lambda: fa_ops.flash_attention_bwd_kernel(
+        q, k, v, do, scale, True, window), iters, warmup=1)
+    ops_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+        q, k, v, do, scale, True, window, 512), 3, warmup=1)
+    lib = sdpa_bwd_ms(q, k, v, do, scale, window, 3)
+    bms, by, nb, nops = bwd_bound(B, S, H, k.shape[2], d, window, q.dtype)
+    return dict(kernel_ms=kern, bwd_ms=ops_ms, sdpa_bwd_ms=lib, bound_ms=bms,
+                bound_by=by, bytes=nb, operations=nops,
+                bound_share=bms / kern)
+
+
 def train_grad_check(card):
     """(a) flash_attention's gradient at danube's layer shape in bf16 and
-    float32: dq, dk, dv from the kernel's forward bit for bit with those
-    from the plain forward on the card (the backward reads q, k, v, not
-    the output); the backward's time against SDPA's; a ragged S against
-    the float64 oracle."""
+    float32 through the backward kernel: dq, dk, dv from the kernel's
+    forward bit for bit with those from the plain forward on the card (the
+    backward reads q, k, v, not the output), two kernel calls bit for
+    bit, the kernel against its plain version and against the float64
+    oracle beside the torch-op backward; the times of the kernel, the
+    torch-op backward, the plain version and SDPA's backward there and at
+    granite-moe's layer; a ragged S against the float64 oracle."""
     rng = np.random.default_rng(31)
     B, S, H, KH, d, W = GRAD_SHAPE
     scale = d ** -0.5
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        design = fa_ops.bwd_config(dtype, d)
+        print(f"[train] flash_attention_bwd.cu {tag} d={d}: {design}")
         q, k, v, do = _grad_inputs(rng, B, S, H, KH, d, dtype)
         fa_ops.reset_launches()
         got = flash_grads(q, k, v, do, scale, W, fa_ops.flash_attention_fwd)
-        assert fa_ops.LAUNCHES["flash_attention"] == 1, fa_ops.LAUNCHES
+        assert fa_ops.LAUNCHES == {"flash_attention": 1,
+                                   "flash_attention_bwd": 1}, fa_ops.LAUNCHES
         want = flash_grads(q, k, v, do, scale, W,
                            fa_ref.flash_attention_plain)
-        for name, a, b in zip("qkv", got, want):
+        again = fa_ops.flash_attention_bwd_kernel(q, k, v, do, scale, True, W)
+        for name, a, b, c in zip("qkv", got, want, again):
             assert torch.equal(a, b), ("flash gradient", dtype, name)
-        bwd = cuda_ms(lambda: fa_ops.flash_attention_bwd(
-            q, k, v, do, scale, True, W, 512), 3, warmup=1)
-        lib = sdpa_bwd_ms(q, k, v, do, scale, W, 3)
-        tag = str(dtype).removeprefix("torch.")
-        out[tag] = dict(bwd_ms=bwd, sdpa_bwd_ms=lib)
+            assert torch.equal(a, c), ("two backward calls", dtype, name)
+        del want
+        row = hold_grads(q, k, v, do, scale, W, got)
+        row["design"] = design
+        row["plain_ms"] = cuda_ms(lambda: fa_ref.flash_attention_bwd_plain(
+            q, k, v, do, scale, True, W), 1, warmup=0)
+        row.update(bwd_times(q, k, v, do, scale, W))
+        out[tag] = row
+        lib = row["sdpa_bwd_ms"]
         print(f"[train] flash_attention gradient B={B} S={S} H={H} KH={KH} "
-              f"d={d} W={W} {tag}: dq, dk, dv from the kernel's forward bit "
-              f"for bit with the plain forward's; backward {bwd:.3f} ms "
-              f"(torch ops, per 512-row block), SDPA's backward "
+              f"d={d} W={W} {tag}: dq, dk, dv from the backward kernel, bit "
+              f"for bit through the kernel's and the plain forward and from "
+              f"call to call; max|d| from flash_attention_bwd_plain "
+              f"{row['vs_plain']} (ref.bwd_excess {row['excess']}, held "
+              f"<= 1); from float64: kernel {row['err64']}, torch-op "
+              f"backward {row['ops_err64']} (held: <= 2x the torch-op "
+              f"backward{', and 2e-5 + 1e-4|x|' if dtype == torch.float32 else ''}); "
+              f"backward kernel {row['kernel_ms']:.3f} ms (bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
+              f"{row['bound_share']:.3f} of it), torch-op backward "
+              f"{row['bwd_ms']:.3f} ms, plain version {row['plain_ms']:.1f} "
+              f"ms, SDPA's backward "
               f"{'refused' if lib is None else f'{lib:.3f} ms'} | {card}")
-        del q, k, v, do, got, want
+        del q, k, v, do, got
+        torch.cuda.empty_cache()
+    mB, mS, mH, mKH, md, mW = GRAD_MOE
+    out["granite-moe"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        q, k, v, do = _grad_inputs(rng, mB, mS, mH, mKH, md, dtype)
+        got = fa_ops.flash_attention_bwd_kernel(q, k, v, do, md ** -0.5,
+                                                True, mW)
+        row = hold_grads(q, k, v, do, md ** -0.5, mW, got)
+        row.update(bwd_times(q, k, v, do, md ** -0.5, mW))
+        out["granite-moe"][tag] = row
+        lib = row["sdpa_bwd_ms"]
+        print(f"[train] flash_attention backward at granite-moe's layer "
+              f"B={mB} S={mS} H={mH} KH={mKH} d={md} causal {tag}: max|d| "
+              f"from flash_attention_bwd_plain {row['vs_plain']} "
+              f"(ref.bwd_excess {row['excess']}, held <= 1); from float64: "
+              f"kernel {row['err64']}, torch-op backward {row['ops_err64']} "
+              f"(held <= 2x); kernel "
+              f"{row['kernel_ms']:.3f} ms (bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {row['bound_share']:.3f} of it), torch-op "
+              f"backward {row['bwd_ms']:.3f} ms, SDPA's backward "
+              f"{'refused' if lib is None else f'{lib:.3f} ms'} | {card}")
+        del q, k, v, do, got
     B, S, H, KH, d, W = GRAD_RAGGED
     q, k, v, do = _grad_inputs(rng, B, S, H, KH, d, torch.float32)
     got = flash_grads(q, k, v, do, scale, W, fa_ops.flash_attention_fwd)
@@ -3642,10 +3766,21 @@ def train_grad_check(card):
         torch.testing.assert_close(a.double(), b, **GRAD_TOL)
         err = max(err, max_diff(a.double(), b))
     out["ragged_max_abs_err"] = err
-    print(f"[train] ragged S={S} (blocks 512 + {S - 512}) H={H} KH={KH} "
-          f"d={d} W={W} float32 against the float64 oracle: max|d| "
-          f"{err:.3g} (<= 2e-5 + 1e-4|x|)")
+    print(f"[train] ragged S={S} (query tiles of 64: {S // 64} + {S % 64}) H={H} "
+          f"KH={KH} d={d} W={W} float32 through the backward kernel against "
+          f"the float64 oracle: max|d| {err:.3g} (<= 2e-5 + 1e-4|x|)")
     return out
+
+
+def _bwd_spy():
+    """(calls, spy): ``spy`` stands in for the torch-op backward
+    ``flash_attention_bwd`` and records the device of each call."""
+    calls, real = [], fa_ops.flash_attention_bwd
+
+    def spy(*args, **kw):
+        calls.append(args[0].device.type)
+        return real(*args, **kw)
+    return calls, spy
 
 
 def _to_cpu_state(state):
@@ -3685,6 +3820,7 @@ def train_port_vs_cpu(card):
             state, m = step(state, b)
             card_loss.append(float(m["loss"]))
         launches = fa_ops.LAUNCHES["flash_attention"]
+        bwd_launches = fa_ops.LAUNCHES["flash_attention_bwd"]
         for b in batches:
             cpu_state, m = step(cpu_state, b)
             cpu_loss.append(float(m["loss"]))
@@ -3693,12 +3829,15 @@ def train_port_vs_cpu(card):
         want = (cfg.n_layers * 2 * SMALL_TRAIN_STEPS
                 if cfg.attention is not None else 0)
         assert launches == want, (arch, launches, want)
+        assert bwd_launches == want, (arch, bwd_launches, want)
         out[arch] = dict(card_loss=card_loss, cpu_loss=cpu_loss,
-                         max_rel=rel, flash_launches=launches)
+                         max_rel=rel, flash_launches=launches,
+                         bwd_launches=bwd_launches)
         print(f"[train] reduced {arch} ({impl}) float32, {SMALL_TRAIN_STEPS} "
               f"steps: loss on the card {[round(x, 6) for x in card_loss]}, "
               f"on the CPU {[round(x, 6) for x in cpu_loss]}; max rel "
-              f"{rel:.3g} (<= 1e-4); flash_attention launches {launches}")
+              f"{rel:.3g} (<= 1e-4); flash_attention launches {launches}, "
+              f"flash_attention_bwd {bwd_launches}")
     return out
 
 
@@ -3724,19 +3863,25 @@ def train_danube(card):
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()
     ms, losses, norms = [], [], []
-    for _ in range(TRAIN_STEPS):
-        batch = data.next_batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
+    calls, spy = _bwd_spy()
+    with mock.patch.object(fa_ops, "flash_attention_bwd", spy):
+        for _ in range(TRAIN_STEPS):
+            batch = data.next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
     launches = fa_ops.LAUNCHES["flash_attention"]
+    bwd_launches = fa_ops.LAUNCHES["flash_attention_bwd"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = cfg.n_layers * TRAIN_MB * TRAIN_STEPS * (
         1 if TRAIN_REMAT == "none" else 2)
     assert launches == want, (launches, want)
+    assert bwd_launches == cfg.n_layers * TRAIN_MB * TRAIN_STEPS, (
+        bwd_launches, cfg.n_layers * TRAIN_MB * TRAIN_STEPS)
+    assert not calls, ("the torch-op backward ran", calls)
     assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses,
                                                                    norms)
     steady = float(np.mean(ms[1:]))
@@ -3747,12 +3892,15 @@ def train_danube(card):
           f"norm {[round(x, 4) for x in norms]}; ms a step "
           f"{[round(x, 1) for x in ms]} (steady {steady:.1f}), {tok_s:.1f} "
           f"tokens/s, peak memory {peak:.2f} GiB, flash_attention launches "
-          f"{launches} | {card}")
+          f"{launches}, flash_attention_bwd {bwd_launches} (the torch-op "
+          f"backward called {len(calls)} times); steady step against "
+          f"6,482.8 ms on the torch-op backward (PERF.md §5) | {card}")
     del state, m
     torch.cuda.empty_cache()
     return dict(params=n_params, losses=losses, grad_norms=norms, ms=ms,
                 steady_ms=steady, tokens_per_s=tok_s, peak_gib=peak,
-                launches=launches, remat=TRAIN_REMAT)
+                launches=launches, bwd_launches=bwd_launches,
+                torch_op_bwd_calls=len(calls), remat=TRAIN_REMAT)
 
 
 def train_mamba(card):
@@ -4003,6 +4151,7 @@ def routes_seen():
 
 def _launch_counts():
     return {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
+            "flash_attention_bwd": fa_ops.LAUNCHES["flash_attention_bwd"],
             "flash_decode": fd_ops.LAUNCHES["flash_decode"],
             "ssd_scan": ssd_ops.LAUNCHES["ssd_scan"]}
 
@@ -4078,6 +4227,8 @@ def moe_port_vs_cpu(card):
                 card_m.append({k: float(m[k]) for k in ("loss", "aux")})
         train_launches = _launch_counts()
         assert train_launches["flash_attention"] == (
+            n_attn * 2 * SMALL_MOE_STEPS), train_launches
+        assert train_launches["flash_attention_bwd"] == (
             n_attn * 2 * SMALL_MOE_STEPS), train_launches
         with routes_seen() as cpu_train:
             cpu_m = []
@@ -4258,18 +4409,22 @@ def moe_train(card):
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_launches()
     ms, metrics = [], []
-    for _ in range(MOE_TRAIN_STEPS):
-        batch = data.next_batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        metrics.append({k: float(m[k]) for k in ("loss", "aux",
-                                                 "grad_norm")})
-        ms.append((time.perf_counter() - t0) * 1e3)
+    calls, spy = _bwd_spy()
+    with mock.patch.object(fa_ops, "flash_attention_bwd", spy):
+        for _ in range(MOE_TRAIN_STEPS):
+            batch = data.next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(m[k]) for k in ("loss", "aux",
+                                                     "grad_norm")})
+            ms.append((time.perf_counter() - t0) * 1e3)
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = cfg.n_layers * MOE_TRAIN_MB * MOE_TRAIN_STEPS
     assert launches["flash_attention"] == want, (launches, want)
+    assert launches["flash_attention_bwd"] == want, (launches, want)
+    assert not calls, ("the torch-op backward ran", calls)
     assert all(np.isfinite(list(m.values())).all() for m in metrics), metrics
     steady = float(np.mean(ms[1:]))
     tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_S / (steady / 1e3)
@@ -4280,13 +4435,16 @@ def moe_train(card):
           f"loss {[round(m['loss'], 4) for m in metrics]}, aux "
           f"{[round(m['aux'], 4) for m in metrics]}, grad norm "
           f"{[round(m['grad_norm'], 4) for m in metrics]}; ms a step "
-          f"{[round(x, 1) for x in ms]} (steady {steady:.1f}), {tok_s:.1f} "
-          f"tokens/s, peak memory {peak:.2f} GiB, launches {launches} "
-          f"| {card}")
+          f"{[round(x, 1) for x in ms]} (steady {steady:.1f}; 1,318.2 on "
+          f"the torch-op backward, PERF.md §5), {tok_s:.1f} tokens/s, peak "
+          f"memory {peak:.2f} GiB, "
+          f"launches {launches}, the torch-op backward called {len(calls)} "
+          f"times | {card}")
     del state, m
     torch.cuda.empty_cache()
     return dict(metrics=metrics, ms=ms, steady_ms=steady,
-                tokens_per_s=tok_s, peak_gib=peak, launches=launches)
+                tokens_per_s=tok_s, peak_gib=peak, launches=launches,
+                torch_op_bwd_calls=len(calls))
 
 
 def vlm_serve(card):
@@ -4660,7 +4818,9 @@ def phase_jitted(lm, mamba, train, moe, card):
 # ---------------------------------------------------------------------------
 
 MESH_SHAPE, MESH_RANKS = (2, 2), 4
-MESH_B, MESH_S, MESH_STEPS = MOE_B, MOE_S, MOE_STEPS  # phase 11's shape
+# phase 11's shape; 16 decode steps (phase 11 runs 32): the script's time
+# limit, every step a few hundred ms through host-staged collectives
+MESH_B, MESH_S, MESH_STEPS = MOE_B, MOE_S, 16
 # serving's weights are not FSDP-split (training's are): gathering
 # granite-moe's experts through host buffers every token would time the
 # staging, not the mesh; tp2d (experts x FFN, no weight movement) is the
@@ -5110,9 +5270,11 @@ def phase_mesh(card):
 # ---------------------------------------------------------------------------
 
 # S cut from phase 8's 32,768: each layer's float32 partial sum crosses
-# gloo at 0.26-0.62 GB/s (PERF.md §6)
-MF_SSM_B, MF_SSM_S, MF_SSM_STEPS = MAMBA_B, 8192, MAMBA_STEPS
-MF_TRAIN_S, MF_TRAIN_BATCH, MF_TRAIN_STEPS = 2048, 8, 2
+# gloo at 0.26-0.62 GB/s (PERF.md §6); the decode steps (mamba2's and
+# internvl2's) and the training's S cut to 16 and 1,024 for the script's
+# time limit
+MF_SSM_B, MF_SSM_S, MF_STEPS = MAMBA_B, 8192, 16
+MF_TRAIN_S, MF_TRAIN_BATCH, MF_TRAIN_STEPS = 1024, 8, 2
 MF_DEADLINE = 300.0
 
 
@@ -5344,7 +5506,7 @@ def phase_mesh_front(card):
     inp = _mf_inputs()
     cfgs = {k: get_config(a) for k, a in (("mamba", MAMBA_ARCH),
                                           ("vlm", VLM_ARCH))}
-    steps = {"mamba": MF_SSM_STEPS, "vlm": VLM_STEPS}
+    steps = {"mamba": MF_STEPS, "vlm": MF_STEPS}
     S = {k: sum(v.shape[1] for v in inp[k].values()) for k in steps}
     ref, forced = {}, {}
     for k in steps:
@@ -5390,7 +5552,7 @@ def phase_mesh_front(card):
                 ("mamba", "decode_launches"): (0, 0, 0),
                 ("train", "launches"): (0, 0, 0),
                 ("vlm", "prefill_launches"): (0, v_layers, 0),
-                ("vlm", "decode_launches"): (0, 0, v_layers * VLM_STEPS),
+                ("vlm", "decode_launches"): (0, 0, v_layers * MF_STEPS),
                 ("audio", "launches"): (0, a_layers, 0)}
         for (k, f), w in want.items():
             got = r[k][f]
@@ -5427,14 +5589,14 @@ def phase_mesh_front(card):
           f"{n_checked} steps checked, every one within its limit: "
           f"{not over and not bad}; launches a rank: ssd_scan {m_layers} a "
           f"prefill, flash_attention {v_layers} / {a_layers}, flash_decode "
-          f"{v_layers * VLM_STEPS} | {card}")
+          f"{v_layers * MF_STEPS} | {card}")
 
     def per_rank(k, f):
         return [r[k][f] for r in ranks]
 
     print(f"[mesh] {MESH_TIMING} | {card}: {MAMBA_ARCH} prefill ms a rank "
           f"{[round(x, 1) for x in per_rank('mamba', 'prefill_ms')]}, "
-          f"decode ms a step (mean of steps 2-{MF_SSM_STEPS}) "
+          f"decode ms a step (mean of steps 2-{MF_STEPS}) "
           f"{[round(float(np.mean(r['mamba']['step_ms'][1:])), 2) for r in ranks]}"
           f", train ms a step "
           f"{[[round(x, 1) for x in r['train']['step_ms']] for r in ranks]}; "
@@ -5707,6 +5869,50 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) for k, v in tree.items()}
 
 
+def bwd_row(train, moe):
+    """The backward kernel's row of the kernel table: danube's layer in
+    bf16 as the row's numbers, float32 and granite-moe's layer beside
+    them; the launches on the main path are phase 10 (c)'s."""
+    grads = train["grads"]
+    bf = grads["bfloat16"]
+    return dict(
+        ms=bf["kernel_ms"], plain_ms=bf["plain_ms"],
+        library_ms=bf["sdpa_bwd_ms"], bound_ms=bf["bound_ms"],
+        bound_by=bf["bound_by"], launches=train["danube"]["bwd_launches"],
+        max_abs_err=bf["max_abs_err"],
+        shape=f"B={GRAD_SHAPE[0]} S={GRAD_SHAPE[1]} H={GRAD_SHAPE[2]} "
+              f"KH={GRAD_SHAPE[3]} d={GRAD_SHAPE[4]} window={GRAD_SHAPE[5]} "
+              "bf16, causal; bound 10 d operations a visible pair at the "
+              "bf16 tensor-core peak; library_ms SDPA's backward",
+        torch_op_ms=bf["bwd_ms"], bound_share=bf["bound_share"],
+        design=bf["design"], err64=bf["err64"],
+        torch_op_err64=bf["ops_err64"],
+        float32={k: grads["float32"][k] for k in (
+            "kernel_ms", "plain_ms", "bwd_ms", "sdpa_bwd_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err", "err64")},
+        granite_moe=grads["granite-moe"],
+        ragged_max_abs_err=grads["ragged_max_abs_err"],
+        small_train_launches=sum(r["bwd_launches"]
+                                 for r in train["small"].values()),
+        moe_launches=moe["launches"]["flash_attention_bwd"],
+        registers={name: dict(
+            registers=ptxas_registers("flash_attention_bwd.cu", part),
+            spill_stores=ptxas_spill("flash_attention_bwd.cu", part))
+                   for name, part in (
+                       ("flash_bwd_prep<80>", "flash_bwd_prepILi80E"),
+                       ("flash_bwd_dkdv<80>", "flash_bwd_dkdvILi80E"),
+                       ("flash_bwd_dq<80>", "flash_bwd_dqILi80E"),
+                       ("flash_bwd_prep_f32", "flash_bwd_prep_f32"),
+                       ("flash_bwd_dkdv_f32<5>", "flash_bwd_dkdv_f32ILi5E"),
+                       ("flash_bwd_dq_f32<5>", "flash_bwd_dq_f32ILi5E"),
+                       ("flash_bwd_dkdv<64>", "flash_bwd_dkdvILi64E"),
+                       ("flash_bwd_dq<64>", "flash_bwd_dqILi64E"),
+                       ("flash_bwd_dkdv_f32<4>", "flash_bwd_dkdv_f32ILi4E"),
+                       ("flash_bwd_dkdv_f32<8>", "flash_bwd_dkdv_f32ILi8E"))},
+        step_ms={TRAIN_ARCH: train["danube"]["steady_ms"],
+                 MOE_ARCH: moe["train"]["steady_ms"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -5725,7 +5931,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} sources "
           "(parallel nvcc)")
     for src, log in logs.items():
-        print(f"  {src}:")
+        print(f"  {src}: {log['seconds']:.1f} s")
         for ln in log["ptxas"]:
             print(f"    {ln}")
 
@@ -5785,12 +5991,8 @@ def main() -> int:
     lm_kern["flash_attention"].update(
         train_launches=(sum(r["flash_launches"]
                             for r in train["small"].values())
-                        + train["danube"]["launches"]),
-        train_bwd_ms={k: v["bwd_ms"] for k, v in train["grads"].items()
-                      if isinstance(v, dict)},
-        train_sdpa_bwd_ms={k: v["sdpa_bwd_ms"]
-                           for k, v in train["grads"].items()
-                           if isinstance(v, dict)})
+                        + train["danube"]["launches"]))
+    lm_kern["flash_attention_bwd"] = bwd_row(train, moe)
     # phase 11's own launches and its shapes (the MoE and frontend archs)
     lm_kern["flash_attention"].update(
         moe_launches=moe["launches"]["flash_attention"],

@@ -8,15 +8,20 @@ repeated, transposed or padded here. A CPU tensor runs the plain version
 (``ref.flash_attention_plain``); a CUDA tensor launches the kernel of its
 type (``KERNELS``) or raises. ``LAUNCHES`` counts the launches.
 
-The gradient is the reference's ``custom_vjp`` backward (``_bwd``, jnp
-that recomputes one query block at a time, not a Pallas kernel) as torch
-ops: ``FlashAttention`` runs the forward above and saves q, k and v, and
-its backward (``flash_attention_bwd``) recomputes each block's dense
-float32 scores, masks and softmax, and takes ``torch.autograd.grad`` of
-the block's output, O(block_q x Sk) at a time. It covers every query
-row: the reference's loop stops at ``Sq // block_q`` blocks, so the rows
-of a ragged tail get no dq there and dk, dv lose their share. Serving
-goes through the same ``Function`` (under ``no_grad`` nothing is saved).
+The gradient (``FlashAttention``: the forward above, q, k and v saved)
+runs where q lies. On a CUDA tensor its backward is the backward kernel
+(``csrc/flash_attention_bwd.cu`` through ``flash_attention_bwd_kernel``:
+three passes, dq, dk and dv from the kernel, ``LAUNCHES
+["flash_attention_bwd"]`` counts one a backward); a shape it refuses
+raises, nothing falls back to torch ops. On a CPU tensor it is
+``flash_attention_bwd``, the reference's ``custom_vjp`` backward (``_bwd``,
+jnp that recomputes one query block at a time, not a Pallas kernel) as
+torch ops: each block's dense float32 scores, masks and softmax, and
+``torch.autograd.grad`` of the block's output, O(block_q x Sk) at a time.
+Both cover every query row: the reference's loop stops at ``Sq //
+block_q`` blocks, so the rows of a ragged tail get no dq there and dk, dv
+lose their share. Serving goes through the same ``Function`` (under
+``no_grad`` nothing is saved).
 """
 from __future__ import annotations
 
@@ -28,12 +33,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 NEG_INF = ref.NEG_INF
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each type runs (csrc/flash_attention.cu): bf16 on the tensor
 # cores, float32 on the CUDA cores (the tensor cores would round it)
 KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_wgmma"}
+# the backward's three kernels of each type by their names' namespaced
+# prefix (csrc/flash_attention_bwd.cu): bf16 on the tensor cores
+# (mma.sync), float32 on the CUDA cores
+BWD_KERNELS = {
+    torch.float32: ("f32::flash_bwd_prep_f32", "f32::flash_bwd_dkdv_f32",
+                    "f32::flash_bwd_dq_f32"),
+    torch.bfloat16: ("tc::flash_bwd_prep<", "tc::flash_bwd_dkdv<",
+                     "tc::flash_bwd_dq<")}
 MAX_HEAD_DIM = 128
 
 
@@ -51,6 +64,18 @@ def config(dtype, d: int) -> Dict[str, int]:
         DTYPES[dtype], d, out)
     return dict(zip(("block_q", "block_k", "stages", "threads", "pv_mma_n"),
                     out))
+
+
+def bwd_config(dtype, d: int) -> Dict[str, int]:
+    """The tiling the backward kernels run for this type and head dim:
+    queries a tile of prep and dq, keys a tile, queries a tile of dkdv,
+    threads a block, and the MMA's k (16: mma.sync m16n8k16; 0: CUDA
+    cores)."""
+    out = (ctypes.c_int * 5)()
+    build.load("flash_attention_bwd.cu").flash_attention_bwd_config(
+        DTYPES[dtype], d, out)
+    return dict(zip(("block_q", "block_k", "dkdv_block_q", "threads",
+                     "mma_k"), out))
 
 
 def flash_attention(q, k, v, scale: float, causal: bool = True,
@@ -71,9 +96,10 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """``forward`` (``flash_attention_fwd``: the kernel, or the plain
-    version for a CPU tensor) with ``flash_attention_bwd`` as its
-    gradient. The backward reads q, k and v, never the output, so it is
-    the same whichever forward ran."""
+    version for a CPU tensor) with ``flash_attention_bwd_kernel`` (a CUDA
+    tensor) or ``flash_attention_bwd`` (a CPU tensor) as its gradient. The
+    backward reads q, k and v, never the output, so it is the same
+    whichever forward ran."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, block_q, forward):
@@ -84,7 +110,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, *ctx.args)
+        if build.on_cuda(q):
+            dq, dk, dv = flash_attention_bwd_kernel(q, k, v, do,
+                                                    *ctx.args[:3])
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, do, *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -139,15 +169,74 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool = True,
     for a CPU tensor. Shapes and dtypes as ``flash_attention``."""
     B, Sq, H, d = q.shape
     Sk, KH = k.shape[1], k.shape[2]
+    _check_shapes(q, k, v, window)
+    if not build.on_cuda(q):
+        return ref.flash_attention_plain(q, k, v, scale, causal, window)
+    _check_launch(q, scale, k=k, v=v)
+    q, k, v = (build.aligned16(t) for t in (q, k, v))
+    o = torch.empty_like(q)
+    lib = build.load("flash_attention.cu")
+    code = lib.flash_attention_run(
+        DTYPES[q.dtype], B, Sq, Sk, H, KH, d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), float(scale), int(bool(causal)),
+        int(window or 0), build.stream_of(q.device))
+    build.check(lib, code, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return o
+
+
+def flash_attention_bwd_kernel(q, k, v, do, scale: float,
+                               causal: bool = True,
+                               window: Optional[int] = None):
+    """(dq, dk, dv) of attention against ``do`` (B, Sq, H, d), each in its
+    input's dtype and layout: the backward kernel
+    (``csrc/flash_attention_bwd.cu``: prep, dkdv, dq on the current
+    stream) for a CUDA tensor, the plain version
+    (``ref.flash_attention_bwd_plain``) for a CPU tensor. The forward's
+    contract: float32 or bfloat16, d a multiple of 8 up to 128, KH
+    dividing H, a positive scale in bfloat16."""
+    B, Sq, H, d = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    _check_shapes(q, k, v, window)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)}: need q's shape "
+                         f"{tuple(q.shape)}")
+    if not build.on_cuda(q):
+        return ref.flash_attention_bwd_plain(q, k, v, do, scale, causal,
+                                             window)
+    _check_launch(q, scale, k=k, v=v, do=do)
+    q, k, v, do = (build.aligned16(t) for t in (q, k, v, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    lib = build.load("flash_attention_bwd.cu")
+    code = lib.flash_attention_bwd_run(
+        DTYPES[q.dtype], B, Sq, Sk, H, KH, d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), float(scale),
+        int(bool(causal)), int(window or 0), build.stream_of(q.device))
+    build.check(lib, code, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _check_shapes(q, k, v, window):
+    B, Sq, H, d = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
     if k.shape != (B, Sk, KH, d) or v.shape != k.shape or H % KH:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need (B, S, H|KH, d) with "
                          "KH dividing H")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    if not build.on_cuda(q):
-        return ref.flash_attention_plain(q, k, v, scale, causal, window)
-    for name, t in (("k", k), ("v", v)):
+
+
+def _check_launch(q, scale, **others):
+    """What the kernels take beyond the shapes: one device and dtype,
+    float32 or bfloat16, d a multiple of 8 up to MAX_HEAD_DIM, and in
+    bfloat16 a positive scale."""
+    d = q.shape[-1]
+    for name, t in others.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
                              f"{q.dtype} on {q.device}")
@@ -162,13 +251,3 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool = True,
         raise NotImplementedError(
             f"scale {scale}: the bf16 kernel keeps its running max on the "
             "unscaled q.k, which needs scale > 0")
-    q, k, v = (build.aligned16(t) for t in (q, k, v))
-    o = torch.empty_like(q)
-    lib = build.load("flash_attention.cu")
-    code = lib.flash_attention_run(
-        DTYPES[q.dtype], B, Sq, Sk, H, KH, d, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), float(scale), int(bool(causal)),
-        int(window or 0), build.stream_of(q.device))
-    build.check(lib, code, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return o

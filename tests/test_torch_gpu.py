@@ -43,7 +43,12 @@ and reduced granite-moe and jamba prefilled on the card against the CPU
 for bit with the uninterrupted run, one frame launch a dispatch or a
 replayed WAL frame. flash_attention's gradient through the kernel's
 forward bit for bit with the plain forward's (and the float64 oracle in
-float32, a ragged tail included); the IMM scan on the saved lane of
+float32, a ragged tail included); the backward kernel
+(``flash_attention_bwd_kernel``) against its plain version at d 16-128,
+G = 1, 2, 4, causal, windowed and non-causal, a ragged S and unequal
+lengths, one launch a backward, bit for bit from call to call, and
+within 2x the torch-op backward's float64 distance in both dtypes; the
+IMM scan on the saved lane of
 tests/data/imm_scan_lane.npz bit for bit with its plain version. The mesh
 paths on 2 ranks of a ``gloo`` world on the one card
 (``tests/_torch_mesh_worker.py:card_job``): ``apply_moe`` with the experts
@@ -1193,6 +1198,25 @@ def test_flash_attention_runs_the_kernel_of_its_type(cuda):
                                                                  events)
 
 
+def test_flash_bwd_runs_the_kernels_of_its_type(cuda):
+    """The backward launches its type's three kernels (bf16 on the tensor
+    cores, float32 on the CUDA cores), each once and none of the other
+    type's (torch.profiler's kernel names in a fresh process)."""
+    for dtype, names in fa_ops.BWD_KERNELS.items():
+        g = torch.Generator("cuda").manual_seed(0)
+        q, k, v, do = (_randn(g, 1, 128, 2, 32).to(dtype) for _ in range(4))
+        events = _fresh_kernel_events(
+            "repro_torch.kernels.flash_attention.ops:"
+            "flash_attention_bwd_kernel", (q, k, v, do, 0.25))
+        for name in names:
+            assert [c for n, c in events.items() if name in n] == [1], (
+                dtype, name, events)
+        others = [o for t, os_ in fa_ops.BWD_KERNELS.items() if t != dtype
+                  for o in os_]
+        assert not any(o in n for o in others for n in events), (dtype,
+                                                                 events)
+
+
 def test_reduced_danube_served_on_card(cuda):
     """Prefill through flash_attention == the banded swa route; 8 decode
     steps through flash_decode == decode_attention (float32)."""
@@ -1726,6 +1750,130 @@ def test_flash_gradient_is_the_plain_forwards(cuda, dtype, B, S, H, KH, d,
                          torch.softmax(s.masked_fill(~ok, -1e30), -1), vb)
         for a, b in zip(got, torch.autograd.grad(o, t, do.double())):
             torch.testing.assert_close(a.double(), b, atol=2e-5, rtol=1e-4)
+
+
+def _bwd_close(got, want, flip=0.0):
+    """The backward kernel against its plain version by the rule of
+    ``ref.bwd_excess``: float32 2e-5 + 1e-4 relative; bfloat16 two bf16
+    ulps, plus for dV ``flip``, the bf16 spacing at each P near a rounding
+    midpoint times |dO| (``flash_attention_bwd_plain(..., flips=True)``)."""
+    excess = fa_ref.bwd_excess(got, want, flip)
+    assert excess <= 1.0, excess
+
+
+def _bwd_inputs(seed, B, Sq, Sk, H, KH, d, dtype, dev):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32  # noqa: E731
+                                    ).to(dev, dtype)
+    return mk(B, Sq, H, d), mk(B, Sk, KH, d), mk(B, Sk, KH, d), mk(B, Sq, H, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, d, causal, window, G):
+    """B = 2, a ragged S = 150 (two tiles of 64 and 22 rows), KH = 2 kv
+    heads of G query heads each: dq, dk, dv of the backward kernel against
+    ``flash_attention_bwd_plain`` (``_bwd_close``); one launch."""
+    q, k, v, do = _bwd_inputs(d + G, 2, 150, 150, 2 * G, 2, d, dtype, cuda)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention_bwd_kernel(q, k, v, do, d ** -0.5, causal,
+                                            window)
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == 1
+    *want, flip = fa_ref.flash_attention_bwd_plain(
+        q, k, v, do, d ** -0.5, causal, window, flips=True)
+    torch.cuda.synchronize()
+    for a, b, x, flip in zip(got, want, (q, k, v), (0.0, 0.0, flip)):
+        assert a.dtype == dtype and a.shape == x.shape
+        _bwd_close(a, b, flip)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(100, 130, False, None),
+                                                 (130, 100, True, 50),
+                                                 (1, 70, False, None),
+                                                 (70, 1, True, None)])
+def test_flash_bwd_unequal_lengths_match_plain(cuda, dtype, Sq, Sk, causal,
+                                               window):
+    """Sq != Sk, one query or one key: every row and key masked by the
+    true lengths (rows that see no key get no gradient in both)."""
+    q, k, v, do = _bwd_inputs(Sq + Sk, 1, Sq, Sk, 4, 2, 32, dtype, cuda)
+    got = fa_ops.flash_attention_bwd_kernel(q, k, v, do, 0.2, causal, window)
+    *want, flip = fa_ref.flash_attention_bwd_plain(q, k, v, do, 0.2, causal,
+                                                   window, flips=True)
+    for a, b, flip in zip(got, want, (0.0, 0.0, flip)):
+        _bwd_close(a, b, flip)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KH,d,window", [(1024, 8, 2, 64, None),
+                                             (1000, 8, 2, 80, 300)])
+def test_flash_bwd_kernel_within_twice_the_torch_ops_distance(
+        cuda, dtype, S, H, KH, d, window):
+    """Causal, G = 4, sums over up to 4,096 (query, head) terms a key: max
+    |d| of each of the kernel's dq, dk, dv from the float64 oracle (on the
+    inputs as given) at most 2x that of the torch-op backward
+    ``flash_attention_bwd`` on the same inputs, in both dtypes."""
+    q, k, v, do = _bwd_inputs(S + d, 1, S, S, H, KH, d, dtype, cuda)
+    scale = d ** -0.5
+    got = fa_ops.flash_attention_bwd_kernel(q, k, v, do, scale, True, window)
+    ops_route = fa_ops.flash_attention_bwd(q, k, v, do, scale, True, window,
+                                           512)
+    G = H // KH
+    t = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    kb, vb = (x.repeat_interleave(G, dim=2) for x in t[1:])
+    s = torch.einsum("bqhd,bkhd->bhqk", t[0], kb) * scale
+    ok = fa_ref.mask(S, S, True, window, cuda)
+    o = torch.einsum("bhqk,bkhd->bqhd",
+                     torch.softmax(s.masked_fill(~ok, -1e30), -1), vb)
+    oracle = torch.autograd.grad(o, t, do.double())
+    for name, a, b, w in zip("qkv", got, ops_route, oracle):
+        e_kernel = float((a.double() - w).abs().max())
+        e_ops = float((b.double() - w).abs().max())
+        assert e_kernel <= 2 * e_ops, (name, e_kernel, e_ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_one_launch_a_backward_bit_for_bit(cuda, dtype):
+    """Tolerance: none. A backward through ``FlashAttention`` on the card
+    launches the kernel once and never calls ``flash_attention_bwd``; two
+    calls of the kernel agree to the bit (no atomics); views off 16 bytes
+    give the same bits as contiguous copies."""
+    from unittest import mock
+
+    q, k, v, do = _bwd_inputs(3, 2, 333, 333, 8, 2, 80, dtype, cuda)
+    t = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa_ops.reset_launches()
+    with mock.patch.object(fa_ops, "flash_attention_bwd",
+                           side_effect=AssertionError("torch-op backward")):
+        o = fa_ops.flash_attention(*t, 80 ** -0.5, True, 128)
+        got = torch.autograd.grad(o, t, do)
+    assert fa_ops.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1}
+    again = fa_ops.flash_attention_bwd_kernel(q, k, v, do, 80 ** -0.5, True,
+                                              128)
+    off = [torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+           for x in (q, k, v, do)]
+    assert off[0].data_ptr() % 16
+    views = fa_ops.flash_attention_bwd_kernel(*off, 80 ** -0.5, True, 128)
+    for a, b, c in zip(got, again, views):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_refuses_what_the_kernel_does_not_take(cuda, dtype):
+    q, k, v, do = _bwd_inputs(4, 1, 64, 64, 2, 1, 24, dtype, cuda)
+    with pytest.raises(NotImplementedError):
+        fa_ops.flash_attention_bwd_kernel(q[..., :20].contiguous(),
+                                          k[..., :20].contiguous(),
+                                          v[..., :20].contiguous(),
+                                          do[..., :20].contiguous(), 0.2)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention_bwd_kernel(q, k, v, do.cpu(), 0.2)
+    if dtype == torch.bfloat16:
+        with pytest.raises(NotImplementedError):
+            fa_ops.flash_attention_bwd_kernel(q, k, v, do, -0.2)
 
 
 def test_imm_scan_lane_kernel_is_its_plain_version(cuda):
