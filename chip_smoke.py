@@ -141,15 +141,19 @@ Phases (no phase's exception is caught; any failure exits non-zero):
   10. training: (a) flash_attention's gradient at danube's layer shape
      (B=1, S=8192, 32 heads over 8 kv heads of 80, causal, window 4096)
      in bf16 and float32: dq, dk, dv through ``FlashAttention`` (the
-     backward kernel, flash_attention_bwd.cu) with the kernel's forward
-     bit for bit with the plain forward's, two kernel calls bit for bit,
-     the kernel against ``flash_attention_bwd_plain`` (float32 2e-5 +
-     1e-4|x|; bf16 two ulps, dV also 2^-8 max|dO|) and against the float64
-     oracle (bf16: each within 2x the torch-op backward's distance;
-     float32: 2e-5 + 1e-4|x|), the kernel's, the torch-op backward's, the
-     plain version's and SDPA's backward's ms (SDPA for the record) there
-     and at granite-moe's training layer (B=1, S=4096, 16 over 8 heads of
-     64, causal), a ragged S=1,000 within 2e-5 + 1e-4|x| of float64; (b)
+     backward kernel, flash_attention_bwd.cu: bf16 on wgmma, float32 by
+     3xTF32; ptxas's registers and spill of each of its kernels) with the
+     kernel's forward bit for bit with the plain forward's, two kernel
+     calls bit for bit, the kernel against ``flash_attention_bwd_plain``
+     by ``ref.bwd_excess`` (float32 2e-5 + 1e-4|x|; bf16 two ulps, dV
+     also its P-rounding allowance) and against the float64 oracle (each
+     within 2x the torch-op backward's distance; float32 also 2e-5 +
+     1e-4|x|; SDPA's backward's own distance printed, not held), the
+     kernel's, the torch-op backward's, the plain version's and SDPA's
+     backward's ms (SDPA for the record: a line "meets" or "LOSES" a layer
+     and dtype) there and at granite-moe's training layer (B=1, S=4096,
+     16 over 8 heads of 64, causal), a ragged S=1,000 within 2e-5 +
+     1e-4|x| of float64; (b)
      reduced danube (flash) and mamba2, 5 float32 steps of
      ``make_train_step`` on the card against the same on the CPU, each
      loss within 1e-4 relative; (c) h2o-danube-1.8b at full size, bf16,
@@ -328,10 +332,12 @@ from repro_torch.sharding.rules import ShardingContext  # noqa: E402
 C_SERVE, M_SERVE, T_SERVE = 1024, 256, 150
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the bf16
 # dense tensor-core rate from the port's roofline preset, float32
-# operations/s outside the tensor cores
+# operations/s outside the tensor cores, and the TF32 dense tensor-core
+# rate (the float32 backward's 3xTF32 products)
 HBM_BPS = MACHINES["h100"].mem_bw
 BF16_OPS = MACHINES["h100"].peak_flops
 F32_OPS = 67e12
+TF32_OPS = 495e12
 # kernel vs its plain version (the same op stream: measured bitwise)
 TOL = {"lkf": 1e-4, "ekf": 1e-4, "imm": 5e-4}
 # Route check. The two float32 routes each carry their own rounding
@@ -3603,24 +3609,61 @@ def dense_grads64(q, k, v, do, scale, window):
     return out
 
 
+def sdpa_forward(q, k, v, scale, window):
+    """(leaves, output) of ``scaled_dot_product_attention`` on the memory-
+    efficient backend (for the record; the port never calls it): q, k, v
+    as leaves, the kv heads repeated, the causal window as a mask, the
+    output in (B, H, S, d). None if it refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    G = q.shape[2] // k.shape[2]
+    t = [x.detach().requires_grad_() for x in (q, k, v)]
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in t[1:])
+    mask = fa_ref.mask(q.shape[1], k.shape[1], True, window, q.device)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return t, sdpa(t[0].transpose(1, 2), kt, vt, attn_mask=mask,
+                           scale=scale)
+    except RuntimeError as exc:
+        print(f"  library call refused: {str(exc).splitlines()[0][:160]}")
+        return None
+
+
+def sdpa_grads(q, k, v, do, scale, window):
+    """(dq, dk, dv) of ``sdpa_forward`` (dk, dv summed over each kv head's
+    group), or None."""
+    run = sdpa_forward(q, k, v, scale, window)
+    if run is None:
+        return None
+    t, o = run
+    return torch.autograd.grad(o, t, do.transpose(1, 2))
+
+
 def hold_grads(q, k, v, do, scale, window, got):
     """dq, dk, dv of the backward kernel (``got``) against its plain
     version by ``fa_ref.bwd_excess`` (dV with its P-rounding allowance),
     and against the float64 oracle beside the torch-op backward on the
     same inputs: each at most 2x that route's distance, and in float32
-    also within GRAD_TOL. The distances and excesses, by gradient."""
+    also within GRAD_TOL. SDPA's backward's own float64 distance is kept
+    beside them for the record and gates nothing. The distances and
+    excesses, by gradient."""
     *plain, flip = fa_ref.flash_attention_bwd_plain(q, k, v, do, scale, True,
                                                     window, flips=True)
     torch_ops = fa_ops.flash_attention_bwd(q, k, v, do, scale, True, window,
                                            512)
     oracle = dense_grads64(q, k, v, do, scale, window)
-    row = dict(vs_plain={}, excess={}, err64={}, ops_err64={})
-    for name, a, b, c, o, fl in zip("qkv", got, plain, torch_ops, oracle,
-                                    (0.0, 0.0, flip)):
+    lib = sdpa_grads(q, k, v, do, scale, window)
+    row = dict(vs_plain={}, excess={}, err64={}, ops_err64={},
+               sdpa_err64=None if lib is None else {})
+    for i, (name, a, b, c, o, fl) in enumerate(zip(
+            "qkv", got, plain, torch_ops, oracle, (0.0, 0.0, flip))):
         row["vs_plain"][name] = max_diff(a, b)
         row["excess"][name] = fa_ref.bwd_excess(a, b, fl)
         row["err64"][name] = max_diff(a.double(), o)
         row["ops_err64"][name] = max_diff(c.double(), o)
+        if lib is not None:
+            row["sdpa_err64"][name] = max_diff(lib[i].double(), o)
         assert row["excess"][name] <= 1.0, ("plain", name, row)
         assert row["err64"][name] <= 2 * row["ops_err64"][name], (
             "float64", name, row)
@@ -3633,39 +3676,31 @@ def hold_grads(q, k, v, do, scale, window, got):
 def bwd_bound(B, S, H, KH, d, window, dtype):
     """(bound ms, by, bytes, operations) of one flash_attention backward:
     10 d operations a visible causal (query, key) pair (five products of
-    d), at the bf16 tensor-core or the float32 CUDA-core peak; q, dO, dq
-    and k, v, dk, dv each read or written once."""
+    d) at the bf16 tensor-core peak; in float32 three times that (each
+    product as three TF32 products, the kernel's 3xTF32) at the TF32
+    tensor-core peak; q, dO, dq and k, v, dk, dv each read or written
+    once."""
     item = torch.finfo(dtype).bits // 8
     pairs = sum(min(i + 1, window or S) for i in range(S))
     nb, nops = (3 * H + 4 * KH) * B * S * d * item, 10 * d * pairs * B * H
-    peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+    peak = BF16_OPS
+    if dtype != torch.bfloat16:
+        nops, peak = 3 * nops, TF32_OPS
     by = "bytes" if nb / HBM_BPS >= nops / peak else "operations"
     return max(nb / HBM_BPS, nops / peak) * 1e3, by, nb, nops
 
 
 def sdpa_bwd_ms(q, k, v, do, scale, window, iters):
     """The library's backward alone (for the record; the port never calls
-    it): ``scaled_dot_product_attention`` on the memory-efficient backend
-    with the kv heads repeated and the causal window as a mask, its
-    forward run once with the graph kept. None if it refuses."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    G = q.shape[2] // k.shape[2]
-    t = [x.detach().requires_grad_() for x in (q, k, v)]
-    qt = t[0].transpose(1, 2)
-    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in t[1:])
-    mask = fa_ref.mask(q.shape[1], k.shape[1], True, window, q.device)
-    try:
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            o = sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
-            dot = do.transpose(1, 2)
-            return cuda_ms(lambda: torch.autograd.grad(o, t, dot,
-                                                       retain_graph=True),
-                           iters, warmup=1)
-    except RuntimeError as exc:
-        print(f"  library call refused: {str(exc).splitlines()[0][:160]}")
+    it): ``sdpa_forward`` run once with the graph kept, then its backward
+    timed. None if it refuses."""
+    run = sdpa_forward(q, k, v, scale, window)
+    if run is None:
         return None
+    t, o = run
+    dot = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(o, t, dot, retain_graph=True),
+                   iters, warmup=1)
 
 
 def bwd_times(q, k, v, do, scale, window, iters=10):
@@ -3683,6 +3718,17 @@ def bwd_times(q, k, v, do, scale, window, iters=10):
                 bound_share=bms / kern)
 
 
+def print_sdpa_verdict(layer, tag, row, card):
+    """One line: the backward kernel "meets" SDPA's backward (no slower)
+    or "LOSES" to it, at this layer and dtype; for the record."""
+    lib = row["sdpa_bwd_ms"]
+    verdict = ("SDPA refused" if lib is None else
+               "meets" if row["kernel_ms"] <= lib else "LOSES")
+    print(f"[train] flash_attention_bwd {layer} {tag}: {verdict} against "
+          f"SDPA's backward (kernel {row['kernel_ms']:.3f} ms, SDPA "
+          f"{'-' if lib is None else f'{lib:.3f}'} ms) | {card}")
+
+
 def train_grad_check(card):
     """(a) flash_attention's gradient at danube's layer shape in bf16 and
     float32 through the backward kernel: dq, dk, dv from the kernel's
@@ -3696,6 +3742,7 @@ def train_grad_check(card):
     B, S, H, KH, d, W = GRAD_SHAPE
     scale = d ** -0.5
     out = {}
+    _print_ptxas_of("flash_attention_bwd.cu", ("flash_bwd",))
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).removeprefix("torch.")
         design = fa_ops.bwd_config(dtype, d)
@@ -3726,13 +3773,15 @@ def train_grad_check(card):
               f"{row['vs_plain']} (ref.bwd_excess {row['excess']}, held "
               f"<= 1); from float64: kernel {row['err64']}, torch-op "
               f"backward {row['ops_err64']} (held: <= 2x the torch-op "
-              f"backward{', and 2e-5 + 1e-4|x|' if dtype == torch.float32 else ''}); "
+              f"backward{', and 2e-5 + 1e-4|x|' if dtype == torch.float32 else ''}), "
+              f"SDPA's backward {row['sdpa_err64']} (not held); "
               f"backward kernel {row['kernel_ms']:.3f} ms (bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
               f"{row['bound_share']:.3f} of it), torch-op backward "
               f"{row['bwd_ms']:.3f} ms, plain version {row['plain_ms']:.1f} "
               f"ms, SDPA's backward "
               f"{'refused' if lib is None else f'{lib:.3f} ms'} | {card}")
+        print_sdpa_verdict("danube", tag, row, card)
         del q, k, v, do, got
         torch.cuda.empty_cache()
     mB, mS, mH, mKH, md, mW = GRAD_MOE
@@ -3751,11 +3800,13 @@ def train_grad_check(card):
               f"from flash_attention_bwd_plain {row['vs_plain']} "
               f"(ref.bwd_excess {row['excess']}, held <= 1); from float64: "
               f"kernel {row['err64']}, torch-op backward {row['ops_err64']} "
-              f"(held <= 2x); kernel "
+              f"(held <= 2x), SDPA's backward {row['sdpa_err64']} (not "
+              f"held); kernel "
               f"{row['kernel_ms']:.3f} ms (bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}, {row['bound_share']:.3f} of it), torch-op "
               f"backward {row['bwd_ms']:.3f} ms, SDPA's backward "
               f"{'refused' if lib is None else f'{lib:.3f} ms'} | {card}")
+        print_sdpa_verdict("granite-moe", tag, row, card)
         del q, k, v, do, got
     B, S, H, KH, d, W = GRAD_RAGGED
     q, k, v, do = _grad_inputs(rng, B, S, H, KH, d, torch.float32)
@@ -5899,16 +5950,10 @@ def bwd_row(train, moe):
             registers=ptxas_registers("flash_attention_bwd.cu", part),
             spill_stores=ptxas_spill("flash_attention_bwd.cu", part))
                    for name, part in (
-                       ("flash_bwd_prep<80>", "flash_bwd_prepILi80E"),
-                       ("flash_bwd_dkdv<80>", "flash_bwd_dkdvILi80E"),
-                       ("flash_bwd_dq<80>", "flash_bwd_dqILi80E"),
-                       ("flash_bwd_prep_f32", "flash_bwd_prep_f32"),
-                       ("flash_bwd_dkdv_f32<5>", "flash_bwd_dkdv_f32ILi5E"),
-                       ("flash_bwd_dq_f32<5>", "flash_bwd_dq_f32ILi5E"),
-                       ("flash_bwd_dkdv<64>", "flash_bwd_dkdvILi64E"),
-                       ("flash_bwd_dq<64>", "flash_bwd_dqILi64E"),
-                       ("flash_bwd_dkdv_f32<4>", "flash_bwd_dkdv_f32ILi4E"),
-                       ("flash_bwd_dkdv_f32<8>", "flash_bwd_dkdv_f32ILi8E"))},
+                       (f"{ns}::flash_bwd_{k}<{dp}>",
+                        f"{len(ns)}{ns}{len(k) + 10}flash_bwd_{k}ILi{dp}E")
+                       for ns in ("wg", "tf32x3") for dp in (64, 80, 128)
+                       for k in ("prep", "dkdv", "dq"))},
         step_ms={TRAIN_ARCH: train["danube"]["steady_ms"],
                  MOE_ARCH: moe["train"]["steady_ms"]})
 

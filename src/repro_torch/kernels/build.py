@@ -48,11 +48,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # sources compiled as several objects in parallel, one a tile of their
 # block size (the source's KATANA_PART sections): their instantiations
 # tripled with the tiles, and one nvcc took 99-111 s on the H100's host
-# (flash_attention_bwd.cu: its float32 kernels and C entries, its bf16
-# kernels at DP 16-64, and at DP 80-128; whole, it was the build's longest
-# nvcc on the H100's host)
+# (flash_attention_bwd.cu: the C entries and its float32 kernels at DP
+# 16-64, the float32 at DP 80-128, the bf16 at DP 16-64, and at DP
+# 80-128; whole, it was the build's longest nvcc on the H100's host)
 PARTS: Dict[str, int] = {"scan.cu": 3, "imm_step.cu": 3,
-                         "flash_attention_bwd.cu": 3}
+                         "flash_attention_bwd.cu": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,6 +95,7 @@ SIGNATURES = {
         "flash_attention_bwd_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                     _P, _P, _P, _P, _P, _P, _F, _I, _I, _P],
         "flash_attention_bwd_config": [_I, _I, _P],
+        "flash_attention_bwd_lse_rows": [],
     },
     "flash_decode.cu": {
         "flash_decode_partial_run": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

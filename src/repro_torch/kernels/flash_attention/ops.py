@@ -40,13 +40,16 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # cores, float32 on the CUDA cores (the tensor cores would round it)
 KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_wgmma"}
 # the backward's three kernels of each type by their names' namespaced
-# prefix (csrc/flash_attention_bwd.cu): bf16 on the tensor cores
-# (mma.sync), float32 on the CUDA cores
+# prefix (csrc/flash_attention_bwd.cu): bf16 on wgmma with a TMA ring,
+# float32 on the tensor cores by 3xTF32 (mma.sync)
 BWD_KERNELS = {
-    torch.float32: ("f32::flash_bwd_prep_f32", "f32::flash_bwd_dkdv_f32",
-                    "f32::flash_bwd_dq_f32"),
-    torch.bfloat16: ("tc::flash_bwd_prep<", "tc::flash_bwd_dkdv<",
-                     "tc::flash_bwd_dq<")}
+    torch.float32: ("tf32x3::flash_bwd_prep<", "tf32x3::flash_bwd_dkdv<",
+                    "tf32x3::flash_bwd_dq<"),
+    torch.bfloat16: ("wg::flash_bwd_prep<", "wg::flash_bwd_dkdv<",
+                     "wg::flash_bwd_dq<")}
+# the products' instruction by ``flash_attention_bwd_config``'s code
+BWD_INSTRUCTIONS = {1: "wgmma m64nNk16 bf16",
+                    2: "mma.sync m16n8k8 tf32 x3"}
 MAX_HEAD_DIM = 128
 
 
@@ -66,16 +69,20 @@ def config(dtype, d: int) -> Dict[str, int]:
                     out))
 
 
-def bwd_config(dtype, d: int) -> Dict[str, int]:
+def bwd_config(dtype, d: int) -> Dict[str, object]:
     """The tiling the backward kernels run for this type and head dim:
-    queries a tile of prep and dq, keys a tile, queries a tile of dkdv,
-    threads a block, and the MMA's k (16: mma.sync m16n8k16; 0: CUDA
-    cores)."""
-    out = (ctypes.c_int * 5)()
+    queries a block of prep and dq, keys a tile there and threads a block
+    there; keys a block of dkdv, queries a tile there and threads a block
+    there; the stages of the streamed tiles (bf16: the TMA ring; float32:
+    cp.async buffers); and the products' instruction
+    (``BWD_INSTRUCTIONS``)."""
+    out = (ctypes.c_int * 8)()
     build.load("flash_attention_bwd.cu").flash_attention_bwd_config(
         DTYPES[dtype], d, out)
-    return dict(zip(("block_q", "block_k", "dkdv_block_q", "threads",
-                     "mma_k"), out))
+    cfg = dict(zip(("block_q", "block_k", "threads", "dkdv_block_k",
+                    "dkdv_block_q", "dkdv_threads", "stages"), out))
+    cfg["instruction"] = BWD_INSTRUCTIONS[out[7]]
+    return cfg
 
 
 def flash_attention(q, k, v, scale: float, causal: bool = True,
@@ -191,7 +198,9 @@ def flash_attention_bwd_kernel(q, k, v, do, scale: float,
     """(dq, dk, dv) of attention against ``do`` (B, Sq, H, d), each in its
     input's dtype and layout: the backward kernel
     (``csrc/flash_attention_bwd.cu``: prep, dkdv, dq on the current
-    stream) for a CUDA tensor, the plain version
+    stream, bf16 on wgmma, float32 by 3xTF32; ``BWD_KERNELS``; lse and D
+    in a float32 scratch whose rows the library pads) for a CUDA tensor,
+    the plain version
     (``ref.flash_attention_bwd_plain``) for a CPU tensor. The forward's
     contract: float32 or bfloat16, d a multiple of 8 up to 128, KH
     dividing H, a positive scale in bfloat16."""
@@ -207,9 +216,11 @@ def flash_attention_bwd_kernel(q, k, v, do, scale: float,
     _check_launch(q, scale, k=k, v=v, do=do)
     q, k, v, do = (build.aligned16(t) for t in (q, k, v, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    dsum = torch.empty_like(lse)
     lib = build.load("flash_attention_bwd.cu")
+    rows = lib.flash_attention_bwd_lse_rows()  # lse, D rows padded to it
+    lse = torch.empty((B, H, -(-Sq // rows) * rows), dtype=torch.float32,
+                      device=q.device)
+    dsum = torch.empty_like(lse)
     code = lib.flash_attention_bwd_run(
         DTYPES[q.dtype], B, Sq, Sk, H, KH, d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),

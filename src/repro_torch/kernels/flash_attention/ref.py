@@ -24,9 +24,11 @@ once, as FlashAttention does), which leaves the one-ulp agreement with
 (``csrc/flash_attention_bwd.cu``) computes: its three passes (each row's
 log-sum-exp and D = sum_j P dP; dK and dV summed in float32 over query
 tiles and the group's heads; dQ), the same exp (base 2 with the scale
-times log2(e) folded in for bfloat16, base e for float32), and, in
-bfloat16, P rounded to bfloat16 and dS split hi/lo where the kernel feeds
-them to the tensor cores.
+times log2(e) folded in for bfloat16, base e for float32), and the
+operands as the kernel feeds them to the tensor cores: in bfloat16, P
+rounded to bfloat16 and dS split hi/lo; in float32, every operand of the
+five products split into two TF32 terms (``split_tf32``) and each product
+taken as three (3xTF32).
 """
 from __future__ import annotations
 
@@ -123,6 +125,29 @@ def flash_attention_hilo_plain(q, k, v, scale: float, causal: bool = True,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def split_tf32(x):
+    """(big, small), float32 tensors whose values TF32 holds: big =
+    tf32(x), small = tf32(x - big), tf32 the rounding of ``cvt.rna.tf32.f32``
+    on the int32 view of a finite x, (bits + 0x1000) & ~0x1fff: the
+    mantissa to 10 bits, to nearest, ties away from zero. big + small is x
+    to 2^-22 |x|; big carries it to 2^-11."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+    big = tf32(x.float())
+    return big, tf32(x.float() - big)
+
+
+def mm_3xtf32(a, b):
+    """a @ b in float32 as the float32 backward kernel forms it: each
+    operand split by ``split_tf32`` and the product the sum of small.big,
+    big.small and big.big (every product of TF32 values exact in float32,
+    the sums float32; small.small dropped)."""
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    return torch.matmul(as_, bb) + torch.matmul(ab, bs) + torch.matmul(ab, bb)
+
+
 def _flip_ulps(p):
     """The bfloat16 spacing at each float32 ``p`` that lies within
     FLIP_NEAR p of a midpoint between two bfloat16 values (where a P that
@@ -152,7 +177,8 @@ def flash_attention_bwd_plain(q, k, v, do, scale: float, causal: bool = True,
     dS^T q, accumulated in float32 per BWD_BLOCK query rows and over the
     group's H / KH heads; dQ = scale dS k. In bfloat16 P enters its
     product rounded to bfloat16, and dS as bf16(dS) + bf16(dS - bf16(dS))
-    (``split_bf16``), two products summed."""
+    (``split_bf16``), two products summed. In float32 each of the five
+    products is ``mm_3xtf32``."""
     B, Sq, H, d = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -164,10 +190,15 @@ def flash_attention_bwd_plain(q, k, v, do, scale: float, causal: bool = True,
         mul = mul * torch.tensor(LOG2E, dtype=f32)
     mul = mul.to(q.device)
 
+    def mm(a, b):
+        """a b: bfloat16 values multiplied in float32 (exact products),
+        float32 by 3xTF32"""
+        return torch.matmul(a, b) if tc else mm_3xtf32(a, b)
+
     def split_mm(ds, y):
         """ds y, ds entering as bf16(ds) + bf16(ds - bf16(ds)) in bf16"""
         if not tc:
-            return torch.matmul(ds, y)
+            return mm(ds, y)
         hi, lo = split_bf16(ds)
         return torch.matmul(hi.float(), y) + torch.matmul(lo.float(), y)
 
@@ -179,8 +210,8 @@ def flash_attention_bwd_plain(q, k, v, do, scale: float, causal: bool = True,
             for q0 in range(0, Sq, BWD_BLOCK)]
 
     def scores(sl):
-        x = torch.matmul(qf[:, :, sl], kf.transpose(2, 3)) * mul
-        return x, torch.matmul(dof[:, :, sl], vf.transpose(2, 3))
+        x = mm(qf[:, :, sl], kf.transpose(2, 3)) * mul
+        return x, mm(dof[:, :, sl], vf.transpose(2, 3))
 
     lse = torch.empty((B, H, Sq), dtype=f32, device=q.device)
     dsum = torch.empty_like(lse)
@@ -209,7 +240,7 @@ def flash_attention_bwd_plain(q, k, v, do, scale: float, causal: bool = True,
                 B, KH, G, Sk, d).sum(2)
         if tc:
             p = p.to(torch.bfloat16).float()
-        dv += torch.matmul(p.transpose(2, 3), dof[:, :, sl]).view(
+        dv += mm(p.transpose(2, 3), dof[:, :, sl]).view(
             B, KH, G, Sk, d).sum(2)
         dk += split_mm(ds.transpose(2, 3), qf[:, :, sl]).view(
             B, KH, G, Sk, d).sum(2)

@@ -17,6 +17,9 @@ where the kernel feeds the tensor cores, the torch-op backward rounds its
 own products.
 On the CPU, ``FlashAttention``'s backward is ``flash_attention_bwd`` and
 counts no launch; ``flash_attention_bwd_kernel`` runs the plain version.
+``ref.split_tf32``, the float32 kernel's TF32 split (3xTF32): big and
+small keep TF32's 10 mantissa bits, big + small is x to 2^-22, ties
+round away from zero, and a value TF32 holds splits into itself and 0.
 ``ref.bwd_excess``, the rule the kernel is held to against the plain
 version on the card: two bf16 ulps pass and three do not; dV's allowance
 for P's bf16 roundings covers a P that differs in its last float32 bits
@@ -244,3 +247,33 @@ def test_dv_allowance_refuses_a_dv_fault(fault):
             bad[:, 200] = -bad[:, 200]
         dv = ref.flash_attention_bwd_plain(q, k, v, bad, scale, True, 100)[2]
     assert ref.bwd_excess(dv.bfloat16(), want[2], flip) > 1.0
+
+
+@pytest.mark.parametrize("rule", ["low 13 bits zero", "big + small is x",
+                                  "ties away from zero",
+                                  "exact on TF32 values"])
+def test_split_tf32(rule):
+    """``ref.split_tf32`` rounds as cvt.rna.tf32.f32 does: (bits + 0x1000)
+    & ~0x1fff on the int32 view, to nearest, ties away from zero."""
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.normal(size=4096) * np.exp2(
+        rng.integers(-40, 40, size=4096)), dtype=torch.float32)
+    big, small = ref.split_tf32(x)
+    if rule == "low 13 bits zero":
+        for t in (big, small):
+            assert not bool((t.view(torch.int32) & 0x1fff).any())
+    elif rule == "big + small is x":
+        err = (big.double() + small.double() - x.double()).abs()
+        assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+        assert float((big.double() - x.double()).abs().max()) > 0
+    elif rule == "ties away from zero":
+        # 1 + 2^-11 and 1 + 3 2^-11 lie halfway between TF32 neighbours
+        t = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11)],
+                         dtype=torch.float32)
+        want = torch.tensor([1 + 2 ** -10, 1 + 4 * 2 ** -11, -(1 + 2 ** -10)],
+                            dtype=torch.float32)
+        assert torch.equal(ref.split_tf32(t)[0], want)
+    else:
+        held = big  # already TF32
+        b2, s2 = ref.split_tf32(held)
+        assert torch.equal(b2, held) and not bool(s2.any())

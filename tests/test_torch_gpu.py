@@ -44,9 +44,10 @@ for bit with the uninterrupted run, one frame launch a dispatch or a
 replayed WAL frame. flash_attention's gradient through the kernel's
 forward bit for bit with the plain forward's (and the float64 oracle in
 float32, a ragged tail included); the backward kernel
-(``flash_attention_bwd_kernel``) against its plain version at d 16-128,
-G = 1, 2, 4, causal, windowed and non-causal, a ragged S and unequal
-lengths, one launch a backward, bit for bit from call to call, and
+(``flash_attention_bwd_kernel``: bf16 on wgmma, float32 by 3xTF32)
+against its plain version at d 8-128, G = 1, 2, 4, causal, windowed and
+non-causal, ragged and unequal lengths at every tile's edge, one launch a
+backward, bit for bit from call to call, and
 within 2x the torch-op backward's float64 distance in both dtypes; the
 IMM scan on the saved lane of
 tests/data/imm_scan_lane.npz bit for bit with its plain version. The mesh
@@ -1199,9 +1200,10 @@ def test_flash_attention_runs_the_kernel_of_its_type(cuda):
 
 
 def test_flash_bwd_runs_the_kernels_of_its_type(cuda):
-    """The backward launches its type's three kernels (bf16 on the tensor
-    cores, float32 on the CUDA cores), each once and none of the other
-    type's (torch.profiler's kernel names in a fresh process)."""
+    """The backward launches its type's three kernels (bf16 on wgmma with
+    a TMA ring, float32 on the tensor cores by 3xTF32), each once and none
+    of the other type's (torch.profiler's kernel names in a fresh
+    process)."""
     for dtype, names in fa_ops.BWD_KERNELS.items():
         g = torch.Generator("cuda").manual_seed(0)
         q, k, v, do = (_randn(g, 1, 128, 2, 32).to(dtype) for _ in range(4))
@@ -1791,6 +1793,36 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, d, causal, window, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,causal,window,G,d", [
+    (333, 333, True, 100, 4, 80),     # a window ending inside a tile
+    (1000, 1000, True, None, 2, 64),  # 15 tiles of 64 and 40 rows
+    (150, 333, False, 70, 1, 8),      # d 8: half a 16-column box
+    (333, 150, True, 45, 2, 128),     # dkdv's 32-query tiles at d 128
+    (1000, 1000, True, 300, 4, 16),
+    (200, 333, False, None, 1, 128),
+    (333, 1000, True, 129, 4, 8),     # Sq < Sk, a window of 2 tiles + 1
+])
+def test_flash_bwd_kernel_matches_plain_at_tile_edges(cuda, dtype, Sq, Sk,
+                                                      causal, window, G, d):
+    """Lengths that are no multiple of the query side's 128 rows, of the
+    key tiles of 64 or of dkdv's 128 keys and 64 (32 at d 128) queries,
+    windows that end inside a tile, G = 1, 2, 4 and d from 8 to 128: dq,
+    dk, dv against ``flash_attention_bwd_plain`` (``_bwd_close``), and
+    two calls bit for bit."""
+    q, k, v, do = _bwd_inputs(Sq + Sk + d, 2, Sq, Sk, 2 * G, 2, d, dtype,
+                              cuda)
+    got = fa_ops.flash_attention_bwd_kernel(q, k, v, do, d ** -0.5, causal,
+                                            window)
+    again = fa_ops.flash_attention_bwd_kernel(q, k, v, do, d ** -0.5,
+                                              causal, window)
+    *want, flip = fa_ref.flash_attention_bwd_plain(
+        q, k, v, do, d ** -0.5, causal, window, flips=True)
+    for a, b, c, flip in zip(got, want, again, (0.0, 0.0, flip)):
+        assert torch.equal(a, c)
+        _bwd_close(a, b, flip)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk,causal,window", [(100, 130, False, None),
                                                  (130, 100, True, 50),
                                                  (1, 70, False, None),
@@ -1859,6 +1891,39 @@ def test_flash_bwd_one_launch_a_backward_bit_for_bit(cuda, dtype):
     views = fa_ops.flash_attention_bwd_kernel(*off, 80 ** -0.5, True, 128)
     for a, b, c in zip(got, again, views):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_on_a_thread_with_no_current_context(cuda, dtype):
+    """Tolerance: none. The bf16 kernels encode their TMA tensor maps with a
+    driver call, which needs a current context; autograd's device thread
+    may have none when the caching allocator serves all its allocations
+    (no runtime call has bound it). From a fresh thread whose allocations
+    all come from the cache, the backward equals the main thread's."""
+    import threading
+
+    q, k, v, do = _bwd_inputs(6, 1, 256, 256, 4, 2, 64, dtype, cuda)
+    want = fa_ops.flash_attention_bwd_kernel(q, k, v, do, 0.125, True, None)
+    spare = [torch.empty_like(t) for t in (q, k, v) + want]  # cached blocks
+    del spare
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = fa_ops.flash_attention_bwd_kernel(q, k, v, do, 0.125,
+                                                           True, None)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            out["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    assert "error" not in out, out.get("error")
+    for a, b in zip(out["got"], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
