@@ -2431,12 +2431,22 @@ def attention_work(B, S, H, KH, d, window, itemsize):
     return (2 * B * S * (H + KH) * d * itemsize, 4 * d * pairs * B * H)
 
 
+def tf32x3_excess(got, q, k, v, scale, causal, window) -> float:
+    """The float32 flash_attention kernel against its own arithmetic
+    (``ref.flash_attention_tf32x3_plain``: 3xTF32 products in another
+    order): max |d| / (2e-5 + 1e-4 |x|), <= 1 passes."""
+    want = fa_ref.flash_attention_tf32x3_plain(q, k, v, scale, causal,
+                                               window)
+    return float(((got - want).abs() / (2e-5 + 1e-4 * want.abs())).max())
+
+
 def lm_kernels_vs_plain():
     """Each LM kernel against its plain version at small shapes in float32
-    (flash_attention 2e-5, as tests/test_kernels.py; flash_decode's
-    normalised output and m 1e-5/1e-4, l rtol 1e-4)."""
+    (flash_attention 2e-5, as tests/test_kernels.py, and 2e-5 + 1e-4|x| of
+    the 3xTF32 plain version; flash_decode's normalised output and m
+    1e-5/1e-4, l rtol 1e-4)."""
     rng = np.random.default_rng(13)
-    err_a = err_d = 0.0
+    err_a = err_d = ex3 = 0.0
     for B, S, H, KH, d, causal, window in SMALL_ATTN:
         q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
                                    dtype=torch.float32, device=DEV)
@@ -2446,7 +2456,10 @@ def lm_kernels_vs_plain():
                                             window)
         e = max_diff(got, want)
         assert e <= 2e-5, ("flash_attention", B, S, H, KH, d, e)
-        err_a = max(err_a, e)
+        x3 = tf32x3_excess(got, q, k, v, d ** -0.5, causal, window)
+        assert x3 <= 1.0, ("flash_attention vs 3xTF32 plain", B, S, H, KH, d,
+                           x3)
+        err_a, ex3 = max(err_a, e), max(ex3, x3)
     for B, H, KH, T, d in SMALL_DECODE:
         q = torch.as_tensor(rng.normal(size=(B, H, d)), dtype=torch.float32,
                             device=DEV)
@@ -2463,7 +2476,8 @@ def lm_kernels_vs_plain():
         torch.testing.assert_close(l, l_p, atol=0, rtol=1e-4)
         err_d = max(err_d, max_diff(acc / l, acc_p / l_p))
     print(f"LM kernels vs plain, float32: flash_attention max|d| "
-          f"{err_a:.3g} over {len(SMALL_ATTN)} shapes (<= 2e-5); "
+          f"{err_a:.3g} over {len(SMALL_ATTN)} shapes (<= 2e-5), "
+          f"{ex3:.3g} of 2e-5 + 1e-4|x| from the 3xTF32 plain version; "
           f"flash_decode out max|d| {err_d:.3g} over {len(SMALL_DECODE)} "
           "shapes (<= 1e-5 + 1e-4|x|)")
     return err_a, err_d
@@ -2552,6 +2566,21 @@ def _print_ptxas(source):
     print(f"  {source} (ptxas):")
     for ln in build.BUILD_LOG.get(source, {}).get("ptxas", []):
         print(f"    {ln}")
+
+
+def fwd_registers():
+    """ptxas's registers and spill stores of each forward kernel of
+    flash_attention.cu at each width, by kernel name."""
+    regs = {}
+    for dp in (16, 32, 64, 80, 128):
+        for name, part in ((f"flash_fwd_tf32x3<{dp}>",
+                            f"16flash_fwd_tf32x3ILi{dp}E"),
+                           (f"flash_fwd_wgmma<{dp}>",
+                            f"15flash_fwd_wgmmaILi{dp}E")):
+            regs[name] = dict(
+                registers=ptxas_registers("flash_attention.cu", part),
+                spill_stores=ptxas_spill("flash_attention.cu", part))
+    return regs
 
 
 def phase_lm(cfg, B, S, steps, card):
@@ -2719,6 +2748,11 @@ def phase_lm(cfg, B, S, steps, card):
     a_bound = max(nb / HBM_BPS, nops / BF16_OPS) * 1e3
     a_by = "bytes" if nb / HBM_BPS >= nops / BF16_OPS else "operations"
     a_cfg = fa_ops.config(torch.bfloat16, d)
+    f_cfg = fa_ops.config(torch.float32, d)
+    q_at = ("in registers" if f_cfg["q_in_registers"]
+            else "from shared memory")
+    kv_at = ("at staging" if f_cfg["kv_split_at_staging"]
+             else "as each fragment loads")
     a_design = (f"{fa_ops.KERNELS[torch.bfloat16]}: {a_cfg['block_q']}-query "
                 f"tiles ({a_cfg['block_q'] // 64} consumer warpgroups) x "
                 f"{a_cfg['block_k']}-key "
@@ -2726,15 +2760,20 @@ def phase_lm(cfg, B, S, steps, card):
                 f"{a_cfg['stages']} stages; wgmma m64n64k16 for QK^T, 2 x "
                 f"m64n{a_cfg['pv_mma_n']}k16 (p hi + lo) for PV; grid "
                 f"{B * H} x {-(-S // a_cfg['block_q'])}; float32 runs "
-                f"{fa_ops.KERNELS[torch.float32]} on the CUDA cores")
+                f"{fa_ops.KERNELS[torch.float32]}: "
+                f"{f_cfg['block_q']}-query tiles x {f_cfg['block_k']}-key "
+                f"tiles, {f_cfg['threads']} threads, {f_cfg['instruction']} "
+                f"(3xTF32) for QK^T and PV, Q's split fragments {q_at}, K "
+                f"and V split {kv_at}, {f_cfg['stages']} cp.async "
+                f"stage(s)")
     print(f"[lm] flash_attention B={B} S={S} H={H} KH={KH} d={d} W={W} bf16: "
           f"{a_ms:.3f} ms (device {_dev_line(a_dev)}; plain {a_plain:.1f} "
           f"ms, library {a_lib if a_lib is None else round(a_lib, 3)} ms), "
           f"max|d| vs plain {max_diff(got, want):.3g} = {ulps:.3g} bf16 ulp; "
           f"bound {a_bound:.4f} ms by {a_by} at the bf16 tensor-core peak "
-          f"({nb} B, {nops} ops; at the float32 CUDA-core peak "
-          f"{nops / F32_OPS * 1e3:.2f} ms), {a_bound / a_ms:.4f} of the "
-          f"bound | {card}")
+          f"({nb} B, {nops} ops; float32's 3xTF32 at the TF32 peak "
+          f"{3 * nops / TF32_OPS * 1e3:.2f} ms), {a_bound / a_ms:.4f} of "
+          f"the bound | {card}")
     print(f"[lm] flash_attention design: {a_design}")
     _print_ptxas("flash_attention.cu")
 
@@ -2796,7 +2835,7 @@ def phase_lm(cfg, B, S, steps, card):
                              max_abs_err=max(err_a, max_diff(got, want)),
                              bf16_ulps=ulps, bytes=nb, operations=nops,
                              bound_share=a_bound / a_ms, device_ms=a_dev,
-                             design=a_design,
+                             design=a_design, registers=fwd_registers(),
                              shape=f"B={B} S={S} H={H} KH={KH} d={d} "
                                    f"window={W} bf16, causal; bound at the "
                                    "bf16 tensor-core peak"),
@@ -4065,19 +4104,25 @@ SMALL_MOE_S, SMALL_MOE_B, SMALL_MOE_STEPS = 128, 4, 3
 def attention_bound(B, S, H, KH, d, causal, dtype):
     """(bound ms, by, bytes, operations) of one flash_attention call: q,
     k, v read once, o written once; 4 d operations a visible (query, key)
-    pair, at the bf16 tensor-core or the float32 CUDA-core peak."""
+    pair (QK^T and PV) at the bf16 tensor-core peak; in float32 three times
+    that (each product as three TF32 products, the kernel's 3xTF32) at the
+    TF32 tensor-core peak."""
     item = torch.finfo(dtype).bits // 8
     pairs = S * (S + 1) // 2 if causal else S * S
     nb, nops = 2 * B * S * (H + KH) * d * item, 4 * d * pairs * B * H
-    peak = BF16_OPS if dtype == torch.bfloat16 else F32_OPS
+    peak = BF16_OPS
+    if dtype != torch.bfloat16:
+        nops, peak = 3 * nops, TF32_OPS
     by = "bytes" if nb / HBM_BPS >= nops / peak else "operations"
     return max(nb / HBM_BPS, nops / peak) * 1e3, by, nb, nops
 
 
 def moe_attention_shapes(card):
     """(a) flash_attention at one layer of each arch, float32 (2e-5 of the
-    plain version) and bf16 (one ulp of the plain and the hi/lo plain
-    versions), timed beside the plain version and SDPA."""
+    plain version, 2e-5 + 1e-4|x| of the 3xTF32 plain version) and bf16
+    (one ulp of the plain and the hi/lo plain versions), timed beside the
+    plain version and SDPA's forward, with a "meets" / "LOSES" line
+    against SDPA a shape and dtype."""
     rng = np.random.default_rng(41)
     rows = {}
     for arch, B, S, H, KH, d, causal in MOE_ATTN:
@@ -4094,6 +4139,8 @@ def moe_attention_shapes(card):
             if dtype == torch.float32:
                 ulps = None
                 assert err <= 2e-5, (arch, "flash_attention float32", err)
+                x3 = tf32x3_excess(got, q, k, v, scale, causal, None)
+                assert x3 <= 1.0, (arch, "flash_attention vs 3xTF32", x3)
             else:
                 ulps = bf16_ulp_excess(got, want)
                 hilo = max(bf16_ulp_excess(
@@ -4114,7 +4161,10 @@ def moe_attention_shapes(card):
                 shape=f"B={B} S={S} H={H} KH={KH} d={d} "
                       f"{'causal' if causal else 'non-causal'} {tag}",
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=err, bf16_ulps=ulps)
+                bound_by=by, max_abs_err=err, bf16_ulps=ulps,
+                tf32x3_excess=x3 if dtype == torch.float32 else None,
+                verdict=None if lib is None else
+                "meets" if ms <= lib else "LOSES")
             print(f"[moe] flash_attention {arch} B={B} S={S} H={H} KH={KH} "
                   f"d={d} {'causal' if causal else 'non-causal'} {tag}: "
                   f"{ms:.3f} ms (plain {plain:.1f} ms, SDPA "
@@ -4122,8 +4172,14 @@ def moe_attention_shapes(card):
                   f"max|d| vs plain {err:.3g}"
                   + ("" if ulps is None else f" = {ulps:.3g} bf16 ulp "
                      "(plain and hi/lo plain)")
+                  + ("" if ulps is not None else
+                     f", {x3:.3g} of 2e-5 + 1e-4|x| from the 3xTF32 plain")
                   + f"; bound {bms:.4f} ms by {by} ({nb} B, {nops} ops), "
                   f"{bms / ms:.4f} of it | {card}")
+            verdict = rows[f"{arch} {tag}"]["verdict"]
+            print(f"[moe] flash_attention {arch} {tag} against SDPA's "
+                  f"forward: {verdict or 'SDPA refused'} ({ms:.3f} vs "
+                  f"{'-' if lib is None else f'{lib:.3f}'} ms) | {card}")
             del q, k, v, got, want
         del q32, k32, v32
         torch.cuda.empty_cache()

@@ -11,9 +11,10 @@
 //
 // Bound: operations. At the serving shape (h2o-danube-1.8b prefill,
 // B=4, S=8192, H=32, d=80, window 4096, bf16) a call does ~1.03e12 flops
-// over ~0.42 GB: 1.04 ms at the 989 TFLOP/s bf16 tensor-core peak, 15 ms
-// at the 67 TFLOP/s float32 CUDA-core peak. So bf16 runs on the tensor
-// cores, Hopper's way (flash_fwd_wgmma):
+// over ~0.42 GB: 1.04 ms at the 989 TFLOP/s bf16 tensor-core peak; in
+// float32, three TF32 products a product (below), 6.2 ms at the 495
+// TFLOP/s TF32 peak (15 ms at the 67 TFLOP/s CUDA-core peak). Both run on
+// the tensor cores; bf16 Hopper's way (flash_fwd_wgmma):
 //
 //   - a block takes 192 queries of one (batch, head) where d <= 80, 128
 //     above; three (two) consumer warpgroups own 64 query rows each, a
@@ -59,15 +60,41 @@
 // q and k arrive in bf16. The ex2 exp is within ~3e-6 of expf where p
 // matters, far inside the same ulp.
 //
-// Why float32 keeps the CUDA-core kernel (flash_fwd_f32): float32 inputs
-// cannot enter the bf16 tensor cores unrounded, and TF32 keeps 10 bits,
-// so the float32 check (2e-5 against the plain version) would fail. The
-// C entry point dispatches on the type: bf16 runs flash_fwd_wgmma (a bf16
-// call that cannot launch returns its error; it never runs the float32
-// kernel), float32 runs flash_fwd_f32, the file's first kernel: one
-// block of 256 threads per (64-query tile, batch x head), the tiles in
-// shared memory as float32 (row stride d + 1), 4 x 4 register blocks of
-// scalar FMAs, expf.
+// float32 (flash_fwd_tf32x3) runs by 3xTF32 on mma.sync m16n8k8, as the
+// backward's float32 route (tf32x3.cuh, shared with it): float32 inputs
+// cannot enter the bf16 tensor cores unrounded, and one TF32 product keeps
+// 10 bits, so the float32 check (2e-5 against the plain version) would
+// fail; each operand split into big = tf32(x) and small = tf32(x - big),
+// and a product taken as small.big + big.small + big.big into a fresh
+// fragment added in float32, keeps ~2^-21 a term (ref.mm_3xtf32,
+// ref.flash_attention_tf32x3_plain). The bound is 3 x 4 d operations a
+// visible pair at the TF32 peak. The C entry point dispatches on the type:
+// bf16 runs flash_fwd_wgmma (a bf16 call that cannot launch returns its
+// error; it never runs the float32 kernel), float32 flash_fwd_tf32x3:
+//
+//   - warps own 16 query rows each, 4 a block (64 queries) where DP <=
+//     64, 8 (128 queries) at 80 and 128, where one block fills the shared
+//     memory; K and V tiles of 64 keys are staged by cp.async a tile
+//     ahead at the backward's row stride (DP + 4 floats), one barrier a
+//     tile (two with the planes below); DP = d rounded up to 16, 32, 64,
+//     80 or 128 as the bf16 route;
+//   - Q's split A fragments stay in registers where d <= 80 (DP of
+//     them); at 128 Q sits in shared memory and each k8 step's fragment
+//     is split as it is reached, once for the tile's eight key blocks;
+//   - where d <= 80 K and V are split once a tile, after the raw tile
+//     lands, into big and small planes (K as stored, V transposed), so
+//     that a B fragment is two 64-bit loads and no arithmetic: a k8
+//     step's k = t and t + 4 are taken as adjacent columns 2 t, 2 t + 1,
+//     Q's fragment alike; at 128 (no room for the planes) each B
+//     fragment is split as it loads (tf32x3.cuh's frag_b_nk,
+//     frag_b_kn), as the backward does;
+//   - P goes from the S accumulator to PV's A fragment in registers (the
+//     accumulator's columns 2t, 2t + 1 taken as k = t, t + 4, V's rows
+//     read in that order), never through shared memory;
+//   - row max and sum by quad shuffles; the causal and window tile
+//     skipping of the bf16 route, a warp skipping a tile masked for all
+//     its 16 rows, the element mask only on diagonal, window-edge and
+//     ragged tiles; expf and base e, as the plain version.
 //
 // Arithmetic, both kernels, as the reference: s = q.k * scale, masked
 // entries -1e30 (never -inf: a row whose first visited tile is all
@@ -82,171 +109,319 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace fa {
 
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------
-// float32: CUDA cores
+// float32: tensor cores by 3xTF32 (mma.sync m16n8k8), cp.async
 // ---------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int BQ = 64;        // queries a block
-constexpr int BK = 64;        // keys a tile
-constexpr int THREADS = 256;  // 16 row groups x 16 column threads
-constexpr int MAXD = 128;
-constexpr int NCOL = MAXD / 16;  // output columns a thread, at most
+using namespace ::tf32x3;  // the 3xTF32 products and staging (tf32x3.cuh)
 
-// rows [r0, r0 + 64) of one head of a (B, S, heads, d) tensor, ``src``
-// pointing at (b, 0, head, 0); rows at or past n read as zero
-__device__ void load_tile(float* dst, int ld, const float* __restrict__ src,
-                          int r0, int n, long row_stride, int d) {
-  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
-    const int r = i / d, c = i - r * d, row = r0 + r;
-    dst[r * ld + c] = row < n ? src[row * row_stride + c] : 0.f;
+constexpr int BK = ROWS;  // keys a tile
+
+// The planes hold K as 64 keys x DP at a row stride of ldk(DP) and V
+// transposed, DP rows of 64 keys at LDV, so that both products' B
+// fragments are 64-bit loads: a k8 step's k = t and t + 4 are taken as
+// the adjacent columns 2 t and 2 t + 1 (Q's A fragment likewise), and a
+// stride of 8 or 24 words mod 32 keeps a half-warp's loads off each
+// other's banks.
+__host__ __device__ constexpr int ldk(int dp) { return dp + 8; }
+constexpr int LDV = BK + 8;
+
+// The tiling at width DP: WARPS warps of 16 query rows a block. Where DP
+// <= 80 (QREG) Q's split fragments are held in registers (DP of them) and
+// K and V are split once a tile into the planes: shared memory for one
+// raw stage of K and V and the four planes. At 128 there is no room for
+// the planes: two stages of raw K and V, then Q, read from shared memory
+// and split a k8 step at a time, and each B fragment split as it loads.
+// The planes measured 3.4% faster than the split at the load at d 64 and
+// 6.8% at d 80 on an H100 (PERF.md §6).
+template <int DP>
+struct Plan {
+  static constexpr bool QREG = DP <= 80;
+  static constexpr int WARPS = DP > 64 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS;  // queries a block
+  static constexpr int TILES = QREG ? 2 : 4;  // raw 64-row K, V tiles
+  static constexpr int PLANES = QREG ? 2 * (BK * ldk(DP) + DP * LDV) : 0;
+  static constexpr size_t SMEM = TILES * tile_bytes(DP) +
+                                 sizeof(float) * PLANES +
+                                 (QREG ? 0 : sizeof(float) * BQ * ld(DP));
+};
+
+// the raw K and V tiles (``raw``: K, then V) into their big and small
+// TF32 planes (``planes``: K big, K small at ldk(DP); V big, V small
+// transposed at LDV), four columns of a row a thread at a time: K's rows
+// across a warp's threads, V's keys, so that its transposed stores fall
+// on consecutive words
+template <int DP, int NT>
+__device__ __forceinline__ void split_tiles(uint32_t* planes,
+                                            const float* raw) {
+  constexpr int LD = ld(DP), LDK = ldk(DP), CH = DP / 4;
+  constexpr int KP = BK * LDK, VP = DP * LDV;  // words of a plane
+  uint32_t* vplanes = planes + 2 * KP;
+  for (int i = threadIdx.x; i < 2 * BK * CH; i += NT) {
+    const int m = i / (BK * CH), rc = i - m * BK * CH;
+    const int r = m ? rc % BK : rc / CH;
+    const int c = 4 * (m ? rc / BK : rc % CH);
+    const float4 x =
+        *reinterpret_cast<const float4*>(raw + m * BK * LD + r * LD + c);
+    uint4 big, small;
+    split(x.x, big.x, small.x);
+    split(x.y, big.y, small.y);
+    split(x.z, big.z, small.z);
+    split(x.w, big.w, small.w);
+    if (m == 0) {
+      *reinterpret_cast<uint4*>(planes + r * LDK + c) = big;
+      *reinterpret_cast<uint4*>(planes + KP + r * LDK + c) = small;
+    } else {  // V: key r is column r of the rows c .. c + 3
+      uint32_t* vb = vplanes + c * LDV + r;
+      vb[0] = big.x;
+      vb[LDV] = big.y;
+      vb[2 * LDV] = big.z;
+      vb[3 * LDV] = big.w;
+      vb[VP] = small.x;
+      vb[VP + LDV] = small.y;
+      vb[VP + 2 * LDV] = small.z;
+      vb[VP + 3 * LDV] = small.w;
+    }
   }
 }
 
-__device__ __forceinline__ float group16_max(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+// A block a BQ-query tile of one (b, h); warp w owns query rows r0 =
+// q0 + 16 w .. r0 + 15 and walks the key tiles the causal and window
+// conditions leave (kernel.py:39-44), skipping those masked for all its
+// rows. S = Q K^T and O += P V by 3xTF32; in the accumulator layout a
+// thread holds rows g and g + 8 (e >> 1), columns 8 j + 2 t + (e & 1) of
+// s[j][e]; P goes from the S accumulator to PV's A fragment in registers.
+template <int DP>
+__global__ void __launch_bounds__(Plan<DP>::THREADS)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int Sq, int Sk, int H, int KH, int d, float scale,
+                     int causal, int window) {
+  using P = Plan<DP>;
+  constexpr int LD = ld(DP), T = ROWS * LD, NT = P::THREADS, BQ = P::BQ;
+  constexpr int NJ = DP / 8;  // 8-column blocks of a row of d
+  extern __shared__ __align__(16) float smem[];
+  float* kv = smem;  // QREG: the raw (K, V); else 2 stages x (K, V)
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * T);
+  float* qs = smem + P::TILES * T + P::PLANES;  // BQ x LD where !QREG
 
-__device__ __forceinline__ float group16_sum(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int Sq,
-                  int Sk, int H, int KH, int d, float scale, int causal,
-                  int window) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* qs = smem;             // BQ x ld
-  float* ks = qs + BQ * ld;     // BK x ld
-  float* vs = ks + BK * ld;     // BK x ld
-  float* ps = vs + BK * ld;     // BQ x (BK + 1)
-  constexpr int PLD = BK + 1;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int kh = h / (H / KH);
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, grp = tid >> 4, tx = tid & 15;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp;
   const long qrs = (long)H * d, krs = (long)KH * d;
   const float* qb = q + (long)b * Sq * qrs + (long)h * d;
   const float* kb = k + (long)b * Sk * krs + (long)kh * d;
   const float* vb = v + (long)b * Sk * krs + (long)kh * d;
 
-  load_tile(qs, ld, qb, q0, Sq, qrs, d);
-
-  float m[4], l[4], acc[4][NCOL];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < NCOL; ++cc) acc[i][cc] = 0.f;
-  }
-
-  // the kv tiles this query tile needs (kernel.py:39-44)
   int kt_end = (Sk + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
-  int kt_begin = 0;
-  if (window > 0) kt_begin = max(q0 - window + 1, 0) / BK;
+  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+
+  if constexpr (!P::QREG)
+    for (int r = 0; r < BQ; r += ROWS)
+      load_tile<DP, NT>(qs + r * LD, qb, q0 + r, Sq, qrs, d);
+  if (kt_begin < kt_end) {
+    load_tile<DP, NT>(kv, kb, kt_begin * BK, Sk, krs, d);
+    load_tile<DP, NT>(kv + T, vb, kt_begin * BK, Sk, krs, d);
+  }
+  cp_commit();
+
+  // Q's A fragments, split once (frag_a's rows g, g + 8; k = t and t + 4
+  // at columns 8 kk + 2 t, 8 kk + 2 t + 1, as the planes hold K); rows
+  // past Sq and columns past d zero
+  uint32_t qbig[P::QREG ? NJ : 1][4], qsmall[P::QREG ? NJ : 1][4];
+  if constexpr (P::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e & 1);
+        const int col = 8 * kk + 2 * t + (e >> 1);
+        split(row < Sq && col < d ? qb[row * qrs + col] : 0.f, qbig[kk][e],
+              qsmall[kk][e]);
+      }
+  }
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the last tile's ks / vs / ps are read
-    load_tile(ks, ld, kb, k0, Sk, krs, d);
-    load_tile(vs, ld, vb, k0, Sk, krs, d);
-    __syncthreads();
-
-    // s = q k^T on this thread's rows 4 grp + i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * grp + i) * ld + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * ld + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
+    // this tile's raw K and V; the next tile goes into the other stage
+    // (QREG: into the raw stage once the planes are split from it),
+    // which every warp is done with past the barrier
+    const float* ks = kv + (P::QREG ? 0 : ((kt - kt_begin) & 1) * 2 * T);
+    float* nx = kv + (P::QREG ? 0 : ((kt - kt_begin + 1) & 1) * 2 * T);
+    cp_wait<0>();
+    __syncthreads();  // the tile arrived; the last tile's stage is read
+    if constexpr (P::QREG) {
+      split_tiles<DP, NT>(planes, kv);
+      __syncthreads();  // the planes are written; the raw stage is free
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * grp + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(4 * grp + i) * PLD + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + group16_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int cc = 0; cc < NCOL; ++cc) acc[i][cc] *= alpha;
+    if (kt + 1 < kt_end) {
+      load_tile<DP, NT>(nx, kb, k0 + BK, Sk, krs, d);
+      load_tile<DP, NT>(nx + T, vb, k0 + BK, Sk, krs, d);
     }
-    __syncthreads();
+    cp_commit();
+    const float* vs = ks + T;
+    constexpr int KP = BK * ldk(DP), VP = DP * LDV;
+    const uint32_t *kbig = planes, *ksmall = planes + KP;
+    const uint32_t *vbig = planes + 2 * KP, *vsmall = vbig + VP;
 
-    // acc += p v on this thread's rows, columns tx + 16 cc
-    for (int j = 0; j < BK; ++j) {
-      float pv[4];
+    const bool dead = r0 >= Sq || (causal && k0 > r0 + 15) ||
+                      (window > 0 && k0 + BK - 1 < r0 - window + 1);
+    if (!dead) {
+      // S = Q K^T, K's B fragment (keys 8 j + g; against the planes
+      // columns 8 kk + 2 t, + 1, else 8 kk + t, + 4)
+      float s[BK / 8][4];
+      if constexpr (P::QREG) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * grp + i) * PLD + j];
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int cc = 0; cc < NCOL; ++cc) {
-        const int c = tx + 16 * cc;
-        if (c < d) {
-          const float vv = vs[j * ld + c];
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[i][cc] = __fmaf_rn(pv[i], vv, acc[i][cc]);
+        for (int kk = 0; kk < NJ; ++kk)
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+            const int at = (8 * j + g) * ldk(DP) + 8 * kk + 2 * t;
+            const uint2 xb = *reinterpret_cast<const uint2*>(kbig + at);
+            const uint2 xs = *reinterpret_cast<const uint2*>(ksmall + at);
+            const uint32_t bb[2] = {xb.x, xb.y}, bs[2] = {xs.x, xs.y};
+            mma3(s[j], qbig[kk], qsmall[kk], bb, bs);
+          }
+      } else {
+        scores<DP, BK>(s, qs, 16 * warp, ks);
+      }
+
+      // the masked, scaled scores and the online softmax (kernel.py:46-63):
+      // only diagonal, window-edge and ragged tiles apply the element mask
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > r0) ||
+                        (window > 0 && r0 + 15 - k0 >= window);
+      float mx[2] = {NEG_INF, NEG_INF};
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + g + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            bool ok = col < Sk;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && row - col < window;
+            s[j][e] = ok ? s[j][e] * scale : NEG_INF;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] *= scale;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          rs[e >> 1] += s[j][e];
         }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+      // O += P V: p's k8 step kk split into its A fragment (k = t taking
+      // key 2 t, k = t + 4 key 2 t + 1), V's B fragment read in that order
+      if constexpr (P::QREG) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          uint32_t ab[4], as[4];
+          split(s[kk][0], ab[0], as[0]);
+          split(s[kk][2], ab[1], as[1]);
+          split(s[kk][1], ab[2], as[2]);
+          split(s[kk][3], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int at = (8 * j + g) * LDV + 8 * kk + 2 * t;
+            const uint2 xb = *reinterpret_cast<const uint2*>(vbig + at);
+            const uint2 xs = *reinterpret_cast<const uint2*>(vsmall + at);
+            const uint32_t bb[2] = {xb.x, xb.y}, bs[2] = {xs.x, xs.y};
+            mma3(acc[j], ab, as, bb, bs);
+          }
+        }
+      } else {
+        product<DP, BK>(acc, s, vs);
       }
     }
   }
+  cp_wait<0>();  // a block that visits no tile has its loads in flight
 
+  // out = acc / max(l, 1e-30), rows < Sq, columns < d
   float* ob = o + (long)b * Sq * qrs + (long)h * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * grp + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
     if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int cc = 0; cc < NCOL; ++cc) {
-      const int c = tx + 16 * cc;
-      if (c < d) ob[row * qrs + c] = acc[i][cc] / denom;
-    }
+    for (int j = 0; j < NJ; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<float2*>(ob + row * qrs + 8 * j + 2 * t) =
+            make_float2(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
   }
 }
 
+template <int DP>
+cudaError_t launch(int B, int Sq, int Sk, int H, int KH, int d,
+                   const void* q, const void* k, const void* v, void* o,
+                   float scale, int causal, int window,
+                   cudaStream_t stream) {
+  using P = Plan<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)P::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
+  flash_fwd_tf32x3<DP><<<grid, P::THREADS, P::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+      H, KH, d, scale, causal, window);
+  return cudaGetLastError();
+}
+
 }  // namespace f32
+
 
 // ---------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA, mbarriers
@@ -515,27 +690,46 @@ cudaError_t run(int B, int Sq, int Sk, int H, int KH, int d, const void* q,
 
 }  // namespace hop
 
+// float32 at d rounded up to 16, 32, 64, 80 or 128 (the bf16 route's
+// widths)
 cudaError_t run_f32(int B, int Sq, int Sk, int H, int KH, int d,
                     const void* q, const void* k, const void* v, void* o,
                     float scale, int causal, int window,
                     cudaStream_t stream) {
-  using namespace f32;
-  const size_t smem = sizeof(float) * (3 * BQ * (d + 1) + BQ * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_f32<<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
-      H, KH, d, scale, causal, window);
-  return cudaGetLastError();
+  if (d % 8 || d > 128 || Sq < 1) return cudaErrorInvalidValue;
+  switch (hop::pv_n(d)) {
+    case 16:
+      return f32::launch<16>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                             window, stream);
+    case 32:
+      return f32::launch<32>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                             window, stream);
+    case 64:
+      return f32::launch<64>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                             window, stream);
+    case 80:
+      return f32::launch<80>(B, Sq, Sk, H, KH, d, q, k, v, o, scale, causal,
+                             window, stream);
+    default:
+      return f32::launch<128>(B, Sq, Sk, H, KH, d, q, k, v, o, scale,
+                              causal, window, stream);
+  }
+}
+
+// the float32 tiling at width DP, as flash_attention_config writes it
+template <int DP>
+void f32_config(int* out) {
+  using P = f32::Plan<DP>;
+  const int v[8] = {P::BQ, f32::BK, P::QREG ? 1 : 2, P::THREADS, 8, 2,
+                    P::QREG, P::QREG};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 }  // namespace fa
 
 extern "C" {
 
-// dtype: 0 float32 (flash_fwd_f32), 1 bfloat16 (flash_fwd_wgmma).
+// dtype: 0 float32 (flash_fwd_tf32x3), 1 bfloat16 (flash_fwd_wgmma).
 // window <= 0: none.
 int flash_attention_run(int dtype, int B, int Sq, int Sk, int H, int KH,
                         int d, const void* q, const void* k, const void* v,
@@ -550,19 +744,27 @@ int flash_attention_run(int dtype, int B, int Sq, int Sk, int H, int KH,
 }
 
 // The tiling a call of this type and head dim runs: out = {queries a
-// block, keys a tile, K/V stages, threads a block, the PV MMA's N (0: no
-// tensor cores)}. Returns the number of values written.
+// block, keys a tile, K/V stages, threads a block, the PV MMA's N, the
+// products' instruction (1: wgmma m64nNk16 bf16; 2: mma.sync m16n8k8 tf32,
+// three a product), Q's operand in registers (1) or shared memory (0), K
+// and V split into TF32 planes at staging (1) or as each fragment loads
+// (0; bf16: no split)}. Returns the number of values written.
 int flash_attention_config(int dtype, int d, int* out) {
   if (dtype == 1) {
     const int n = fa::hop::pv_n(d), nwg = fa::hop::warpgroups(n);
-    const int v[5] = {64 * nwg, fa::hop::BK, fa::hop::STAGES,
-                      32 * (4 * nwg + 1), n};
-    for (int i = 0; i < 5; ++i) out[i] = v[i];
-  } else {
-    const int v[5] = {fa::f32::BQ, fa::f32::BK, 1, fa::f32::THREADS, 0};
-    for (int i = 0; i < 5; ++i) out[i] = v[i];
+    const int v[8] = {64 * nwg, fa::hop::BK, fa::hop::STAGES,
+                      32 * (4 * nwg + 1), n, 1, 0, 0};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 8;
   }
-  return 5;
+  switch (fa::hop::pv_n(d)) {
+    case 16: fa::f32_config<16>(out); break;
+    case 32: fa::f32_config<32>(out); break;
+    case 64: fa::f32_config<64>(out); break;
+    case 80: fa::f32_config<80>(out); break;
+    default: fa::f32_config<128>(out);
+  }
+  return 8;
 }
 
 const char* katana_error_string(int code) {

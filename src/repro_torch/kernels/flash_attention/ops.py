@@ -36,9 +36,10 @@ from repro_torch.kernels.flash_attention import ref
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 NEG_INF = ref.NEG_INF
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel each type runs (csrc/flash_attention.cu): bf16 on the tensor
-# cores, float32 on the CUDA cores (the tensor cores would round it)
-KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_wgmma"}
+# the kernel each type runs (csrc/flash_attention.cu): bf16 on wgmma with
+# a TMA ring, float32 on the tensor cores by 3xTF32 (mma.sync)
+KERNELS = {torch.float32: "flash_fwd_tf32x3",
+           torch.bfloat16: "flash_fwd_wgmma"}
 # the backward's three kernels of each type by their names' namespaced
 # prefix (csrc/flash_attention_bwd.cu): bf16 on wgmma with a TMA ring,
 # float32 on the tensor cores by 3xTF32 (mma.sync)
@@ -47,9 +48,8 @@ BWD_KERNELS = {
                     "tf32x3::flash_bwd_dq<"),
     torch.bfloat16: ("wg::flash_bwd_prep<", "wg::flash_bwd_dkdv<",
                      "wg::flash_bwd_dq<")}
-# the products' instruction by ``flash_attention_bwd_config``'s code
-BWD_INSTRUCTIONS = {1: "wgmma m64nNk16 bf16",
-                    2: "mma.sync m16n8k8 tf32 x3"}
+# the products' instruction by the config entries' code
+INSTRUCTIONS = {1: "wgmma m64nNk16 bf16", 2: "mma.sync m16n8k8 tf32 x3"}
 MAX_HEAD_DIM = 128
 
 
@@ -58,15 +58,23 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def config(dtype, d: int) -> Dict[str, int]:
+def config(dtype, d: int) -> Dict[str, object]:
     """The tiling the CUDA kernel runs for this type and head dim (read
     from the built library): queries a block, keys a tile, K/V stages,
-    threads a block, and the PV MMA's N (0: the CUDA-core kernel)."""
-    out = (ctypes.c_int * 5)()
+    threads a block, the PV MMA's N, the products' instruction
+    (``INSTRUCTIONS``), whether Q's operand is held in registers (else
+    read from shared memory), and whether K and V are split into TF32
+    planes once a tile at staging (float32; else as each fragment
+    loads)."""
+    out = (ctypes.c_int * 8)()
     build.load("flash_attention.cu").flash_attention_config(
         DTYPES[dtype], d, out)
-    return dict(zip(("block_q", "block_k", "stages", "threads", "pv_mma_n"),
-                    out))
+    cfg = dict(zip(("block_q", "block_k", "stages", "threads", "pv_mma_n"),
+                   out))
+    cfg["instruction"] = INSTRUCTIONS[out[5]]
+    cfg["q_in_registers"] = bool(out[6])
+    cfg["kv_split_at_staging"] = bool(out[7])
+    return cfg
 
 
 def bwd_config(dtype, d: int) -> Dict[str, object]:
@@ -75,13 +83,13 @@ def bwd_config(dtype, d: int) -> Dict[str, object]:
     there; keys a block of dkdv, queries a tile there and threads a block
     there; the stages of the streamed tiles (bf16: the TMA ring; float32:
     cp.async buffers); and the products' instruction
-    (``BWD_INSTRUCTIONS``)."""
+    (``INSTRUCTIONS``)."""
     out = (ctypes.c_int * 8)()
     build.load("flash_attention_bwd.cu").flash_attention_bwd_config(
         DTYPES[dtype], d, out)
     cfg = dict(zip(("block_q", "block_k", "threads", "dkdv_block_k",
                     "dkdv_block_q", "dkdv_threads", "stages"), out))
-    cfg["instruction"] = BWD_INSTRUCTIONS[out[7]]
+    cfg["instruction"] = INSTRUCTIONS[out[7]]
     return cfg
 
 
@@ -94,9 +102,9 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
     ``block_q`` is the backward's query block (the reference's); ``block_k``
     and ``interpret`` are the reference's tiling and mode arguments, kept
     for the signature: the CUDA kernels use their own tiles (bfloat16:
-    192 queries, or 128 for d > 80, x 64 keys on the tensor cores;
-    float32: 64 x 64 on the CUDA cores, ``config``) and mask the ragged
-    tail by the true key length."""
+    192 queries, or 128 for d > 80, x 64 keys on wgmma; float32: 64
+    queries, or 128 for d > 64, x 64 keys by 3xTF32 on mma.sync,
+    ``config``) and mask the ragged tail by the true key length."""
     return FlashAttention.apply(q, k, v, scale, causal, window, block_q,
                                 flash_attention_fwd)
 

@@ -8,9 +8,7 @@
 (``csrc/flash_attention.cu``) computes, on the model's layouts (q
 (B, Sq, H, d), k/v (B, Sk, KH, d)): q/k/v in float32, the masked
 softmax with -1e30 at masked entries, p float32 in the PV product, the
-output cast to q's dtype. It takes heads in slices so the (heads, Sq,
-Sk) float32 scores stay under ``max_scores`` entries (the serving shape's
-whole score tensor would be 34 GB).
+output cast to q's dtype. It takes heads in slices (``_by_heads``).
 
 ``flash_attention_hilo_plain`` repeats the bf16 kernel's PV arithmetic
 (``csrc/flash_attention.cu``): the tensor cores multiply bf16 operands,
@@ -19,6 +17,12 @@ so the float32 p = exp(s - m) goes in as two bf16 terms, p_hi + p_lo
 from the float32 p. With ``lo=False`` it drops p_lo (p rounded to bf16
 once, as FlashAttention does), which leaves the one-ulp agreement with
 ``flash_attention_plain`` on rows with few visible keys.
+
+``flash_attention_tf32x3_plain`` repeats the float32 kernel's products
+(``csrc/flash_attention.cu``, 3xTF32 on the tensor cores): q k^T and
+p v, each by ``mm_3xtf32``, with p = exp(s - max) unnormalised and the
+output divided by max(sum p, 1e-30) afterwards. ``flash_attention_plain``
+stays the CPU route; this one holds the kernel to its own arithmetic.
 
 ``flash_attention_bwd_plain`` computes what the backward kernel
 (``csrc/flash_attention_bwd.cu``) computes: its three passes (each row's
@@ -70,11 +74,13 @@ def attention_ref(q, k, v, *, scale: float, causal: bool = True,
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
 
 
-def flash_attention_plain(q, k, v, scale: float, causal: bool = True,
-                          window: Optional[int] = None,
-                          max_scores: int = 1 << 28):
-    """q (B, Sq, H, d); k/v (B, Sk, KH, d), KH dividing H -> (B, Sq, H, d)
-    in q's dtype."""
+def _by_heads(q, k, v, causal, window, max_scores, attend):
+    """(B, Sq, H, d) in q's dtype from ``attend(qh, kh, vh, ok)`` -> (h,
+    Sq, d) float32, called on each batch row's heads in slices of h heads
+    (qh (h, Sq, d), kh and vh (h, Sk, d) float32, kv head h // (H / KH)
+    of each; ok the (Sq, Sk) mask), so that the (h, Sq, Sk) float32
+    scores stay under ``max_scores`` entries (the serving shape's whole
+    score tensor would be 34 GB)."""
     B, Sq, H, d = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -87,11 +93,22 @@ def flash_attention_plain(q, k, v, scale: float, causal: bool = True,
             qh = q[b][:, heads].float().transpose(0, 1)         # (h, Sq, d)
             kh = k[b][:, heads // G].float().transpose(0, 1)    # (h, Sk, d)
             vh = v[b][:, heads // G].float().transpose(0, 1)
-            s = torch.matmul(qh, kh.transpose(1, 2)) * scale
-            p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
-            out[b][:, heads] = torch.matmul(p, vh).transpose(0, 1).to(
+            out[b][:, heads] = attend(qh, kh, vh, ok).transpose(0, 1).to(
                 q.dtype)
     return out
+
+
+def flash_attention_plain(q, k, v, scale: float, causal: bool = True,
+                          window: Optional[int] = None,
+                          max_scores: int = 1 << 28):
+    """q (B, Sq, H, d); k/v (B, Sk, KH, d), KH dividing H -> (B, Sq, H, d)
+    in q's dtype."""
+    def attend(qh, kh, vh, ok):
+        s = torch.matmul(qh, kh.transpose(1, 2)) * scale
+        p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
+        return torch.matmul(p, vh)
+
+    return _by_heads(q, k, v, causal, window, max_scores, attend)
 
 
 def split_bf16(p):
@@ -146,6 +163,22 @@ def mm_3xtf32(a, b):
     the sums float32; small.small dropped)."""
     (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
     return torch.matmul(as_, bb) + torch.matmul(ab, bs) + torch.matmul(ab, bb)
+
+
+def flash_attention_tf32x3_plain(q, k, v, scale: float, causal: bool = True,
+                                 window: Optional[int] = None,
+                                 max_scores: int = 1 << 28):
+    """q (B, Sq, H, d); k/v (B, Sk, KH, d), KH dividing H -> (B, Sq, H, d)
+    in q's dtype: s = q k^T * scale by ``mm_3xtf32``, masked -1e30, e =
+    exp(s - max), out = (e v by ``mm_3xtf32``) / max(sum e, 1e-30), all
+    float32."""
+    def attend(qh, kh, vh, ok):
+        s = mm_3xtf32(qh, kh.transpose(1, 2)) * scale
+        s = s.masked_fill(~ok, NEG_INF)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return mm_3xtf32(e, vh) / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+    return _by_heads(q, k, v, causal, window, max_scores, attend)
 
 
 def _flip_ulps(p):

@@ -1130,6 +1130,61 @@ def test_flash_attention_bf16_every_head_dim(cuda, d):
     _within_bf16_ulp(got, want)
 
 
+def _within_tf32x3_plain(got, q, k, v, scale, causal, window):
+    """The float32 kernel against its own arithmetic
+    (``ref.flash_attention_tf32x3_plain``, 3xTF32 products in another
+    order): |d| <= 2e-5 + 1e-4 |x|."""
+    want = fa_ref.flash_attention_tf32x3_plain(q, k, v, scale, causal,
+                                               window)
+    excess = ((got - want).abs() / (2e-5 + 1e-4 * want.abs())).max()
+    assert float(excess) <= 1.0, float(excess)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,d,causal,window", [
+    (2, 1, 1, 2, 1, 64, True, None),      # one query, one key
+    (2, 63, 63, 4, 4, 16, True, None),    # one ragged tile, G 1
+    (1, 65, 65, 4, 2, 48, False, None),   # one row past a tile, G 2
+    (2, 150, 150, 8, 2, 80, True, 100),   # a window ending inside a tile
+    (1, 333, 333, 4, 1, 128, True, 70),   # G 4, d 128, a window
+    (1, 1000, 1000, 4, 2, 64, True, 300),
+    (1, 1000, 1000, 2, 2, 8, False, None),
+    (2, 150, 150, 2, 1, 104, False, 33),  # non-causal, a window inside
+    (1, 333, 333, 8, 8, 24, True, None),
+    (1, 200, 77, 4, 2, 32, False, None),  # fewer keys than queries
+    (1, 100, 333, 4, 4, 80, True, None),  # more keys than queries
+    (1, 1000, 1000, 4, 1, 128, False, 129)])
+def test_flash_attention_f32_tensor_core_edges(cuda, B, Sq, Sk, H, KH, d,
+                                               causal, window):
+    """The float32 kernel (3xTF32 on the tensor cores) at tile edges
+    against both plain versions: ``flash_attention_plain`` within 2e-5,
+    ``flash_attention_tf32x3_plain`` within 2e-5 + 1e-4 |x|; and two calls
+    bit for bit."""
+    rng = np.random.default_rng(Sq * d + H)
+    q, k, v = _qkv(rng, B, Sq, Sk, H, KH, d, torch.float32, cuda)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, window)
+    again = fa_ops.flash_attention(q, k, v, d ** -0.5, causal, window)
+    assert fa_ops.LAUNCHES["flash_attention"] == 2
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, causal, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    _within_tf32x3_plain(got, q, k, v, d ** -0.5, causal, window)
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_attention_f32_every_head_dim(cuda, d):
+    """Every head dim the wrapper takes in float32: the tiles' width is d
+    rounded up to 16, 32, 64, 80 or 128, the columns past d zero."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 1, 150, 150, 4, 2, d, torch.float32, cuda)
+    got = fa_ops.flash_attention(q, k, v, d ** -0.5, True, 100)
+    want = fa_ref.flash_attention_plain(q, k, v, d ** -0.5, True, 100)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    _within_tf32x3_plain(got, q, k, v, d ** -0.5, True, 100)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KH,d", [(5, 5, 8), (10, 2, 40), (9, 1, 96),
                                     (16, 2, 128), (7, 1, 56)])
@@ -1184,9 +1239,9 @@ def _randn(g, *shape):
 
 
 def test_flash_attention_runs_the_kernel_of_its_type(cuda):
-    """bf16 launches the tensor-core kernel, float32 the CUDA-core one,
-    each and only it (torch.profiler's kernel names, each profile in a
-    fresh process)."""
+    """bf16 launches its wgmma kernel, float32 its 3xTF32 tensor-core
+    one, each and only it (torch.profiler's kernel names, each profile in
+    a fresh process)."""
     for dtype, name in fa_ops.KERNELS.items():
         g = torch.Generator("cuda").manual_seed(0)
         q, k, v = (_randn(g, 1, 128, 2, 32).to(dtype) for _ in range(3))
